@@ -1,0 +1,84 @@
+"""Convert the JAX package's parameters, flattened to numpy, into the port's.
+
+The input is ``{path: array}`` keyed as ``checkpoint.read_checkpoint`` (and
+the JAX package's own ``_flatten``) key them.  Two layouts are understood:
+
+* the decoder LM of ``repro.models.transformer``: layers stacked under
+  ``scan/0/...`` (one pattern position, ATTN-only) with ``embed``,
+  ``final_norm`` and ``lm_head``;
+* the embedder of ``repro.models.embedder``: layers stacked under
+  ``scan/...``.
+
+Attention weights come as ``w_q``/``w_k``/``w_v`` (d,h,dh) and ``w_o``
+(h,dh,d) and become ``w_qkv`` (d,(H+2Hk)*dh) and ``w_o`` (H*dh,d); a
+swiglu MLP's ``w_gate``/``w_up`` become ``w_gate_up`` (d,2f).  Norm
+parameters stay fp32; weights take the config's dtype.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models.config import ModelConfig
+
+
+def _f32(a: np.ndarray) -> np.ndarray:
+    # bf16 leaves (ml_dtypes) have no torch counterpart through numpy
+    return np.ascontiguousarray(a.astype(np.float32) if a.dtype.name == "bfloat16" else a)
+
+
+def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
+    return torch.tensor(_f32(a)).to(device=device, dtype=dtype)
+
+
+def _norm(flat, key: str, i, device):
+    out = {"scale": _tensor(flat[key + "/scale"][i] if i is not None else flat[key + "/scale"],
+                            torch.float32, device)}
+    if key + "/bias" in flat:
+        b = flat[key + "/bias"]
+        out["bias"] = _tensor(b[i] if i is not None else b, torch.float32, device)
+    return out
+
+
+def jax_params_to_torch(flat: Dict[str, np.ndarray], cfg: ModelConfig, device="cuda"):
+    """Port parameters for ``cfg`` from a flattened JAX parameter tree, on
+    ``device`` (the card unless the caller asks for ``"cpu"``)."""
+    device = resolve_device(device)
+    if any(k.startswith("rem/") for k in flat) or any(
+            k.startswith("scan/1/") for k in flat):
+        raise NotImplementedError("only single-kind (ATTN) stacks are converted")
+    if cfg.qkv_bias:
+        raise NotImplementedError("qkv_bias is not ported")
+    pre = "scan/0/" if "scan/0/attn/w_q" in flat else "scan/"
+    dt = torch_dtype(cfg.dtype)
+    d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    n_layers = flat[pre + "attn/w_q"].shape[0]
+    if n_layers != cfg.num_layers:
+        raise ValueError(f"checkpoint has {n_layers} layers, config {cfg.num_layers}")
+    layers = []
+    for i in range(n_layers):
+        w = lambda name, i=i: _f32(flat[pre + name][i])
+        w_qkv = np.concatenate([w("attn/w_q").reshape(d, h * dh),
+                                w("attn/w_k").reshape(d, hk * dh),
+                                w("attn/w_v").reshape(d, hk * dh)], axis=-1)
+        if cfg.mlp_type == "swiglu":
+            mlp = {"w_gate_up": np.concatenate([w("mlp/w_gate"), w("mlp/w_up")], axis=-1)}
+        else:
+            mlp = {"w_up": w("mlp/w_up")}
+        mlp["w_down"] = w("mlp/w_down")
+        layers.append({
+            "norm1": _norm(flat, pre + "norm1", i, device),
+            "attn": {"w_qkv": _tensor(w_qkv, dt, device),
+                     "w_o": _tensor(w("attn/w_o").reshape(h * dh, d), dt, device)},
+            "norm2": _norm(flat, pre + "norm2", i, device),
+            "mlp": {k: _tensor(v, dt, device) for k, v in mlp.items()},
+        })
+    params = {"embed": _tensor(flat["embed"], dt, device),
+              "final_norm": _norm(flat, "final_norm", None, device),
+              "layers": layers}
+    if "lm_head" in flat:
+        params["lm_head"] = _tensor(flat["lm_head"], dt, device)
+    return params

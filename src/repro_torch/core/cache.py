@@ -1,0 +1,189 @@
+"""Semantic vector cache, flat index (counterpart of ``src/repro/core/cache.py``).
+
+Fixed-capacity state on the device: unit-norm embeddings, token buffers of
+the cached query/response texts, a validity mask, and the bookkeeping of
+the FIFO (ring pointer), LRU (``last_used`` against ``clock``) and LFU
+(``hits``) policies.  Lookup is the flat cosine top-k scan
+(``kernels.cosine_topk``: the Hopper kernel on CUDA, plain on CPU).
+
+Updates happen in place: the JAX package donates the state buffers to each
+jitted step, so no caller may hold an older state.  The functions still
+return the state dict for the JAX package's calling convention.
+
+Scatters with "no row" (-1) indices: the JAX package routes them out of
+bounds and relies on ``mode="drop"``.  In torch a negative index wraps and
+an out-of-bounds one raises, so every such write here goes through a count
+of touches per slot (``index_add_`` of 0/1, harmless for -1 rows mapped to
+slot 0) or through row ranges the host already knows.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels.cosine_topk import ops as cosine_ops
+
+from . import router as router_lib
+
+POLICIES = ("fifo", "lru", "lfu")
+INT32_MAX = 2 ** 31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheConfig:
+    capacity: int = 4096
+    dim: int = 384
+    max_query_tokens: int = 64
+    max_response_tokens: int = 256
+    policy: str = "fifo"
+    topk: int = 4
+    block_n: int = 1024       # bank rows one lookup-kernel block scans
+    index: str = "flat"       # the IVF index is not ported
+
+    def __post_init__(self):
+        if self.policy not in POLICIES:
+            raise ValueError(f"policy {self.policy!r} not in {POLICIES}")
+        if self.index != "flat":
+            raise NotImplementedError(f"index {self.index!r} is not ported (flat only)")
+
+
+def init_cache(cfg: CacheConfig, device):
+    c = cfg.capacity
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    return {
+        "emb": z((c, cfg.dim), torch.float32),
+        "q_tokens": z((c, cfg.max_query_tokens), torch.int32),
+        "q_mask": z((c, cfg.max_query_tokens), torch.float32),
+        "r_tokens": z((c, cfg.max_response_tokens), torch.int32),
+        "r_mask": z((c, cfg.max_response_tokens), torch.float32),
+        "valid": z((c,), torch.bool),
+        "ptr": z((), torch.int32),          # ring pointer (fifo)
+        "last_used": z((c,), torch.int32),  # lru clock
+        "hits": z((c,), torch.int32),       # lfu counter
+        "clock": z((), torch.int32),
+        "size": z((), torch.int32),
+    }
+
+
+def _normalize(embs):
+    return embs / torch.clamp(torch.linalg.norm(embs, dim=-1, keepdim=True), min=1e-8)
+
+
+def _write_rows(state, slots, rows, embs, q_tokens, q_mask, r_tokens, r_mask, stamps):
+    """Write ``rows`` of the batch into ``slots`` (device int64 (n,)) of every
+    buffer; ``stamps`` (n,) are the rows' ``last_used`` values."""
+    state["emb"].index_copy_(0, slots, embs[rows])
+    state["q_tokens"].index_copy_(0, slots, q_tokens[rows].to(torch.int32))
+    state["q_mask"].index_copy_(0, slots, q_mask[rows].to(torch.float32))
+    state["r_tokens"].index_copy_(0, slots, r_tokens[rows].to(torch.int32))
+    state["r_mask"].index_copy_(0, slots, r_mask[rows].to(torch.float32))
+    state["valid"].index_fill_(0, slots, True)
+    state["last_used"].index_copy_(0, slots, stamps.to(torch.int32))
+    state["hits"].index_fill_(0, slots, 0)
+
+
+def _victim_slot(state, cfg: CacheConfig):
+    """LRU/LFU victim as a 0-d device tensor (no host sync)."""
+    score = state["last_used"] if cfg.policy == "lru" else state["hits"]
+    evict = torch.argmin(torch.where(state["valid"], score, INT32_MAX))
+    full = state["size"] >= cfg.capacity
+    return torch.where(full, evict.to(torch.int32), state["ptr"] % cfg.capacity)
+
+
+def insert_batch(state, cfg: CacheConfig, embs, q_tokens, q_mask, r_tokens, r_mask,
+                 count=None):
+    """Insert the first ``count`` rows of a padded batch; rows past ``count``
+    are padding.  ``count`` is a host int (eager torch has no recompiles to
+    bound).  Returns ``(state, slots)``: slots (B,) int32, -1 for padding.
+
+    FIFO lands row i at ring slot ``(ptr + i) % capacity``; when the batch
+    laps the ring the later row wins, so only rows ``[count - capacity,
+    count)`` are written.  LRU/LFU pick each victim after the previous
+    insert, one row at a time, on the device.
+    """
+    b = embs.shape[0]
+    count = min(b if count is None else int(count), b)
+    dev = embs.device
+    embs = _normalize(embs.to(torch.float32))
+    row = torch.arange(b, dtype=torch.int32, device=dev)
+    if cfg.policy == "fifo":
+        slots = (state["ptr"] + row) % cfg.capacity
+        lo = max(0, count - cfg.capacity)
+        if count > lo:
+            rows = slice(lo, count)
+            _write_rows(state, slots[rows].long(), rows, embs, q_tokens, q_mask,
+                        r_tokens, r_mask, state["clock"] + row[rows])
+        state["ptr"] += count
+        state["clock"] += count
+        state["size"].copy_(torch.clamp(state["size"] + count, max=cfg.capacity))
+        return state, torch.where(row < count, slots, -1).to(torch.int32)
+    slots = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    for i in range(count):
+        slot = _victim_slot(state, cfg)
+        _write_rows(state, slot.long().view(1), slice(i, i + 1), embs, q_tokens,
+                    q_mask, r_tokens, r_mask, state["clock"].view(1))
+        slots[i] = slot
+        state["ptr"] += 1
+        state["clock"] += 1
+        state["size"].copy_(torch.clamp(state["size"] + 1, max=cfg.capacity))
+    return state, slots
+
+
+def lookup(state, cfg: CacheConfig, q_embs):
+    """q_embs (B,D) unit vectors -> (scores (B,k), indices (B,k))."""
+    k = min(cfg.topk, cfg.capacity)
+    return cosine_ops.cosine_topk(q_embs.contiguous(), state["emb"], state["valid"],
+                                  k=k, block_n=min(cfg.block_n, cfg.capacity))
+
+
+def _touch_rows(state, cfg: CacheConfig, indices, hit):
+    """Record a hit on ``indices[hit]``: last_used <- clock, hits += 1;
+    rows with ``hit`` False (or index -1) touch nothing.  The clock ticks."""
+    w = torch.where(hit, indices, 0).long()
+    n = torch.zeros(cfg.capacity, dtype=torch.int32, device=indices.device)
+    n.index_add_(0, w, hit.to(torch.int32))
+    state["hits"] += n
+    state["last_used"].copy_(torch.where(n > 0, state["clock"], state["last_used"]))
+    state["clock"] += 1
+    return state
+
+
+def touch(state, cfg: CacheConfig, indices):
+    """Record hits for LRU/LFU accounting.  indices (B,) top-1 hits; -1 is a
+    no-op (an unguarded scatter at -1 would touch the last slot)."""
+    return _touch_rows(state, cfg, indices, indices >= 0)
+
+
+def lookup_and_touch(state, cfg: CacheConfig, router_cfg, q_embs):
+    """Fused lookup + routing + hit accounting.
+    Returns ``(state, scores (B,k), indices (B,k), decisions (B,))``."""
+    scores, idx = lookup(state, cfg, q_embs)
+    decisions = router_lib.route(scores[:, 0], router_cfg)
+    top1 = idx[:, 0]
+    _touch_rows(state, cfg, top1, (decisions != router_lib.MISS) & (top1 >= 0))
+    return state, scores, idx, decisions
+
+
+def route_touch_core(state, cfg: CacheConfig, router_cfg, q_embs, scores, idx, cost):
+    """Route the top-k at per-row operating points and touch committed hits.
+    Returns ``(state, decisions, tau, cluster, admit)``; a flat cache has no
+    clusters (-1) and admits every row."""
+    tau = router_lib.threshold_for(cost, router_cfg)
+    decisions = router_lib.route_cascade(scores[:, 0], tau, router_cfg)
+    top1 = idx[:, 0]
+    hit = ((decisions == router_lib.TWEAK) | (decisions == router_lib.EXACT)) & (top1 >= 0)
+    _touch_rows(state, cfg, top1, hit)
+    b = scores.shape[0]
+    cluster = torch.full((b,), -1, dtype=torch.int32, device=scores.device)
+    admit = torch.ones((b,), dtype=torch.bool, device=scores.device)
+    return state, decisions, tau, cluster, admit
+
+
+def lookup_route_touch(state, cfg: CacheConfig, router_cfg, q_embs, cost):
+    """Fused stage 1: lookup, route at per-row costs, touch.
+    Returns ``(state, scores, indices, decisions, tau, cluster, admit)``."""
+    scores, idx = lookup(state, cfg, q_embs)
+    state, decisions, tau, cluster, admit = route_touch_core(
+        state, cfg, router_cfg, q_embs, scores, idx, cost)
+    return state, scores, idx, decisions, tau, cluster, admit

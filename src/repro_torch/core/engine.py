@@ -1,0 +1,500 @@
+"""TweakLLMEngine — the paper's Figure-1 pipeline on one device (counterpart
+of ``src/repro/core/engine.py``: one engine, one local flat bank, FIFO/LRU/
+LFU, the single-stage router, dense greedy or sampled decode).
+
+Per batch of text queries:
+  1. tokenize + embed (MiniLM-class embedder, unit vectors);
+  2. fused lookup + route + touch on the bank (cosine top-k kernel);
+  3. ONE device->host copy of scores, slots and decisions;
+  4. EXACT -> the cached response verbatim;
+     TWEAK -> the small LM prefills the Appendix-A prompt's suffix over the
+              shared instruction-prefix KV and decodes;
+     MISS  -> the big LM prefills the query and decodes, then the pair is
+              committed with one ``insert_batch``.
+
+Token counts are real generated tokens (up to and including each row's
+EOS) and real prompt lengths, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import to_device
+from repro_torch.models.embedder import encode as embed_encode
+from repro_torch.serving.batcher import (bucket_batch, bucket_len, floor_len_bucket,
+                                         pad_to_buckets)
+from repro_torch.serving.generate import Generator
+from repro_torch.tokenizer import HashWordTokenizer
+
+from . import cache as cache_lib
+from . import router as router_lib
+from . import tweak as tweak_lib
+
+
+@dataclasses.dataclass
+class EngineStats:
+    total: int = 0
+    miss: int = 0
+    tweak: int = 0
+    exact: int = 0
+    # stage-2 cascade counters of the reference; 0 at band 0
+    uncertain: int = 0
+    recovered: int = 0
+    suppressed_inserts: int = 0
+    big_tokens: int = 0             # REAL generated tokens, Big LLM
+    small_tokens: int = 0           # REAL generated tokens, Small LLM
+    big_prompt_tokens: int = 0      # real (unpadded) prompt tokens
+    small_prompt_tokens: int = 0
+    baseline_prompt_tokens: int = 0  # real query tokens of all requests
+    # speculative-decode counters of the reference; 0 without speculation
+    proposed: int = 0
+    accepted: int = 0
+    spec_steps: int = 0
+    big_cost_per_token: float = 25.0
+    small_cost_per_token: float = 1.0
+
+    @property
+    def cost(self) -> float:
+        return ((self.big_tokens + self.big_prompt_tokens) * self.big_cost_per_token
+                + (self.small_tokens + self.small_prompt_tokens) * self.small_cost_per_token)
+
+    @property
+    def baseline_cost(self) -> float:
+        """What the same traffic would cost all-Big."""
+        return (self.big_tokens + self.small_tokens
+                + self.baseline_prompt_tokens) * self.big_cost_per_token
+
+    @property
+    def hit_rate(self) -> float:
+        return (self.tweak + self.exact) / max(self.total, 1)
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """Per-batch responses with per-request metadata (sim, decision, band,
+    generated tokens) and the batch's token counts."""
+    responses: List[str]
+    meta: List[dict]
+    big_tokens: int = 0
+    small_tokens: int = 0
+    big_prompt_tokens: int = 0
+    small_prompt_tokens: int = 0
+
+
+class SharedCacheBank:
+    """The semantic cache state on one device plus its host text mirror.
+
+    A local bank serves one engine; the state is updated in place by every
+    lookup and commit.
+    """
+
+    def __init__(self, cache_cfg: cache_lib.CacheConfig,
+                 router_cfg: Optional[router_lib.RouterConfig] = None, *,
+                 device="cuda", state=None):
+        self.cfg = cache_cfg
+        self.router_cfg = router_cfg or router_lib.RouterConfig()
+        self.device = torch.device(device)
+        self.text_store: Dict[int, Tuple[str, str]] = {}
+        self._default_costs: Dict[int, torch.Tensor] = {}
+        self.state = cache_lib.init_cache(cache_cfg, self.device) if state is None else state
+
+    def default_cost(self, batch: int):
+        """The (batch,) default-cost tensor, built once per batch size."""
+        c = self._default_costs.get(batch)
+        if c is None:
+            c = torch.full((batch,), self.router_cfg.default_cost, dtype=torch.float32,
+                           device=self.device)
+            self._default_costs[batch] = c
+        return c
+
+    def route_batch(self, q_embs, cost=None):
+        """Fused lookup + route + touch.  Returns device tensors
+        ``(scores, idx, decisions, tau, cluster, admit)``."""
+        if cost is None:
+            cost = self.default_cost(q_embs.shape[0])
+        (self.state, scores, idx, dec, tau, cluster, admit) = cache_lib.lookup_route_touch(
+            self.state, self.cfg, self.router_cfg, q_embs, cost)
+        return scores, idx, dec, tau, cluster, admit
+
+    def insert_batch(self, embs, q_tokens, q_mask, r_tokens, r_mask, count):
+        """One commit; returns the device ``slots`` tensor."""
+        self.state, slots = cache_lib.insert_batch(self.state, self.cfg, embs, q_tokens,
+                                                   q_mask, r_tokens, r_mask, count)
+        return slots
+
+
+def _fetch_route(scores, idx, dec):
+    """Scores (B,k) f32, indices (B,k) i32 and decisions (B,) i32 to the host
+    in ONE copy: the integers ride bit-for-bit as float32 lanes."""
+    packed = torch.cat([scores, idx.view(torch.float32),
+                        dec.to(torch.int32).view(torch.float32)[:, None]], dim=1)
+    host = packed.cpu().numpy()
+    k = scores.shape[1]
+    return (host[:, :k], host[:, k:2 * k].view(np.int32),
+            host[:, 2 * k].view(np.int32))
+
+
+class TweakLLMEngine:
+    def __init__(self, *, tokenizer: HashWordTokenizer, embedder_params, embedder_cfg,
+                 big: Generator, small: Generator,
+                 cache_cfg: Optional[cache_lib.CacheConfig] = None,
+                 router_cfg: Optional[router_lib.RouterConfig] = None,
+                 max_query_len: int = 64, use_prefix_cache: bool = True,
+                 bank: Optional[SharedCacheBank] = None):
+        if bank is None:
+            if cache_cfg is None:
+                raise ValueError("pass cache_cfg or a SharedCacheBank")
+            bank = SharedCacheBank(cache_cfg, router_cfg,
+                                   device=embedder_params["embed"].device)
+        self.bank = bank
+        self.tok = tokenizer
+        self.embedder_params = embedder_params
+        self.embedder_cfg = embedder_cfg
+        self.device = embedder_params["embed"].device
+        self.big = big
+        self.small = small
+        self.cache_cfg = bank.cfg
+        self.router_cfg = bank.router_cfg
+        self.max_query_len = max_query_len
+        self.use_prefix_cache = use_prefix_cache
+        self.stats = EngineStats()
+        # tweak-instruction prefix KV, one PrefixCache per batch bucket,
+        # rebuilt when the small generator, its configs or the ids change
+        self._prefix_ids: Optional[Tuple[int, ...]] = None
+        self._prefix_caches: Dict[int, object] = {}
+        self._prefix_sig = None
+        self._static_counts: Optional[Tuple[int, int]] = None
+        # per-batch seeds: distinct serve batches sample distinct streams
+        self._seed_seq = itertools.count()
+
+    @property
+    def state(self):
+        return self.bank.state
+
+    @property
+    def _text_store(self) -> Dict[int, Tuple[str, str]]:
+        return self.bank.text_store
+
+    # ------------------------------------------------------------- embed
+    def embed_texts(self, texts: List[str]):
+        return self._embed_with_lengths(texts)[0]
+
+    def _embed_with_lengths(self, texts: List[str]):
+        """(embeddings (n,D) on the device, real query-token lengths)."""
+        toks, mask = self.tok.encode_batch(texts, self.max_query_len)
+        qlens = mask.sum(axis=1).astype(np.int64).tolist()
+        ptoks, pmask, b = pad_to_buckets(toks, mask)
+        embs = embed_encode(self.embedder_params, to_device(ptoks, self.device).long(),
+                            to_device(pmask, self.device), self.embedder_cfg)[:b]
+        return embs, qlens
+
+    # ------------------------------------------------------------- serve
+    def handle_batch(self, queries: List[str], *, max_new_tokens: int = 32,
+                     collect_meta: bool = False, cost_thresholds=None):
+        res = self.handle_batch_result(queries, max_new_tokens=max_new_tokens,
+                                       cost_thresholds=cost_thresholds)
+        if collect_meta:
+            return res.responses, res.meta
+        return res.responses
+
+    def _resolve_costs(self, n: int, cost_thresholds) -> List[float]:
+        dc = self.router_cfg.default_cost
+        if cost_thresholds is None:
+            return [dc] * n
+        if np.isscalar(cost_thresholds):
+            return [float(cost_thresholds)] * n
+        if len(cost_thresholds) != n:
+            raise ValueError(f"{len(cost_thresholds)} cost thresholds for {n} queries")
+        return [dc if c is None else float(c) for c in cost_thresholds]
+
+    def handle_batch_result(self, queries: List[str], *, max_new_tokens: int = 32,
+                            cost_thresholds=None) -> BatchResult:
+        """Serve a batch; responses plus per-request metadata."""
+        queries = [tweak_lib.preprocess_query(q) for q in queries]
+        n = len(queries)
+        if n == 0:
+            return BatchResult([], [])
+        # fail fast on an unservable budget before any state changes
+        self._tweak_encode_len(max_new_tokens)
+        cost_l = self._resolve_costs(n, cost_thresholds)
+        embs, qlens = self._embed_with_lengths(queries)
+        self.stats.baseline_prompt_tokens += sum(qlens)
+        cost_dev = (None if cost_thresholds is None
+                    else to_device(np.asarray(cost_l, np.float32), self.device))
+        d_scores, d_idx, d_dec, *_ = self.bank.route_batch(embs, cost_dev)
+        # THE per-serve-batch device->host sync
+        scores, idxs, decisions = _fetch_route(d_scores, d_idx, d_dec)
+        top1 = scores[:, 0]
+        slot_l = idxs[:, 0].tolist()
+        dec_l = decisions.tolist()
+
+        responses: List[Optional[str]] = [None] * n
+        gen_tokens = [0] * n
+        prompt_tokens = [0] * n
+        for i in np.nonzero(decisions == router_lib.EXACT)[0]:
+            cached = self._text_store.get(slot_l[i])
+            responses[i] = cached[1] if cached else self._decode_cached(slot_l[i])
+            self.stats.exact += 1
+        tweak_ids = np.nonzero(decisions == router_lib.TWEAK)[0]
+        if len(tweak_ids):
+            self._run_tweak(queries, tweak_ids, slot_l, responses, max_new_tokens,
+                            gen_tokens, prompt_tokens)
+        miss_ids = np.nonzero(decisions == router_lib.MISS)[0]
+        if len(miss_ids):
+            self._run_miss(queries, miss_ids, embs, responses, max_new_tokens,
+                           gen_tokens, prompt_tokens)
+
+        self.stats.total += n
+        bands = np.full(n, -1, np.int32)
+        for bi, (lo, hi) in enumerate(router_lib.bands_for(self.router_cfg)):
+            bands[(top1 >= lo) & (top1 < hi)] = bi
+        top1_l = top1.tolist()
+        meta = [{"sim": top1_l[i], "decision": dec_l[i], "band": int(bands[i]),
+                 "gen_tokens": gen_tokens[i], "cost": cost_l[i], "stage2": False}
+                for i in range(n)]
+        miss = decisions == router_lib.MISS
+        return BatchResult(
+            responses, meta,
+            big_tokens=sum(t for i, t in enumerate(gen_tokens) if miss[i]),
+            small_tokens=sum(t for i, t in enumerate(gen_tokens) if not miss[i]),
+            big_prompt_tokens=sum(t for i, t in enumerate(prompt_tokens) if miss[i]),
+            small_prompt_tokens=sum(t for i, t in enumerate(prompt_tokens) if not miss[i]))
+
+    # ------------------------------------------------------------- paths
+    def _next_seed(self) -> int:
+        return next(self._seed_seq)
+
+    def _decode_slot(self, slot: int, which: str) -> List[int]:
+        """A slot's cached ``q`` or ``r`` tokens from the device (a cold
+        fallback, and a host sync, when the text mirror lacks the slot)."""
+        toks = self.state[f"{which}_tokens"][slot].cpu().numpy().tolist()
+        mask = self.state[f"{which}_mask"][slot].cpu().numpy().tolist()
+        return [t for t, m in zip(toks, mask) if m > 0]
+
+    def _decode_cached(self, slot: int) -> str:
+        return self.tok.decode_ids(self._decode_slot(slot, "r"))
+
+    def _decode_cached_query(self, slot: int) -> str:
+        return self.tok.decode_ids([t for t in self._decode_slot(slot, "q")
+                                    if t != self.tok.bos])
+
+    @staticmethod
+    def _visible_ids(row: np.ndarray, n_gen: int, ended: bool) -> List[int]:
+        """Visible ids of a generated row: everything before its EOS."""
+        return row[:n_gen - 1 if ended else n_gen].tolist()
+
+    def _tweak_static_tokens(self, suffix_only: bool = False) -> int:
+        if self._static_counts is None:
+            self._static_counts = (
+                tweak_lib.static_token_count(self.tok),
+                tweak_lib.static_token_count(self.tok, suffix_only=True))
+        return self._static_counts[1 if suffix_only else 0]
+
+    def _tweak_encode_len(self, max_new_tokens: int) -> int:
+        """Prompt-token budget for the tweak path, bucket-rounding-safe
+        (see the reference for the reasoning); raises when nothing fits."""
+        msl = self.small.model.cfg.max_seq_len
+        budget = msl - max_new_tokens - 1
+        if budget < 1:
+            raise ValueError(
+                f"max_new_tokens={max_new_tokens} leaves no room for the "
+                f"tweak prompt: small model max_seq_len={msl} requires "
+                f"max_new_tokens <= {msl - 2}")
+        if bucket_len(budget) + max_new_tokens + 1 > msl:
+            budget = floor_len_bucket(budget)
+            if bucket_len(budget) + max_new_tokens + 1 > msl:
+                raise ValueError(
+                    f"max_new_tokens={max_new_tokens} leaves no length "
+                    f"bucket for the tweak prompt within small model "
+                    f"max_seq_len={msl} (smallest bucket rounds past it)")
+        statics = self._tweak_static_tokens()
+        if budget < statics:
+            raise ValueError(
+                f"max_new_tokens={max_new_tokens} leaves a {budget}-token "
+                f"tweak prompt budget, below the {statics} tokens the "
+                f"static Appendix-A segments need — lower max_new_tokens "
+                f"or raise the small model's max_seq_len={msl}")
+        return budget
+
+    # ------------------------------------------------- tweak prefix cache
+    def _tweak_prefix_ids(self) -> Tuple[int, ...]:
+        if self._prefix_ids is None:
+            self._prefix_ids = tuple(tweak_lib.tweak_prefix_ids(self.tok))
+        return self._prefix_ids
+
+    def _prefix_path_available(self) -> bool:
+        return (self.use_prefix_cache
+                and getattr(self.small, "supports_prefix_prefill", False)
+                and callable(getattr(self.small, "build_prefix_cache", None)))
+
+    def _small_prefix_cache(self, batch: int):
+        """The instruction-prefix PrefixCache for one batch bucket, rebuilt
+        when the small generator object, its configs or the ids change."""
+        ids = self._tweak_prefix_ids()
+        sig = (id(self.small), self.small.model.cfg, getattr(self.small, "cfg", None), ids)
+        if sig != self._prefix_sig:
+            self._prefix_caches.clear()
+            self._prefix_sig = sig
+        pc = self._prefix_caches.get(batch)
+        if pc is None:
+            pc = self.small.build_prefix_cache(ids, batch)
+            self._prefix_caches[batch] = pc
+        return pc
+
+    def _tweak_suffix_budget(self, max_new_tokens: int, prefix_len: int) -> Optional[int]:
+        """Per-row suffix budget for the prefix-cached prefill, or None when
+        no bucket fits (the caller then takes the full-prompt path)."""
+        msl = self.small.model.cfg.max_seq_len
+        budget = msl - max_new_tokens - 1 - prefix_len
+        if budget < 1:
+            return None
+        if bucket_len(budget) + prefix_len + max_new_tokens + 1 > msl:
+            budget = floor_len_bucket(budget)
+            if bucket_len(budget) + prefix_len + max_new_tokens + 1 > msl:
+                return None
+        if budget < self._tweak_static_tokens(suffix_only=True):
+            return None
+        return budget
+
+    def _run_tweak(self, queries, ids, slot_l, responses, max_new_tokens,
+                   gen_tokens, prompt_tokens):
+        cached = []
+        for i in ids:
+            c = self._text_store.get(slot_l[i])
+            if c is None:
+                c = (self._decode_cached_query(slot_l[i]), self._decode_cached(slot_l[i]))
+            cached.append(c)
+        new_qs = [queries[i] for i in ids]
+        cqs = [cq for cq, _ in cached]
+        crs = [cr for _, cr in cached]
+        suffix_budget = None
+        if self._prefix_path_available():
+            suffix_budget = self._tweak_suffix_budget(max_new_tokens,
+                                                      len(self._tweak_prefix_ids()))
+        if suffix_budget is None:
+            self._run_tweak_full(new_qs, cqs, crs, ids, responses, max_new_tokens,
+                                 gen_tokens, prompt_tokens)
+        else:
+            self._run_tweak_prefixed(new_qs, cqs, crs, ids, responses, max_new_tokens,
+                                     suffix_budget, gen_tokens, prompt_tokens)
+
+    def _emit_tweak_rows(self, rows, ids, out, lengths, ended, responses, gen_tokens):
+        lengths = lengths.tolist()
+        ended = ended.tolist()
+        for j, row in enumerate(rows):
+            i = ids[row]
+            n_gen = lengths[j]
+            responses[i] = self.tok.decode_ids(self._visible_ids(out[j], n_gen, ended[j]))
+            self.stats.small_tokens += n_gen
+            self.stats.tweak += 1
+            gen_tokens[i] = n_gen
+
+    def _run_tweak_full(self, new_qs, cqs, crs, ids, responses, max_new_tokens,
+                        gen_tokens, prompt_tokens):
+        """Prefill the whole Appendix-A prompt (no prefix reuse)."""
+        toks, mask = tweak_lib.build_tweak_batch(
+            self.tok, new_qs, cqs, crs, self._tweak_encode_len(max_new_tokens))
+        real_lens = mask.sum(axis=1).astype(np.int64).tolist()
+        toks, mask, _ = pad_to_buckets(toks, mask)
+        out, lengths, ended = self.small.generate_with_lengths(
+            {"tokens": toks}, max_new_tokens=max_new_tokens, seed=self._next_seed())
+        self._emit_tweak_rows(range(len(ids)), ids, out, lengths, ended, responses,
+                              gen_tokens)
+        for j, i in enumerate(ids):
+            prompt_tokens[i] = real_lens[j]
+            self.stats.small_prompt_tokens += real_lens[j]
+
+    def _run_tweak_prefixed(self, new_qs, cqs, crs, ids, responses, max_new_tokens,
+                            suffix_budget, gen_tokens, prompt_tokens):
+        """Shared-prefix KV reuse, rows grouped by the length bucket of their
+        REAL suffix."""
+        prefix_ids = self._tweak_prefix_ids()
+        toks, mask = tweak_lib.build_tweak_suffix_batch(self.tok, new_qs, cqs, crs,
+                                                        suffix_budget)
+        real_lens = mask.sum(axis=1).astype(np.int64).tolist()
+        groups: Dict[int, List[int]] = {}
+        for row, rl in enumerate(real_lens):
+            groups.setdefault(bucket_len(max(rl, 1)), []).append(row)
+        for bucket in sorted(groups):
+            rows = groups[bucket]
+            sub_t = pad_to_buckets(toks[rows][:, :bucket], mask[rows][:, :bucket])[0]
+            pc = self._small_prefix_cache(sub_t.shape[0])
+            out, lengths, ended = self.small.generate_with_lengths(
+                {"tokens": sub_t}, max_new_tokens=max_new_tokens, seed=self._next_seed(),
+                prefix_cache=pc)
+            self._emit_tweak_rows(rows, ids, out, lengths, ended, responses, gen_tokens)
+            for row in rows:
+                real = len(prefix_ids) + real_lens[row]
+                prompt_tokens[ids[row]] = real
+                self.stats.small_prompt_tokens += real
+
+    def _insert_entries(self, texts, resp_tokens, resp_texts, embs):
+        """Commit entries to the bank in one call; one host copy of slots."""
+        n = len(texts)
+        ccfg = self.cache_cfg
+        qt, qm = self.tok.encode_batch(texts, ccfg.max_query_tokens)
+        rt = np.zeros((n, ccfg.max_response_tokens), np.int32)
+        rm = np.zeros((n, ccfg.max_response_tokens), np.float32)
+        for j, ids in enumerate(resp_tokens):
+            rl = min(len(ids), ccfg.max_response_tokens)
+            rt[j, :rl] = ids[:rl]
+            rm[j, :rl] = 1.0
+        nb = bucket_batch(n)
+        pad = lambda a: (np.concatenate([a, np.zeros((nb - n,) + a.shape[1:], a.dtype)])
+                         if nb > n else a)
+        if nb > n:
+            embs = torch.cat([embs, embs.new_zeros((nb - n, embs.shape[1]))])
+        dev = self.device
+        slots = self.bank.insert_batch(embs, to_device(pad(qt), dev), to_device(pad(qm), dev),
+                                       to_device(pad(rt), dev), to_device(pad(rm), dev), n)
+        slots = slots.cpu().numpy().tolist()  # the one host copy per insert
+        for j in range(n):
+            self._text_store[slots[j]] = (texts[j], resp_texts[j])
+
+    def _run_miss(self, queries, ids, embs, responses, max_new_tokens,
+                  gen_tokens, prompt_tokens):
+        texts = [queries[i] for i in ids]
+        toks, mask = self.tok.encode_batch(texts, self.max_query_len)
+        real_lens = mask.sum(axis=1).astype(np.int64).tolist()
+        toks, mask, _ = pad_to_buckets(toks, mask)
+        out, lengths, ended = self.big.generate_with_lengths(
+            {"tokens": toks}, max_new_tokens=max_new_tokens, seed=self._next_seed())
+        lengths = lengths.tolist()
+        ended = ended.tolist()
+        resp_tokens, resp_texts = [], []
+        for j, i in enumerate(ids):
+            n_gen = lengths[j]
+            visible = self._visible_ids(out[j], n_gen, ended[j])
+            resp_text = self.tok.decode_ids(visible)
+            responses[i] = resp_text
+            resp_tokens.append(visible)
+            resp_texts.append(resp_text)
+            self.stats.big_tokens += n_gen
+            self.stats.big_prompt_tokens += real_lens[j]
+            self.stats.miss += 1
+            gen_tokens[i] = n_gen
+            prompt_tokens[i] = real_lens[j]
+        rows = to_device(np.asarray(ids, np.int64), self.device)
+        self._insert_entries(texts, resp_tokens, resp_texts, embs[rows])
+
+    # ------------------------------------------------- offline population
+    def populate(self, queries: List[str], responses: List[str]):
+        """Bulk-insert known (query, response) pairs."""
+        if len(queries) != len(responses):
+            raise ValueError(f"populate got {len(queries)} queries but "
+                             f"{len(responses)} responses")
+        if not queries:
+            return
+        queries = [tweak_lib.preprocess_query(q) for q in queries]
+        embs = self.embed_texts(queries)
+        rt, rm = self.tok.encode_batch(responses, self.cache_cfg.max_response_tokens,
+                                       add_bos=False)
+        rt_l, rm_l = rt.tolist(), rm.tolist()
+        resp_tokens = [[t for t, m in zip(rt_l[i], rm_l[i]) if m > 0]
+                       for i in range(len(queries))]
+        self._insert_entries(queries, resp_tokens, responses, embs)

@@ -1,0 +1,108 @@
+"""Threshold routing (counterpart of ``src/repro/core/router.py``).
+
+The single-stage router of the paper (§3.1) with the JAX package's
+calibrated operating curve: a per-request cost in [0, 1] picks the
+TWEAK/MISS boundary ``tau`` (``threshold_for``), and ``route_cascade``
+thresholds the top-1 similarity at it.  At ``cost == default_cost`` tau is
+``tweak_threshold`` exactly, so ``route`` is that operating point.  The
+stage-2 cascade (``band > 0``), the reranker and admission control are not
+ported: a ``band > 0`` config raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+MISS, TWEAK, EXACT = 0, 1, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class RouterConfig:
+    tweak_threshold: float = 0.7   # paper Table 1 initial threshold
+    exact_threshold: float = 0.9999
+    default_cost: float = 0.5
+    cal_costs: tuple = ()
+    cal_taus: tuple = ()
+    cal_span: float = 0.2
+    band: float = 0.0
+
+    def __post_init__(self):
+        if len(self.cal_costs) != len(self.cal_taus):
+            raise ValueError(
+                f"calibration knots disagree: {len(self.cal_costs)} costs "
+                f"vs {len(self.cal_taus)} taus")
+        if self.cal_costs and len(self.cal_costs) < 2:
+            raise ValueError("calibration needs >= 2 knots")
+        if not 0.0 <= self.default_cost <= 1.0:
+            raise ValueError(f"default_cost {self.default_cost} not in [0,1]")
+        if self.band > 0.0:
+            raise NotImplementedError("the stage-2 router cascade (band > 0) is not ported")
+
+
+def calibration(cfg: RouterConfig):
+    """The (cal_costs, cal_taus) knots as python floats, derived when not given."""
+    if cfg.cal_costs:
+        return tuple(cfg.cal_costs), tuple(cfg.cal_taus)
+    t = float(cfg.tweak_threshold)
+    dc = min(max(float(cfg.default_cost), 1e-3), 1.0 - 1e-3)
+    return (0.0, dc, 1.0), (t - cfg.cal_span, t, 1.0)
+
+
+def _interp(x, xs, ys):
+    """``jnp.interp`` (same formula, so the same float32 result)."""
+    # knots go up without waiting for the stream (a blocking copy would sync)
+    xs_t = torch.tensor(xs, dtype=torch.float32).to(x.device, non_blocking=True)
+    ys_t = torch.tensor(ys, dtype=torch.float32).to(x.device, non_blocking=True)
+    i = torch.clamp(torch.searchsorted(xs_t, x, right=True), 1, len(xs) - 1)
+    df = ys_t[i] - ys_t[i - 1]
+    dx = xs_t[i] - xs_t[i - 1]
+    delta = x - xs_t[i - 1]
+    dx0 = dx.abs() <= float(np.spacing(np.finfo(np.float32).eps))
+    f = torch.where(dx0, ys_t[i - 1], ys_t[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x < xs_t[0], ys_t[0], f)
+    return torch.where(x > xs_t[-1], ys_t[-1], f)
+
+
+def threshold_for(cost, cfg: RouterConfig):
+    """Per-request TWEAK/MISS boundary tau (B,) float32 from costs (B,)."""
+    cost = cost.to(torch.float32)
+    xs, ys = calibration(cfg)
+    tau = _interp(cost, xs, ys)
+    if not cfg.cal_costs:
+        tau = torch.where(cost == cfg.default_cost, cfg.tweak_threshold, tau)
+    return tau
+
+
+def route(scores, cfg: RouterConfig):
+    """scores (B,) top-1 cosine similarity -> decisions (B,) int32."""
+    d = torch.where(scores >= cfg.tweak_threshold, TWEAK, MISS)
+    return torch.where(scores >= cfg.exact_threshold, EXACT, d).to(torch.int32)
+
+
+def route_cascade(top1, tau, cfg: RouterConfig):
+    """Stage-1 decisions at per-row operating points ``tau`` (band 0)."""
+    d = torch.where(top1 >= tau, TWEAK, MISS)
+    return torch.where(top1 >= cfg.exact_threshold, EXACT, d).to(torch.int32)
+
+
+def band_edges(cfg: RouterConfig = None):
+    """Similarity-band edges for the active config (paper bands at 0.7)."""
+    lo = 0.7 if cfg is None else float(cfg.tweak_threshold)
+    width = max((1.0 - lo) / 3.0, 0.0)
+    e = [round(lo + i * width, 9) for i in range(3)]
+    return (*e, max(1.01, lo))
+
+
+def bands_for(cfg: RouterConfig = None):
+    e = band_edges(cfg)
+    return tuple((e[i], e[i + 1]) for i in range(3))
+
+
+def band_of(scores, cfg: RouterConfig = None):
+    """Band index per query: -1 below the tweak threshold, else 0/1/2."""
+    b = torch.full(scores.shape, -1, dtype=torch.int32, device=scores.device)
+    for i, (lo, hi) in enumerate(bands_for(cfg)):
+        b = torch.where((scores >= lo) & (scores < hi), i, b)
+    return b

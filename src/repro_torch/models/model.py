@@ -1,0 +1,67 @@
+"""``Model`` facade over the ported decoder-only stack (counterpart of
+``src/repro/models/model.py``, decoder-only ATTN stacks only).
+
+Prefix-prefill contract (DESIGN.md §9): ``prefill_prefix`` returns the KV
+state of a shared prompt prefix and ``prefill_with_prefix`` prefills only
+the suffix while attending over it; the result matches ``prefill`` of the
+concatenation.  Within the port on the CPU the match is held by the tests
+(``tests/test_torch_model.py``); on the card cuBLAS may reduce the prefix's
+K/V projection in another order at another row count, so it is held to
+the generated tokens.  Only the fixed-block ``xla_flash`` attention
+qualifies, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from . import transformer as tf_lib
+from .config import ATTN, ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def init(self, generator, device):
+        return tf_lib.init_lm(self.cfg, generator, device)
+
+    def prefill(self, params, batch, capacity: int):
+        return tf_lib.prefill(params, batch["tokens"], self.cfg, capacity)
+
+    @property
+    def supports_prefix_prefill(self) -> bool:
+        cfg = self.cfg
+        return (cfg.enc_layers == 0 and cfg.sliding_window == 0
+                and set(cfg.block_pattern) == {ATTN} and cfg.num_prefix_tokens == 0
+                and cfg.attention_impl == "xla_flash")
+
+    def _require_prefix(self):
+        if not self.supports_prefix_prefill:
+            raise NotImplementedError(
+                f"{self.cfg.name}: prefix-cached prefill unsupported for this "
+                f"architecture — use the full prefill")
+
+    def prefill_prefix(self, params, tokens):
+        """KV state of a shared prefix: tokens (B,P) -> caches (capacity P)."""
+        self._require_prefix()
+        _, caches = tf_lib.prefill(params, tokens, self.cfg, capacity=int(tokens.shape[1]))
+        return caches
+
+    def prefill_with_prefix(self, params, batch, capacity: int, prefix):
+        """Suffix-only prefill over a stored prefix KV."""
+        self._require_prefix()
+        return tf_lib.prefill(params, batch["tokens"], self.cfg, capacity, prefix=prefix)
+
+    def init_caches(self, batch_size: int, capacity: int, device):
+        return tf_lib.init_caches(batch_size, capacity, self.cfg, device)
+
+    def decode_step(self, params, token, caches):
+        return tf_lib.decode_step(params, token, caches, self.cfg)
+
+    def decode_block(self, params, tokens, caches):
+        raise NotImplementedError("q-block (speculative) decode is not ported")
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    tf_lib.check_supported(cfg)
+    return Model(cfg=cfg)

@@ -1,0 +1,132 @@
+"""Decoder-only LM of global-attention blocks (the ATTN stack of
+``src/repro/models/transformer.py``).
+
+Parameters are a dict: ``embed`` (V,d), ``final_norm``, ``lm_head`` (d,V)
+unless tied, and ``layers``, one dict per block.  Caches keep the JAX
+package's ``{"scan", "rem", "pos"}`` structure: ``scan[0]`` stacks every
+layer's dense KV (``k``/``v`` (L,B,T,Hk,dh), ``slot_pos`` (L,B,T)), ``rem``
+is empty for an ATTN-only stack, and ``pos`` (the tokens already in the
+cache) is a host integer, so decode needs no device round trip to place
+the next token.
+
+  prefill(params, tokens, cfg, capacity[, prefix]) -> (last logits (B,V), caches)
+  decode_step(params, token, caches, cfg)          -> (logits (B,V), caches)
+
+Decode updates the cache tensors in place (the JAX package donates them)
+and returns a new top-level dict with ``pos`` advanced.  Other block kinds,
+sliding windows and frontends raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import torch_dtype
+
+from . import attention as attn_lib
+from .config import ATTN, ModelConfig
+from .layers import apply_mlp, apply_norm, dense_init, init_norm, truncated_normal
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    if (set(cfg.block_pattern) != {ATTN} or cfg.sliding_window > 0 or cfg.enc_layers
+            or cfg.frontend != "none" or cfg.num_prefix_tokens):
+        raise NotImplementedError(
+            f"{cfg.name}: only decoder-only global-attention (ATTN) stacks are ported")
+
+
+# ----------------------------------------------------------------- init
+
+def init_block(cfg: ModelConfig, generator, device):
+    d, ff = cfg.d_model, cfg.d_ff
+    dt = torch_dtype(cfg.dtype)
+    if cfg.mlp_type == "swiglu":
+        mlp = {"w_gate_up": torch.cat([dense_init((d, ff), dt, generator, device),
+                                       dense_init((d, ff), dt, generator, device)], dim=-1)}
+    else:
+        mlp = {"w_up": dense_init((d, ff), dt, generator, device)}
+    mlp["w_down"] = dense_init((ff, d), dt, generator, device, stddev=ff ** -0.5)
+    return {"norm1": init_norm(d, cfg.norm_type, device),
+            "attn": attn_lib.init_attention(cfg, generator, device),
+            "norm2": init_norm(d, cfg.norm_type, device),
+            "mlp": mlp}
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator, device):
+    """Random weights drawn on ``device`` from ``generator``."""
+    check_supported(cfg)
+    dt = torch_dtype(cfg.dtype)
+    params = {"embed": truncated_normal((cfg.padded_vocab, cfg.d_model), 0.02, dt,
+                                        generator, device),
+              "final_norm": init_norm(cfg.d_model, cfg.norm_type, device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = truncated_normal((cfg.d_model, cfg.padded_vocab),
+                                             cfg.d_model ** -0.5, dt, generator, device)
+    params["layers"] = [init_block(cfg, generator, device) for _ in range(cfg.num_layers)]
+    return params
+
+
+def init_caches(batch: int, capacity: int, cfg: ModelConfig, device):
+    check_supported(cfg)
+    return {"scan": (attn_lib.init_kv_cache(cfg.num_layers, batch, capacity, cfg, device),),
+            "rem": (), "pos": 0}
+
+
+# ----------------------------------------------------------------- stack
+
+def _mlp_residual(p, x, cfg: ModelConfig):
+    return x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm_type), cfg.mlp_type)
+
+
+def _logits(params, x, cfg: ModelConfig):
+    x = apply_norm(params["final_norm"], x, cfg.norm_type)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (x @ w).float()
+    if cfg.logits_softcap > 0:
+        c = cfg.logits_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def prefill(params, tokens, cfg: ModelConfig, capacity: int, prefix=None):
+    """tokens (B,S) -> (last-token logits (B,V) fp32, caches).
+
+    With ``prefix`` (the caches of a prefix-only prefill), ``tokens`` are
+    the suffix: positions continue from ``prefix["pos"]``, every layer
+    attends over ``[prefix KV | suffix]``, and the caches cover ``[0, P+S)``
+    as a prefill of the concatenation would.
+    """
+    b, s = tokens.shape
+    device = tokens.device
+    start = 0 if prefix is None else prefix["pos"]
+    positions = (torch.arange(s, dtype=torch.int32, device=device) + start).expand(b, s)
+    positions = positions.contiguous()
+    caches = init_caches(b, capacity, cfg, device)
+    kv = caches["scan"][0]
+    pre = None if prefix is None else prefix["scan"][0]
+    x = params["embed"][tokens]
+    for i, p in enumerate(params["layers"]):
+        layer_prefix = None if pre is None else {
+            "k": pre["k"][i], "v": pre["v"][i], "slot_pos": pre["slot_pos"][i]}
+        a, (k, v, k_pos) = attn_lib.self_attention(
+            p["attn"], apply_norm(p["norm1"], x, cfg.norm_type), positions, cfg,
+            prefix=layer_prefix)
+        if k.shape[1] > capacity:
+            raise ValueError(f"prefill of {k.shape[1]} tokens exceeds capacity {capacity}")
+        attn_lib.fill_kv_cache(kv, i, k, v, k_pos)
+        x = _mlp_residual(p, x + a, cfg)
+    caches["pos"] = start + s
+    return _logits(params, x[:, -1:], cfg)[:, 0], caches
+
+
+def decode_step(params, token, caches, cfg: ModelConfig):
+    """token (B,) int -> (logits (B,V) fp32, caches with ``pos`` + 1)."""
+    b = token.shape[0]
+    pos = caches["pos"]
+    kv = caches["scan"][0]
+    cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=token.device)
+    x = params["embed"][token[:, None]]
+    for i, p in enumerate(params["layers"]):
+        a = attn_lib.decode_attention(p["attn"], apply_norm(p["norm1"], x, cfg.norm_type),
+                                      kv, i, pos, cache_len, cfg)
+        x = _mlp_residual(p, x + a, cfg)
+    return _logits(params, x, cfg)[:, 0], {"scan": caches["scan"], "rem": (), "pos": pos + 1}

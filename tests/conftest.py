@@ -23,6 +23,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "sanitize: sanitizer-harness test, runs only with --sanitize")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips (inside the test) when CUDA is absent")
     if config.getoption("--sanitize"):
         import jax
         jax.config.update("jax_numpy_rank_promotion", "raise")

@@ -1,0 +1,89 @@
+"""The port stands alone: no file of ``src/repro_torch`` or the chip scripts
+imports JAX or the ``repro`` package; default-device entry points refuse to
+run without a card; a missing ``nvcc`` raises instead of falling back."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.checkpoint import jax_params_to_torch
+from repro_torch.device import resolve_device
+from repro_torch.kernels import build, launch_counts, reset_launch_counts
+from repro_torch.launch.serve import build_embedder, build_engine
+from repro_torch.models.embedder import tiny_embedder_config
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = _port_files()
+    assert len(files) > 20 and all(f.exists() for f in files)
+    bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imported_modules(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_default_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        build_engine(model="serve-tiny")
+    with pytest.raises(RuntimeError):
+        build_embedder()
+    params, _ = build_embedder(device="cpu")
+    assert params["embed"].device.type == "cpu"
+
+
+def test_converter_needs_a_card_by_default():
+    """A converted checkpoint lands on the card unless the caller asks for
+    the CPU, so an engine built from it never drops to the CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    ecfg = tiny_embedder_config(64)
+    flat = {"embed": np.zeros((ecfg.vocab_size, ecfg.d_model), np.float32),
+            "final_norm/scale": np.ones(ecfg.d_model, np.float32)}
+    for name, w in (("attn/w_q", (ecfg.d_model, ecfg.num_heads, ecfg.resolved_head_dim)),
+                    ("attn/w_k", (ecfg.d_model, ecfg.num_kv_heads, ecfg.resolved_head_dim)),
+                    ("attn/w_v", (ecfg.d_model, ecfg.num_kv_heads, ecfg.resolved_head_dim)),
+                    ("attn/w_o", (ecfg.num_heads, ecfg.resolved_head_dim, ecfg.d_model)),
+                    ("mlp/w_up", (ecfg.d_model, ecfg.d_ff)),
+                    ("mlp/w_down", (ecfg.d_ff, ecfg.d_model))):
+        flat["scan/" + name] = np.zeros((ecfg.num_layers,) + w, np.float32)
+    for norm in ("norm1", "norm2"):
+        flat[f"scan/{norm}/scale"] = np.ones((ecfg.num_layers, ecfg.d_model), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        jax_params_to_torch(flat, ecfg)
+    params = jax_params_to_torch(flat, ecfg, device="cpu")
+    assert params["embed"].device.type == "cpu" and len(params["layers"]) == ecfg.num_layers
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda path: False)
+    monkeypatch.setattr(build, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build._nvcc()
+
+
+def test_launch_counts_reset():
+    reset_launch_counts()
+    assert launch_counts() == {"flash_attention": 0, "decode_attention": 0, "cosine_topk": 0}

@@ -1,0 +1,190 @@
+"""Port kernels: each plain PyTorch version against the JAX package's
+``ref.py`` and its Pallas kernel (interpret mode on the CPU), within 2e-5
+as in tests/test_kernels.py.  The Hopper kernels against these plain
+versions are in tests/test_torch_cuda.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.cosine_topk.ops import cosine_topk as jax_cosine_topk
+from repro.kernels.cosine_topk.ref import cosine_topk_ref as jax_cosine_ref
+from repro.kernels.decode_attention.ops import decode_attention as jax_decode
+from repro.kernels.decode_attention.ref import decode_attention_ref as jax_decode_ref
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref
+from repro.models import attention as jax_attn
+from repro_torch.kernels.cosine_topk import ops as cos_ops
+from repro_torch.kernels.cosine_topk.ref import cosine_topk_ref
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attend_blockwise, attend_naive
+
+TOL = 2e-5
+
+
+def _unit(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def _assert_topk(s_port, i_port, s_ref, i_ref):
+    """Scores within TOL; indices equal on finite slots whose score is at
+    least TOL away from its neighbours (ties may order either way)."""
+    s_port, s_ref = np.asarray(s_port), np.asarray(s_ref)
+    i_port, i_ref = np.asarray(i_port), np.asarray(i_ref)
+    np.testing.assert_allclose(s_port, s_ref, rtol=TOL, atol=TOL)
+    fin = np.isfinite(s_ref)
+    assert np.array_equal(np.isfinite(s_port), fin)
+    gap = np.full(s_ref.shape, np.inf)
+    d = np.abs(np.diff(np.where(fin, s_ref, 1e9), axis=1))
+    gap[:, 1:] = np.minimum(gap[:, 1:], d)
+    gap[:, :-1] = np.minimum(gap[:, :-1], d)
+    sure = fin & (gap > TOL)
+    assert np.array_equal(i_port[sure], i_ref[sure])
+
+
+# ------------------------------------------------------------ cosine_topk
+
+@pytest.mark.parametrize("b,n,d,k,bn,p_valid", [
+    (1, 128, 16, 1, 64, 0.85), (4, 256, 64, 4, 64, 0.85),
+    (2, 512, 384, 8, 128, 0.5), (8, 1024, 128, 4, 512, 1.0),
+    (3, 64, 32, 4, 64, 0.03),   # fewer valid rows than k: sub-k slots
+])
+def test_cosine_topk_plain_matches_jax(b, n, d, k, bn, p_valid):
+    rng = np.random.default_rng(b * n + k)
+    q, db = _unit(rng, (b, d)), _unit(rng, (n, d))
+    valid = rng.random(n) < p_valid
+    s, i = cosine_topk_ref(torch.from_numpy(q), torch.from_numpy(db), k,
+                           torch.from_numpy(valid))
+    s_ref, i_ref = jax_cosine_ref(jnp.asarray(q), jnp.asarray(db), k, jnp.asarray(valid))
+    _assert_topk(s, i, s_ref, i_ref)
+    s_pl, i_pl = jax_cosine_topk(jnp.asarray(q), jnp.asarray(db), jnp.asarray(valid),
+                                 k=k, impl="pallas", block_n=bn)
+    _assert_topk(s, i, s_pl, i_pl)
+    # sub-k slots: -inf with index -1, the Pallas path's semantics
+    n_valid = int(valid.sum())
+    if n_valid < k:
+        assert np.all(np.isneginf(s.numpy()[:, n_valid:]))
+        assert np.all(i.numpy()[:, n_valid:] == -1)
+        assert np.array_equal(i.numpy(), np.asarray(i_pl))
+
+
+def test_cosine_topk_ties_go_to_lowest_index():
+    rng = np.random.default_rng(0)
+    base = _unit(rng, (4, 32))
+    db = np.concatenate([base, base, base])            # rows i, i+4, i+8 tie
+    q = base[[2, 0]]
+    valid = np.ones(12, bool)
+    valid[2] = False                                   # the first copy of row 2 is dead
+    s, i = cosine_topk_ref(torch.from_numpy(q), torch.from_numpy(db), 3,
+                           torch.from_numpy(valid))
+    assert i.tolist() == [[6, 10, int(i[0, 2])], [0, 4, 8]]
+    _, i_ref = jax_cosine_ref(jnp.asarray(q), jnp.asarray(db), 3, jnp.asarray(valid))
+    assert np.array_equal(i.numpy()[:, :2], np.asarray(i_ref)[:, :2])
+    assert s.dtype == torch.float32 and i.dtype == torch.int32
+
+
+def test_cosine_topk_wrapper_uses_plain_version_on_cpu():
+    rng = np.random.default_rng(1)
+    q, db = torch.from_numpy(_unit(rng, (2, 64))), torch.from_numpy(_unit(rng, (256, 64)))
+    valid = torch.ones(256, dtype=torch.bool)
+    before = cos_ops.launches
+    s, i = cos_ops.cosine_topk(q, db, valid, k=4)
+    s2, i2 = cosine_topk_ref(q, db, 4, valid)
+    assert torch.equal(s, s2) and torch.equal(i, i2)
+    assert cos_ops.launches == before          # a launch counts only on the card
+
+
+# ------------------------------------------------------------ decode
+
+@pytest.mark.parametrize("b,h,hk,t,dh", [(1, 4, 4, 128, 64), (2, 8, 2, 300, 32),
+                                         (3, 4, 1, 64, 128), (2, 32, 8, 160, 16)])
+def test_decode_attention_plain_matches_jax(b, h, hk, t, dh):
+    rng = np.random.default_rng(t + h)
+    q = rng.standard_normal((b, h, dh)).astype(np.float32)
+    k = rng.standard_normal((b, t, hk, dh)).astype(np.float32)
+    v = rng.standard_normal((b, t, hk, dh)).astype(np.float32)
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    out = decode_attention_ref(*(torch.from_numpy(a) for a in (q, k, v, lens)))
+    args = [jnp.asarray(a) for a in (q, k, v, lens)]
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_decode_ref(*args)),
+                               rtol=TOL, atol=TOL)
+    pallas = jax_decode(*args, block_t=64, impl="pallas")
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), rtol=TOL, atol=TOL)
+    via_ops = dec_ops.decode_attention(*(torch.from_numpy(a) for a in (q, k, v, lens)))
+    assert torch.equal(via_ops, out)
+
+
+def test_decode_split_plan_covers_cache():
+    for b, hk, t in [(8, 8, 97), (8, 8, 300), (1, 1, 5000), (64, 8, 33)]:
+        chunk, nsplit = dec_ops.split_plan(b, hk, t)
+        assert chunk * nsplit >= t > chunk * (nsplit - 1)
+        assert chunk >= min(t, dec_ops.MIN_CHUNK)
+
+
+# ------------------------------------------------------------ flash
+
+def _qkv(rng, b, sq, sk, h, hk, dh):
+    return (rng.standard_normal((b, sq, h, dh)).astype(np.float32),
+            rng.standard_normal((b, sk, hk, dh)).astype(np.float32),
+            rng.standard_normal((b, sk, hk, dh)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,p,s,h,hk,dh,bq,bk,window", [
+    (2, 45, 16, 4, 2, 16, 32, 32, 0),   # TWEAK suffix over a 45-token prefix
+    (1, 0, 70, 8, 2, 32, 32, 64, 0),    # plain prefill, ragged blocks
+    (2, 7, 40, 4, 4, 16, 16, 16, 9),    # sliding window
+])
+def test_flash_with_positions_matches_xla_flash(b, p, s, h, hk, dh, bq, bk, window):
+    """The port's blockwise plain version against ``_attend_xla_flash`` for
+    queries at positions [P, P+S) over keys [prefix | suffix]."""
+    rng = np.random.default_rng(p + s)
+    q, k, v = _qkv(rng, b, s, p + s, h, hk, dh)
+    q_pos = np.broadcast_to(np.arange(p, p + s, dtype=np.int32), (b, s)).copy()
+    k_pos = np.broadcast_to(np.arange(p + s, dtype=np.int32), (b, p + s)).copy()
+    ref = jax_attn._attend_xla_flash(*(jnp.asarray(a) for a in (q, k, v, q_pos, k_pos)),
+                                     True, window, bq, bk)
+    t = [torch.from_numpy(a) for a in (q, k, v, q_pos, k_pos)]
+    out = attend_blockwise(*t, True, window, bq, bk)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
+    via_ops = flash_ops.flash_attention(*t, causal=True, window=window, block_q=bq,
+                                        block_k=bk, impl="xla_flash")
+    assert torch.equal(via_ops, out)
+    naive = attend_naive(*t, True, window)
+    ref_naive = jax_attn._attend_naive(*(jnp.asarray(a) for a in (q, k, v, q_pos, k_pos)),
+                                       True, window)
+    np.testing.assert_allclose(naive.numpy(), np.asarray(ref_naive), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 24)])
+def test_flash_plain_matches_jax_ref_and_pallas(causal, window):
+    """Positions from 0: the Pallas kernel's own setting."""
+    rng = np.random.default_rng(3)
+    b, s, h, hk, dh = 2, 64, 4, 2, 32
+    q, k, v = _qkv(rng, b, s, s, h, hk, dh)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    t = [torch.from_numpy(a) for a in (q, k, v, pos, pos)]
+    out = attend_blockwise(*t, causal, window, 32, 32)
+    ref = jax_flash_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                        window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
+    pallas = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                       window=window, block_q=32, block_k=32, impl="pallas")
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), rtol=TOL, atol=TOL)
+
+
+def test_blockwise_is_length_invariant():
+    """Appending fully masked key blocks leaves the output bit for bit."""
+    rng = np.random.default_rng(4)
+    q, k, v = _qkv(rng, 1, 16, 40, 4, 2, 16)
+    q_pos = torch.arange(24, 40, dtype=torch.int32)[None]
+    k_pos = torch.arange(40, dtype=torch.int32)[None]
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    a = attend_blockwise(*t, q_pos, k_pos, True, 0, 16, 16)
+    k2 = torch.cat([t[1], torch.randn(1, 50, 2, 16)], dim=1)
+    v2 = torch.cat([t[2], torch.randn(1, 50, 2, 16)], dim=1)
+    kp2 = torch.cat([k_pos, torch.full((1, 50), 2 ** 30, dtype=torch.int32)], dim=1)
+    b2 = attend_blockwise(t[0], k2, v2, q_pos, kp2, True, 0, 16, 16)
+    assert torch.equal(a, b2)
