@@ -19,11 +19,26 @@ Prints one JSON object per line:
           pairs, then batches of 8 through ``TweakLLMEngine.handle_batch``
           with exact repeats, one-word edits and fresh queries; routing
           counts, tokens, per-batch latency and kernel launches;
+  paged   the same traffic through an engine whose generators decode over
+          a paged KV pool (16-token pages, the tweak prefix pinned), on the
+          serve phase's weights, against a dense engine on the same weights:
+          routes, tokens under the margin rule (see ``margin_rule``), batch
+          latency, launches, zero leaked pages;
+  spec    speculative TWEAK decode (k 4) on cached-response drafts: a TWEAK
+          batch over the shared prefix, dense and paged, drafts at overlap
+          1.0 / 0.5 / 0.0 against plain decode (tokens, proposed / accepted
+          / verify iterations, host syncs, latency), then the paged engine
+          with drafts from its ``draft_store``;
+  session ``DecodeSession(slots=8)`` on the big model, paged: the inaugural
+          cohort against dense greedy decode, join and leave mid-flight,
+          zero leaked pages;
   profile where the time goes, after the serve run: one small-model decode
           step timed alone (host enqueue, wall and device time), then one
           more serve batch under ``torch.profiler`` (wall time, device-busy
           share, device time by kernel name);
-  kernels the ported kernels with their launches in the serve run;
+  kernels the ported kernels with their launches on the path that runs
+          them (serve for the dense kernels, paged, spec);
+  wall    the script's wall time;
 
 then the raw nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero without the last
@@ -43,6 +58,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 N_BATCHES = 6                  # serve batches of 8 in the main run
 MAX_NEW_TOKENS = 32
+PAGE = 16                      # KV page size of the paged phases
+POOL_PAGES = 256               # pages per paged generator (2 MiB each at full width)
+SPEC_K = 4                     # verify block of the speculating phases
 
 
 def emit(obj) -> None:
@@ -241,6 +259,150 @@ def cosine_case(label, b, n, d, k, block_n, gen):
             "bound_ms": bms, "bound_by": by}, (run, library, 10)
 
 
+def block_case(label, b, kq, h, hk, dh, t, cache_len, layers, gen):
+    """The dense q-block (verify) kernel at a main-path shape, bf16: K
+    queries whose keys sit at slots ``cache_len + i``; the timed loop walks
+    ``layers`` distinct caches, as a verify step walks its layers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops, ref
+    dev = torch.device("cuda")
+    q = torch.randn(b, kq, h, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+    ks = [torch.randn(b, t, hk, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+          for _ in range(layers)]
+    vs = [torch.randn(b, t, hk, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+          for _ in range(layers)]
+    lens = torch.full((b,), cache_len, device=dev, dtype=torch.int32)
+    out = ops.decode_attention_block(q, ks[0], vs[0], lens)
+    want = ref.decode_attention_block_ref(q.float(), ks[0].float(), vs[0].float(), lens)
+    err = (out.float() - want).abs().max().item()
+    tol = 2e-2
+    check(f"decode_attention_block[{label}]", err, tol)
+    step = [0]
+
+    def run():
+        j = step[0] % layers
+        step[0] += 1
+        return ops.decode_attention_block(q, ks[j], vs[j], lens)
+
+    plain = lambda: ref.decode_attention_block_ref(q, ks[0], vs[0], lens)
+    limit = lens[:, None] + torch.arange(kq, device=dev)[None, :] + 1          # (B,K)
+    mask = (torch.arange(t, device=dev)[None, None, :] < limit[:, :, None])[:, None]
+    qt = q.transpose(1, 2).contiguous()
+    kts = [x.transpose(1, 2).contiguous() for x in ks]
+    vts = [x.transpose(1, 2).contiguous() for x in vs]
+
+    def library():
+        j = step[0] % layers
+        step[0] += 1
+        return F.scaled_dot_product_attention(qt, kts[j], vts[j], attn_mask=mask,
+                                              enable_gqa=True)
+
+    visible = int(limit.sum().item())             # (row, query, slot) pairs kept
+    moved = 2 * 2 * b * (cache_len + kq) * hk * dh + 2 * 2 * q.numel() + 4 * b
+    bms, by = bound(moved, 4.0 * h * dh * visible, "bf16")
+    chunk, nsplit = ops.split_plan(b, hk, t)
+    return {"phase": "kernel", "name": "decode_attention_block", "case": label,
+            "shape": {"B": b, "K": kq, "H": h, "Hk": hk, "dh": dh, "T": t,
+                      "cache_len": cache_len, "splits": nsplit, "chunk": chunk,
+                      "dtype": "bfloat16"},
+            "max_abs_err": err, "tolerance": tol, "ms": time_ms(run, reps=layers),
+            "plain_ms": time_ms(plain), "library_ms": time_ms(library, reps=layers),
+            "library": "scaled_dot_product_attention with a (B,1,K,T) mask",
+            "bound_ms": bms, "bound_by": by}, (run, library, layers)
+
+
+def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, gen,
+               block: bool):
+    """A paged kernel at a main-path shape, bf16: a pool per layer whose first
+    ``prefix_len // page`` pages hold the pinned tweak prefix shared by every
+    row, private pages behind them, and a last row parked on the TRASH page
+    with no valid slot.  Rows hold positions ``[0, length)`` (and the block's
+    K more).  The single-token kernel (``block=False``) takes query 0.  The
+    yardstick is SDPA over a dense cache gathered beforehand (no single
+    PyTorch call reads pages)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import split_plan
+    from repro_torch.kernels.paged_attention import ops, ref
+    dev = torch.device("cuda")
+    npg = -(-cap // page)
+    n_pin = prefix_len // page
+    pages = n_pin + b * (npg - n_pin)
+    kps = [torch.randn(pages + 1, page, hk, dh, device=dev, generator=gen,
+                       dtype=torch.bfloat16) for _ in range(layers)]
+    vps = [torch.randn(pages + 1, page, hk, dh, device=dev, generator=gen,
+                       dtype=torch.bfloat16) for _ in range(layers)]
+    private = torch.randperm(pages - n_pin, device=dev, generator=gen) + n_pin
+    tbl = torch.cat([torch.arange(n_pin, device=dev).expand(b, n_pin),
+                     private.view(b, npg - n_pin)], 1).to(torch.int32)
+    tbl[-1] = pages                                          # the TRASH row
+    tbl = tbl.contiguous()
+    filled = length + (kq if block else 0)
+    slots = torch.arange(cap, device=dev, dtype=torch.int32)[None, :].expand(b, cap)
+    sp = torch.where(slots < filled, slots, -1).to(torch.int32)
+    sp[-1] = -1
+    sp = sp.contiguous()
+    qpos = torch.full((b,), length, device=dev, dtype=torch.int32)
+    q = torch.randn(b, kq, h, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+    q1 = q[:, 0].contiguous()
+    step = [0]
+    if block:
+        call = lambda j: ops.paged_decode_attention_block(q, kps[j], vps[j], tbl, sp, qpos)
+        plain = lambda: ref.paged_decode_attention_block_ref(q, kps[0], vps[0], tbl, sp, qpos)
+        want = ref.paged_decode_attention_block_ref(q.float(), kps[0].float(), vps[0].float(),
+                                                    tbl, sp, qpos)
+        limit = qpos[:, None] + torch.arange(kq, device=dev)[None, :]           # (B,K)
+    else:
+        call = lambda j: ops.paged_decode_attention(q1, kps[j], vps[j], tbl, sp)
+        plain = lambda: ref.paged_decode_attention_ref(q1, kps[0], vps[0], tbl, sp)
+        want = ref.paged_decode_attention_ref(q1.float(), kps[0].float(), vps[0].float(),
+                                              tbl, sp)
+        limit = torch.full((b, 1), 2 ** 30, device=dev)
+    out = call(0)
+    torch.cuda.synchronize()
+    name = "paged_decode_attention_block" if block else "paged_decode_attention"
+    if not bool(torch.isfinite(out[-1].float()).all()):
+        raise AssertionError(f"{name}[{label}]: the TRASH row is not finite")
+    err = (out[:-1].float() - want[:-1]).abs().max().item()   # rows with a valid slot
+    tol = 2e-2
+    check(f"{name}[{label}]", err, tol)
+
+    def run():
+        j = step[0] % layers
+        step[0] += 1
+        return call(j)
+
+    kg = [ref.gather_pages(x, tbl, cap).transpose(1, 2).contiguous() for x in kps]
+    vg = [ref.gather_pages(x, tbl, cap).transpose(1, 2).contiguous() for x in vps]
+    keep = (sp[:, None, :] >= 0) & (sp[:, None, :] <= limit[:, :, None])       # (B,Kq,cap)
+    keep[-1] = True                          # SDPA needs a key per row; TRASH is discarded
+    qt = (q if block else q[:, :1]).transpose(1, 2).contiguous()
+
+    def library():
+        j = step[0] % layers
+        step[0] += 1
+        return F.scaled_dot_product_attention(qt, kg[j], vg[j], attn_mask=keep[:, None],
+                                              enable_gqa=True)
+
+    valid = int((sp >= 0).sum().item())      # slots read once for all queries
+    pairs = int(((sp[:, None, :] >= 0) & (sp[:, None, :] <= limit[:, :, None])).sum().item())
+    nq = kq if block else 1
+    moved = (2 * 2 * valid * hk * dh + 2 * 2 * b * nq * h * dh + 4 * tbl.numel()
+             + 4 * sp.numel() + (4 * b if block else 0))
+    bms, by = bound(moved, 4.0 * h * dh * pairs, "bf16")
+    chunk, nsplit = split_plan(b, hk, cap)
+    return {"phase": "kernel", "name": name, "case": label,
+            "shape": {"B": b, "K": nq, "H": h, "Hk": hk, "dh": dh, "page": page, "cap": cap,
+                      "pages": pages, "pinned_pages": n_pin, "valid_slots": valid,
+                      "splits": nsplit, "chunk": chunk, "dtype": "bfloat16"},
+            "max_abs_err": err, "tolerance": tol, "ms": time_ms(run, reps=layers),
+            "plain_ms": time_ms(plain), "library_ms": time_ms(library, reps=layers),
+            "library": "yardstick: scaled_dot_product_attention over a dense cache "
+                       "gathered from the pages beforehand",
+            "bound_ms": bms, "bound_by": by}, (run, library, layers)
+
+
 def kernel_phase(prefix_len: int, seed: int):
     """(kernel line, (kernel call, library call, profiled calls)) per case."""
     import torch
@@ -249,6 +411,8 @@ def kernel_phase(prefix_len: int, seed: int):
     cfg = llama31_8b.CONFIG
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    # a TWEAK row: prefix + a 128-token suffix bucket + 33, mid-decode
+    tweak_cap, tweak_len = prefix_len + 128 + 33, prefix_len + 128 + 16
     return [
         flash_case("small-suffix-over-prefix", 8, 128, prefix_len, h, hk, dh,
                    LLAMA_FLASH_BLOCK, "xla_flash", gen),
@@ -257,6 +421,16 @@ def kernel_phase(prefix_len: int, seed: int):
                     prefix_len + 128 + 16, cfg.num_layers, gen),
         decode_case("big-miss-decode", 8, h, hk, dh, 64 + 33, 64 + 16, cfg.num_layers, gen),
         cosine_case("serve-bank", 8, LLAMA_CAPACITY, 384, 4, 1024, gen),
+        block_case("small-tweak-verify-k4", 8, 4, h, hk, dh, tweak_cap, tweak_len,
+                   cfg.num_layers, gen),
+        block_case("small-tweak-verify-k1", 8, 1, h, hk, dh, tweak_cap, tweak_len,
+                   cfg.num_layers, gen),
+        paged_case("small-tweak-paged-decode", 8, 1, h, hk, dh, PAGE, tweak_cap, tweak_len + 1,
+                   prefix_len, cfg.num_layers, gen, block=False),
+        paged_case("small-tweak-paged-verify-k4", 8, 4, h, hk, dh, PAGE, tweak_cap, tweak_len,
+                   prefix_len, cfg.num_layers, gen, block=True),
+        paged_case("small-tweak-paged-verify-k1", 8, 1, h, hk, dh, PAGE, tweak_cap, tweak_len,
+                   prefix_len, cfg.num_layers, gen, block=True),
     ]
 
 
@@ -389,14 +563,15 @@ def serve_phase(model: str, device, seed: int, n_batches: int, max_new_tokens: i
                                          vocab)
     batches, spare = planned[:-1], planned[-1]
     eng = build_engine(model=model, device=device, seed=seed, threshold=calib["threshold"])
-    fill_bank(eng, eng.cache_cfg.capacity - 4 * n_pop - (n_batches + 1) * bsz, seed)
+    n_fill = eng.cache_cfg.capacity - 4 * n_pop - (n_batches + 1) * bsz
+    fill_bank(eng, n_fill, seed)
     eng.populate(*pairs)
     sync = torch.cuda.synchronize if eng.device.type == "cuda" else (lambda: None)
     sync()
     setup_s = time.perf_counter() - t0
 
     reset_launch_counts()          # the main path starts here ...
-    lat, real_new = [], 0
+    lat, real_new, results = [], 0, []
     with torch.no_grad():
         for batch in batches:
             t = time.perf_counter()
@@ -404,20 +579,17 @@ def serve_phase(model: str, device, seed: int, n_batches: int, max_new_tokens: i
             sync()
             lat.append((time.perf_counter() - t) * 1e3)
             real_new += res.big_tokens + res.small_tokens
+            results.append(res)
             if len(res.responses) != len(batch) or not all(
                     isinstance(r, str) for r in res.responses):
                 raise AssertionError("handle_batch returned malformed responses")
     launches = launch_counts()     # ... and ends here
     s = eng.stats
     n = n_batches * bsz
-    if min(s.exact, s.tweak, s.miss) == 0:
-        raise AssertionError(f"not every route was taken: {s}")
-    if s.total != n or s.exact + s.tweak + s.miss != n:
-        raise AssertionError(f"EngineStats inconsistent: {s}")
-    if not s.big_tokens + s.small_tokens <= n * max_new_tokens or real_new != (
-            s.big_tokens + s.small_tokens):
-        raise AssertionError(f"generated tokens exceed queries x budget: {s}")
-    if eng.device.type == "cuda" and min(launches.values()) == 0:
+    _check_stats("serve", s, n, max_new_tokens)
+    if real_new != s.big_tokens + s.small_tokens:
+        raise AssertionError(f"batch token counts disagree with EngineStats: {s}")
+    if eng.device.type == "cuda" and min(launches[k] for k in SERVE_KERNELS) == 0:
         raise AssertionError(f"a kernel was not launched by the serve path: {launches}")
     with torch.no_grad():
         pick = list(eng.bank.text_store.items())[:bsz]
@@ -438,7 +610,469 @@ def serve_phase(model: str, device, seed: int, n_batches: int, max_new_tokens: i
            "prefix_reuse": reuse}
     if eng.device.type == "cuda":
         row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    return row, launches, eng, spare
+    plan = (pairs, batches, n_fill, seed, calib["threshold"])
+    return row, launches, eng, spare, plan, results
+
+
+# ------------------------------------------------------------------ slice 2
+# Paged and speculative decode run other kernels than the dense path, so on
+# the card their greedy tokens may leave the dense path's where two logits
+# are within rounding of each other.  The margin rule: a row may diverge
+# only at a token whose top-2 logit margin on the reference (dense, plain)
+# path is at most twice the largest logit difference measured between the
+# two paths on identical inputs (``path_noise``), plus 1e-3.
+
+class MarginModel:
+    """A Model proxy that records the top-2 margin of the vocab-masked logits
+    each greedy token comes from (prefill, then every decode step) during a
+    generate call; everything else goes to the model."""
+
+    def __init__(self, inner, sampler):
+        self._inner, self._sampler, self.steps = inner, sampler, []
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def _note(self, logits):
+        from repro_torch.serving.sampler import mask_vocab
+        top = mask_vocab(logits, self._sampler).topk(2, dim=-1).values
+        self.steps.append(top[..., 0] - top[..., 1])
+
+    def prefill(self, params, batch, capacity):
+        self.steps = []
+        logits, caches = self._inner.prefill(params, batch, capacity)
+        self._note(logits)
+        return logits, caches
+
+    def prefill_with_prefix(self, params, batch, capacity, prefix):
+        self.steps = []
+        logits, caches = self._inner.prefill_with_prefix(params, batch, capacity, prefix)
+        self._note(logits)
+        return logits, caches
+
+    def decode_step(self, params, token, caches):
+        logits, caches = self._inner.decode_step(params, token, caches)
+        self._note(logits)
+        return logits, caches
+
+
+def record_calls(gen):
+    """Keep (tokens, margins or None) of every generate call of ``gen``."""
+    import torch
+    calls, inner = [], gen.generate_with_lengths
+
+    def wrapped(*args, **kw):
+        out = inner(*args, **kw)
+        m = gen.model.steps if isinstance(gen.model, MarginModel) else None
+        calls.append((out[0].copy(), None if m is None else
+                      torch.stack(m, 1).float().cpu().numpy()))
+        return out
+
+    gen.generate_with_lengths = wrapped
+    return calls
+
+
+def margin_rule(name: str, pairs, tol: float):
+    """Hold test tokens to reference tokens under the margin rule.  ``pairs``
+    holds (reference tokens (B,T), reference margins (B,T), test tokens)."""
+    import numpy as np
+    rows = equal = 0
+    match, diverged = [], []
+    for ref, margins, test in pairs:
+        n = min(ref.shape[1], test.shape[1])
+        match.append((ref[:, :n] == test[:, :n]).ravel())
+        for b in range(ref.shape[0]):
+            rows += 1
+            diff = np.flatnonzero(ref[b, :n] != test[b, :n])
+            if diff.size == 0:
+                equal += 1
+                continue
+            d = int(diff[0])
+            m = float(margins[b, d])
+            diverged.append([b, d, m])
+            if not m <= tol:
+                raise AssertionError(
+                    f"{name}: row {b} leaves the reference at token {d}, where the "
+                    f"reference's top-2 logit margin {m} exceeds the rule's {tol}")
+    return {"rows": rows, "rows_equal": equal,
+            "token_match": float(np.concatenate(match).mean()),
+            "diverged": diverged[:8], "n_diverged": len(diverged), "tol": tol}
+
+
+def traced_greedy(model, params, sampler, logits, caches, mnt: int):
+    """Plain greedy decode step by step from a prefill: tokens (B, mnt) and
+    the top-2 margin of the logits each token came from, on the host."""
+    import torch
+    from repro_torch.serving.sampler import greedy_ids, mask_vocab
+    toks, margins = [], []
+    for j in range(mnt):
+        masked = mask_vocab(logits, sampler)
+        top = masked.topk(2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        toks.append(greedy_ids(masked))
+        if j + 1 < mnt:
+            logits, caches = model.decode_step(params, toks[-1], caches)
+    return (torch.stack(toks, 1).cpu().numpy(),
+            torch.stack(margins, 1).float().cpu().numpy())
+
+
+def path_noise(model, params, sampler, tokens, steps: int = SPEC_K):
+    """Largest |logit difference| between the dense decode step and the paged
+    step, a dense verify block of ``steps`` and a paged one, all fed the
+    dense path's greedy tokens from one prefill (computed, then discarded),
+    at the batch of ``tokens`` and at every smaller batch bucket down to 1
+    (cuBLAS may reduce in another order at another row count); ``tol`` is
+    the margin rule's: twice the largest, plus 1e-3."""
+    out = {}
+    b = tokens.shape[0]
+    while b >= 1:
+        for k, v in _path_noise_at(model, params, sampler, tokens[:b], steps).items():
+            out[f"{k}_b{b}"] = v
+        b //= 2
+    out["tol"] = 2 * max(out.values()) + 1e-3
+    return out
+
+
+def _path_noise_at(model, params, sampler, tokens, steps):
+    import torch
+    from repro_torch.serving import paged_kv
+    from repro_torch.serving.sampler import greedy_ids, mask_vocab
+    b, s = tokens.shape
+    cap = s + steps + 2
+    vocab = sampler.vocab_size or model.cfg.vocab_size
+
+    def paged(caches):
+        pool = paged_kv.PagePool(model, paged_kv.PagePoolConfig(PAGE, b * -(-cap // PAGE)),
+                                 tokens.device)
+        tbl, wr = pool.alloc_block_table(b, cap)
+        return paged_kv.pack_caches(pool.storage, caches,
+                                    torch.as_tensor(tbl, device=tokens.device),
+                                    torch.as_tensor(wr, device=tokens.device))
+
+    logits, caches = model.prefill(params, {"tokens": tokens}, cap)
+    fed = [greedy_ids(mask_vocab(logits, sampler))]
+    dense = []
+    for _ in range(steps):
+        logits, caches = model.decode_step(params, fed[-1], caches)
+        dense.append(logits[..., :vocab].float())
+        fed.append(greedy_ids(mask_vocab(logits, sampler)))
+    dense = torch.stack(dense, 1)                                   # (B,steps,V)
+    out = {}
+    pc = paged(model.prefill(params, {"tokens": tokens}, cap)[1])
+    got = []
+    for j in range(steps):
+        logits, pc = model.decode_step(params, fed[j], pc)
+        got.append(logits[..., :vocab].float())
+    out["paged_step"] = (torch.stack(got, 1) - dense).abs().max().item()
+    block = torch.stack(fed[:steps], 1)
+    dc = paged_kv.row_pos_caches(model.prefill(params, {"tokens": tokens}, cap)[1], b)
+    out["dense_block"] = (model.decode_block(params, block, dc)[0][..., :vocab].float()
+                          - dense).abs().max().item()
+    pc = paged(model.prefill(params, {"tokens": tokens}, cap)[1])
+    out["paged_block"] = (model.decode_block(params, block, pc)[0][..., :vocab].float()
+                          - dense).abs().max().item()
+    return out
+
+
+def response_ids(text):
+    """Token ids of a generated response: the tokenizer renders id i as
+    ``w<i>`` and the special ids by name."""
+    from repro_torch.tokenizer.tokenizer import SPECIAL_TOKENS
+    return [SPECIAL_TOKENS[w[1:-1]] if w.startswith("<") else int(w[1:])
+            for w in text.split()]
+
+
+def _gen_like(gen, model=None, **changes):
+    """A Generator on ``gen``'s parameters (no copy) with changed settings."""
+    import dataclasses
+    from repro_torch.serving.generate import Generator
+    return Generator(model or gen.model, gen.params, dataclasses.replace(gen.cfg, **changes))
+
+
+def _engine_like(eng, big, small, threshold):
+    from repro_torch.core.engine import TweakLLMEngine
+    from repro_torch.core.router import RouterConfig
+    return TweakLLMEngine(tokenizer=eng.tok, embedder_params=eng.embedder_params,
+                          embedder_cfg=eng.embedder_cfg, big=big, small=small,
+                          cache_cfg=eng.cache_cfg,
+                          router_cfg=RouterConfig(tweak_threshold=threshold))
+
+
+def _sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _serve(eng, batches, max_new_tokens):
+    import torch
+    lat, out = [], []
+    with torch.no_grad():
+        for batch in batches:
+            t = time.perf_counter()
+            res = eng.handle_batch_result(batch, max_new_tokens=max_new_tokens)
+            _sync(eng.device)
+            lat.append((time.perf_counter() - t) * 1e3)
+            out.append(res)
+    return lat, out
+
+
+def _check_stats(name, s, n, max_new_tokens):
+    if min(s.exact, s.tweak, s.miss) == 0:
+        raise AssertionError(f"{name}: not every route was taken: {s}")
+    if s.total != n or s.exact + s.tweak + s.miss != n:
+        raise AssertionError(f"{name}: EngineStats inconsistent: {s}")
+    if not s.big_tokens + s.small_tokens <= n * max_new_tokens:
+        raise AssertionError(f"{name}: generated tokens exceed queries x budget: {s}")
+
+
+def paged_phase(eng, plan, serve_out, max_new_tokens: int, noise):
+    """The serve traffic through an engine whose generators are paged, on the
+    serve phase's weights, against a dense engine on the same weights whose
+    generators record their margins; both start from the serve phase's bank.
+    Returns (paged line, the paged engine)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.continuous import leaked_pages
+    pairs, batches, n_fill, seed, threshold = plan
+    sampler = eng.small.cfg.sampler
+    ref = {k: _gen_like(getattr(eng, k), MarginModel(getattr(eng, k).model, sampler))
+           for k in ("big", "small")}
+    deng = _engine_like(eng, ref["big"], ref["small"], threshold)
+    peng = _engine_like(eng, *(_gen_like(getattr(eng, k), paged=True, page_size=PAGE,
+                                         pool_pages=POOL_PAGES) for k in ("big", "small")),
+                        threshold)
+    calls = {}
+    for name, e in (("dense", deng), ("paged", peng)):
+        fill_bank(e, n_fill, seed)
+        e.populate(*pairs)
+        calls[name] = {k: record_calls(getattr(e, k)) for k in ("big", "small")}
+    _sync(eng.device)
+    dense_lat, dense_res = _serve(deng, batches, max_new_tokens)
+    reset_launch_counts()          # the paged path starts here ...
+    lat, res = _serve(peng, batches, max_new_tokens)
+    launches = launch_counts()     # ... and ends here
+    n = len(batches) * len(batches[0])
+    _check_stats("paged", peng.stats, n, max_new_tokens)
+    if eng.device.type == "cuda" and launches["paged_decode_attention"] == 0:
+        raise AssertionError(f"paged decode never launched its kernel: {launches}")
+    decisions = lambda rs: [[m["decision"] for m in r.meta] for r in rs]
+    if decisions(res) != decisions(serve_out) or decisions(dense_res) != decisions(serve_out):
+        raise AssertionError("routes differ from the serve phase's on the same batches")
+    leaked = leaked_pages(peng.big, peng.small)
+    if leaked:
+        raise AssertionError(f"paged engine leaked {leaked} pages")
+    if any(len(calls["dense"][k]) != len(calls["paged"][k]) for k in ("big", "small")):
+        raise AssertionError("the paged engine made other generate calls than the dense one")
+    rule = {k: margin_rule(f"paged {k}", [(r[0], r[1], p[0]) for r, p in
+                                          zip(calls["dense"][k], calls["paged"][k])],
+                           noise[k]["tol"]) for k in ("big", "small")}
+    same_as_serve = sum(a.responses == b.responses for a, b in zip(dense_res, serve_out))
+    s = peng.stats
+    row = {"phase": "paged", "page_size": PAGE, "pool_pages": POOL_PAGES,
+           "routes": {"exact": s.exact, "tweak": s.tweak, "miss": s.miss},
+           "big_tokens": s.big_tokens, "small_tokens": s.small_tokens,
+           "batch_ms": lat, "steady_batch_ms_mean": sum(lat[1:]) / max(len(lat) - 1, 1),
+           "dense_recorded_batch_ms": dense_lat, "launches": launches,
+           "margin_rule": rule, "path_noise": noise,
+           "dense_rerun_equals_serve_batches": same_as_serve, "leaked_pages": leaked,
+           "pinned_pages": peng.small.pool.pinned_pages,
+           "pool_live_pages_after": peng.small.pool.live_pages}
+    return row, peng
+
+
+def _overlap_drafts(ref, overlap: float, vocab: int):
+    """Drafts from the plain run's own greedy output: the first ``overlap``
+    share kept, the tail rewritten so that it never matches."""
+    import numpy as np
+    ids = ref.copy()
+    keep = int(round(overlap * ref.shape[1]))
+    ids[:, keep:] = (ref[:, keep:] + 1 - 5) % (vocab - 5) + 5
+    return ids, np.full(ref.shape[0], ref.shape[1], np.int32)
+
+
+def spec_phase(eng, peng, batch, max_new_tokens: int, noise):
+    """Speculation on the TWEAK route.  Generator level: a TWEAK batch over
+    the shared prefix, plain and speculating (k 4), dense and paged, drafts
+    at overlap 1.0 / 0.5 / 0.0; engine level: the paged engine with a
+    speculating small generator, drafts from ``draft_store``.  Each
+    generator-level run is timed twice, the second time in reverse order."""
+    import torch
+    from repro_torch.core import tweak as tweak_lib
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.batcher import bucket_len, pad_to_buckets
+    from repro_torch.serving.continuous import leaked_pages
+    small = eng.small
+    sampler, vocab = small.cfg.sampler, small.model.cfg.vocab_size
+    pick = list(eng.bank.text_store.items())[:8]
+    st, sm = tweak_lib.build_tweak_suffix_batch(
+        eng.tok, [q + " please" for _, (q, _) in pick], [q for _, (q, _) in pick],
+        [r for _, (_, r) in pick], 1024)
+    width = bucket_len(int(sm.sum(1).max()))
+    st = pad_to_buckets(st[:, :width], sm[:, :width])[0]
+    pc = small.build_prefix_cache(tweak_lib.tweak_prefix_ids(eng.tok), st.shape[0])
+    cap = pc.length + st.shape[1] + max_new_tokens + 1
+    with torch.no_grad():
+        logits, caches = small.model.prefill_with_prefix(
+            small.params, {"tokens": torch.as_tensor(st, device=eng.device).long()}, cap,
+            pc.caches)
+        ref, margins = traced_greedy(small.model, small.params, sampler, logits, caches,
+                                     max_new_tokens)
+    gens = {"plain-dense": _gen_like(small),
+            "plain-paged": _gen_like(small, paged=True, page_size=PAGE, pool_pages=POOL_PAGES),
+            "spec-dense": _gen_like(small, spec_k=SPEC_K),
+            "spec-paged": _gen_like(small, spec_k=SPEC_K, paged=True, page_size=PAGE,
+                                    pool_pages=POOL_PAGES)}
+    runs = [("plain-dense", None), ("plain-paged", None)]
+    for kind in ("spec-dense", "spec-paged"):
+        runs += [(kind, ov) for ov in (1.0, 0.5, 0.0)]
+    call = lambda name, ov: gens[name].generate_with_lengths(
+        {"tokens": st}, max_new_tokens=max_new_tokens, seed=0, prefix_cache=pc,
+        drafts=None if ov is None else _overlap_drafts(ref, ov, vocab))
+    reset_launch_counts()          # the speculative paths start here ...
+    with torch.no_grad():
+        for name in gens:          # warm each generator once (pool, pins)
+            call(name, None if name.startswith("plain") else 0.0)
+        out = {run: {"run": run[0], "overlap": run[1], "ms": []} for run in runs}
+        for order in (runs, runs[::-1]):
+            for name, ov in order:
+                _sync(eng.device)
+                t = time.perf_counter()
+                toks = call(name, ov)[0]
+                row = out[(name, ov)]
+                row["ms"].append((time.perf_counter() - t) * 1e3)
+                g = gens[name]
+                row["tokens"] = margin_rule(f"spec {name} {ov}", [(ref, margins, toks)],
+                                            noise["tol"])
+                if ov is not None:
+                    row.update(g.last_spec_stats, host_syncs=g.last_spec_syncs,
+                               verify_iterations=g.last_spec_stats["spec_steps"])
+        out = list(out.values())
+        gen_launches = launch_counts()
+        # engine level: a plain pass of the paged engine whose small model
+        # records its margins, then the same batch with a speculating small
+        # generator and drafts that ``draft_store`` takes from the plain pass
+        plain = _gen_like(peng.small, MarginModel(peng.small.model, sampler))
+        spec_gen = _gen_like(peng.small, spec_k=SPEC_K)
+        calls = {"plain": record_calls(plain), "spec": record_calls(spec_gen)}
+        peng.small = plain
+        first = peng.handle_batch_result(batch, max_new_tokens=max_new_tokens)
+        slot_of = {q: s for s, (q, _) in peng.bank.text_store.items()}
+        tweak_rows = [i for i, m in enumerate(first.meta) if m["decision"] == 1]
+        for i in tweak_rows:       # an edit "<populated query> please" hits its source
+            src = tweak_lib.preprocess_query(batch[i][:-len(" please")])
+            peng.bank.draft_store[slot_of[src]] = response_ids(first.responses[i])
+        peng.small = spec_gen
+        before = (peng.stats.proposed, peng.stats.accepted, peng.stats.spec_steps)
+        _sync(eng.device)
+        t = time.perf_counter()
+        second = peng.handle_batch_result(batch, max_new_tokens=max_new_tokens)
+        _sync(eng.device)
+        engine_ms = (time.perf_counter() - t) * 1e3
+    launches = launch_counts()     # ... and end here
+    s = peng.stats
+    if len(calls["plain"]) != len(calls["spec"]):
+        raise AssertionError("the speculating pass made other generate calls than the plain one")
+    eng_spec = {"proposed": s.proposed - before[0], "accepted": s.accepted - before[1],
+                "spec_steps": s.spec_steps - before[2], "tweak_rows": len(tweak_rows),
+                "batch_ms": engine_ms, "acceptance_rate": s.acceptance_rate,
+                "tokens": margin_rule("engine spec", [(p[0], p[1], q[0]) for p, q in
+                                                      zip(calls["plain"], calls["spec"])],
+                                      noise["tol"]),
+                "calls": [int(c[0].shape[0]) for c in calls["plain"]]}
+    if not tweak_rows or eng_spec["proposed"] <= 0:
+        raise AssertionError(f"engine-level speculation proposed nothing: {eng_spec}")
+    if [m["decision"] for m in first.meta] != [m["decision"] for m in second.meta]:
+        raise AssertionError("routes changed between the two speculating passes")
+    for k in ("decode_attention_block", "paged_decode_attention_block"):
+        if eng.device.type == "cuda" and launches[k] == 0:
+            raise AssertionError(f"the speculative paths never launched {k}: {launches}")
+    for r in out:
+        if r["overlap"] == 1.0 and r["accepted"] <= 0:
+            raise AssertionError(f"a perfect draft was not accepted: {r}")
+    leaked = leaked_pages(*gens.values(), plain, spec_gen, peng.big)
+    if leaked:
+        raise AssertionError(f"speculation leaked {leaked} pages")
+    return {"phase": "spec", "spec_k": SPEC_K, "batch": int(st.shape[0]),
+            "suffix_width": int(st.shape[1]), "prefix_len": pc.length,
+            "max_new_tokens": max_new_tokens, "runs": out, "engine": eng_spec,
+            "generator_launches": gen_launches, "launches": launches, "path_noise": noise,
+            "leaked_pages": leaked}
+
+
+def session_phase(eng, texts, max_new_tokens: int, seed: int, noise):
+    """``DecodeSession(slots=8)`` on the big model at full width, paged: the
+    inaugural cohort against the dense greedy path under the margin rule,
+    then join and leave mid-flight, then zero leaked pages."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.batcher import pad_to_buckets
+    from repro_torch.core.tweak import preprocess_query
+    from repro_torch.serving.continuous import DecodeSession, leaked_pages
+    big = eng.big
+    toks, mask = eng.tok.encode_batch([preprocess_query(q) for q in texts[:12]],
+                                      eng.max_query_len)
+    toks = pad_to_buckets(toks, mask)[0][:12]                # (12, 16)
+    cap = toks.shape[1] + max_new_tokens + 1
+    dev_toks = torch.as_tensor(toks, device=eng.device).long()
+    with torch.no_grad():
+        logits, caches = big.model.prefill(big.params, {"tokens": dev_toks[:8]}, cap)
+        ref, margins = traced_greedy(big.model, big.params, big.cfg.sampler, logits, caches,
+                                     max_new_tokens)
+    gen = _gen_like(big, paged=True, page_size=PAGE, max_new_tokens=max_new_tokens)
+    reset_launch_counts()          # the session path starts here ...
+    with torch.no_grad():
+        sess = DecodeSession(gen, slots=8, capacity=cap, seed=seed)
+        t = time.perf_counter()
+        sess.admit(toks[:8], tags=list(range(8)))
+        first = sorted(sess.drain(), key=lambda f: f["tag"])
+        inaugural_ms = (time.perf_counter() - t) * 1e3
+        got = np.stack([f["tokens"] for f in first])
+        rule = margin_rule("session inaugural", [(ref, margins, got)], noise["tol"])
+        # join and leave mid-flight: cohorts of 4 join at steps 0, j and
+        # max_new_tokens (j = 10 of 32); each leaves once it has its budget
+        j = max_new_tokens // 3
+        t = time.perf_counter()
+        sess.admit(toks[:4], tags=["a0", "a1", "a2", "a3"])
+        sess.run_chunk(j)
+        sess.admit(toks[8:12], tags=["b0", "b1", "b2", "b3"])
+        sess.run_chunk(max_new_tokens - j)
+        harvest1 = sess.harvest()
+        sess.admit(toks[4:8], tags=["c0", "c1", "c2", "c3"])
+        sess.run_chunk(j)
+        harvest2 = sess.harvest()
+        done = harvest1 + harvest2 + sess.drain()
+        churn_ms = (time.perf_counter() - t) * 1e3
+    launches = launch_counts()     # ... and ends here
+    if eng.device.type == "cuda" and launches["paged_decode_attention"] == 0:
+        raise AssertionError(f"the session never launched the paged kernel: {launches}")
+    tags = [f["tag"] for f in done]
+    if (len(set(tags)) != 12 or not {"a0", "a1", "a2", "a3"} <= {f["tag"] for f in harvest1}
+            or any(f["tag"][0] == "c" for f in harvest1 + harvest2)):
+        raise AssertionError(f"rows left the session out of order: {tags}")
+    if any(f["length"] != max_new_tokens and not f["ended"] for f in done):
+        raise AssertionError("a harvested row stopped short of its budget")
+    by_tag = sorted(done, key=lambda f: f["tag"])
+    a_rows = np.stack([f["tokens"] for f in by_tag if f["tag"][0] == "a"])
+    c_rows = np.stack([f["tokens"] for f in by_tag if f["tag"][0] == "c"])
+    joined = margin_rule("session mid-flight", [(ref[:4], margins[:4], a_rows),
+                                                (ref[4:8], margins[4:8], c_rows)],
+                         noise["tol"])
+    leaked = leaked_pages(sess)
+    if leaked or sess.pool.live_pages:
+        raise AssertionError(f"the session leaked {leaked} pages")
+    return {"phase": "session", "slots": 8, "capacity": cap, "model": big.model.cfg.name,
+            "max_new_tokens": max_new_tokens, "inaugural": rule, "inaugural_ms": inaugural_ms,
+            "mid_flight": joined, "churn_rows": len(done), "churn_ms": churn_ms,
+            "launches": launches, "leaked_pages": leaked, "path_noise": noise}
+
+
+def spare_tokens(eng, batch):
+    """A planned batch as the big model's padded prompt tokens (B, 16)."""
+    from repro_torch.core.tweak import preprocess_query
+    from repro_torch.serving.batcher import pad_to_buckets
+    toks, mask = eng.tok.encode_batch([preprocess_query(q) for q in batch], eng.max_query_len)
+    return pad_to_buckets(toks, mask)[0]
 
 
 def decode_step_timing(eng, seed: int, steps: int = 16):
@@ -504,15 +1138,30 @@ SOURCES = {
                          "src/repro/kernels/decode_attention/kernel.py:142"),
     "cosine_topk": ("src/repro_torch/csrc/cosine_topk.cu",
                     "src/repro/kernels/cosine_topk/kernel.py:143"),
+    "decode_attention_block": ("src/repro_torch/csrc/decode_attention_block.cu",
+                               "src/repro/kernels/decode_attention/kernel.py:98"),
+    "paged_decode_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                               "src/repro/kernels/paged_attention/kernel.py:151"),
+    "paged_decode_attention_block": ("src/repro_torch/csrc/paged_attention.cu",
+                                     "src/repro/kernels/paged_attention/kernel.py:103"),
 }
 SUMMARY_CASE = {"flash_attention": "small-suffix-over-prefix",
-                "decode_attention": "small-tweak-decode", "cosine_topk": "serve-bank"}
+                "decode_attention": "small-tweak-decode", "cosine_topk": "serve-bank",
+                "decode_attention_block": "small-tweak-verify-k4",
+                "paged_decode_attention": "small-tweak-paged-decode",
+                "paged_decode_attention_block": "small-tweak-paged-verify-k4"}
+SERVE_KERNELS = ("flash_attention", "decode_attention", "cosine_topk")
+# the phase whose run each kernel's launches are read from
+LAUNCH_PHASE = {"flash_attention": "serve", "decode_attention": "serve",
+                "cosine_topk": "serve", "decode_attention_block": "spec",
+                "paged_decode_attention": "paged", "paged_decode_attention_block": "spec"}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -538,8 +1187,21 @@ def main(argv=None) -> int:
 
     prefix_len = len(tweak_lib.tweak_prefix_ids(HashWordTokenizer(128256)))
     checked = kernel_phase(prefix_len, args.seed)
-    serve, launches, eng, spare = serve_phase("llama-3.1-8b", torch.device("cuda"),
-                                              args.seed, N_BATCHES, MAX_NEW_TOKENS)
+    serve, launches, eng, spare, plan, served = serve_phase(
+        "llama-3.1-8b", torch.device("cuda"), args.seed, N_BATCHES, MAX_NEW_TOKENS)
+    emit(serve)
+    with torch.no_grad():
+        probe = torch.as_tensor(spare_tokens(eng, spare), device=eng.device).long()
+        noise = {k: path_noise(getattr(eng, k).model, getattr(eng, k).params,
+                               getattr(eng, k).cfg.sampler, probe) for k in ("big", "small")}
+    paged, peng = paged_phase(eng, plan, served, MAX_NEW_TOKENS, noise)
+    emit(paged)
+    spec = spec_phase(eng, peng, plan[1][0], MAX_NEW_TOKENS, noise["small"])
+    emit(spec)
+    del peng
+    session = session_phase(eng, spare + plan[1][1], MAX_NEW_TOKENS, args.seed, noise["big"])
+    emit(session)
+    phase_launches = {"serve": launches, "paged": paged["launches"], "spec": spec["launches"]}
     # the profiler only after serving: the serve timings stay free of
     # whatever it leaves attached to the process
     cases = []
@@ -548,7 +1210,6 @@ def main(argv=None) -> int:
         row["library_device_ms"] = device_ms(library, reps)
         cases.append(row)
         emit(row)
-    emit(serve)
     emit(dict(profile_phase(eng, spare, MAX_NEW_TOKENS, args.seed), nvidia_smi=smi))
     worst = {}
     for c in cases:
@@ -557,10 +1218,13 @@ def main(argv=None) -> int:
     for name, (source, replaces) in SOURCES.items():
         c = next(x for x in cases if x["name"] == name and x["case"] == SUMMARY_CASE[name])
         summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": worst[name],
+                        "launches": phase_launches[LAUNCH_PHASE[name]][name],
+                        "launch_phase": LAUNCH_PHASE[name], "max_abs_err": worst[name],
                         "ms": c["ms"], "device_ms": c["device_ms"], "plain_ms": c["plain_ms"],
                         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                         "library_ms": c["library_ms"]})
+    emit({"phase": "wall", "script_s": time.perf_counter() - t_start,
+          "kernel_build_s": build.build_seconds})
     print(smi, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

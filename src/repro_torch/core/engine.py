@@ -1,6 +1,7 @@
 """TweakLLMEngine — the paper's Figure-1 pipeline on one device (counterpart
 of ``src/repro/core/engine.py``: one engine, one local flat bank, FIFO/LRU/
-LFU, the single-stage router, dense greedy or sampled decode).
+LFU, the single-stage router; dense or paged decode, greedy or sampled,
+and speculative TWEAK decode on cached-response drafts).
 
 Per batch of text queries:
   1. tokenize + embed (MiniLM-class embedder, unit vectors);
@@ -8,7 +9,9 @@ Per batch of text queries:
   3. ONE device->host copy of scores, slots and decisions;
   4. EXACT -> the cached response verbatim;
      TWEAK -> the small LM prefills the Appendix-A prompt's suffix over the
-              shared instruction-prefix KV and decodes;
+              shared instruction-prefix KV and decodes; a speculating small
+              generator verifies the cached response's own token ids as
+              drafts (``SharedCacheBank.draft_store``);
      MISS  -> the big LM prefills the query and decodes, then the pair is
               committed with one ``insert_batch``.
 
@@ -73,6 +76,11 @@ class EngineStats:
     def hit_rate(self) -> float:
         return (self.tweak + self.exact) / max(self.total, 1)
 
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the verify loop accepted."""
+        return self.accepted / max(self.proposed, 1)
+
 
 @dataclasses.dataclass
 class BatchResult:
@@ -100,6 +108,9 @@ class SharedCacheBank:
         self.router_cfg = router_cfg or router_lib.RouterConfig()
         self.device = torch.device(device)
         self.text_store: Dict[int, Tuple[str, str]] = {}
+        # cached-response token ids, the speculation drafts: the exact ids
+        # generation produced (a text round trip need not be identity)
+        self.draft_store: Dict[int, List[int]] = {}
         self._default_costs: Dict[int, torch.Tensor] = {}
         self.state = cache_lib.init_cache(cache_cfg, self.device) if state is None else state
 
@@ -363,25 +374,74 @@ class TweakLLMEngine:
 
     def _run_tweak(self, queries, ids, slot_l, responses, max_new_tokens,
                    gen_tokens, prompt_tokens):
+        slots = [slot_l[i] for i in ids]
         cached = []
-        for i in ids:
-            c = self._text_store.get(slot_l[i])
+        for s in slots:
+            c = self._text_store.get(s)
             if c is None:
-                c = (self._decode_cached_query(slot_l[i]), self._decode_cached(slot_l[i]))
+                c = (self._decode_cached_query(s), self._decode_cached(s))
             cached.append(c)
         new_qs = [queries[i] for i in ids]
         cqs = [cq for cq, _ in cached]
         crs = [cr for _, cr in cached]
+        drafts = self._tweak_drafts(slots, crs, max_new_tokens)
         suffix_budget = None
         if self._prefix_path_available():
             suffix_budget = self._tweak_suffix_budget(max_new_tokens,
                                                       len(self._tweak_prefix_ids()))
         if suffix_budget is None:
             self._run_tweak_full(new_qs, cqs, crs, ids, responses, max_new_tokens,
-                                 gen_tokens, prompt_tokens)
+                                 gen_tokens, prompt_tokens, drafts)
         else:
             self._run_tweak_prefixed(new_qs, cqs, crs, ids, responses, max_new_tokens,
-                                     suffix_budget, gen_tokens, prompt_tokens)
+                                     suffix_budget, gen_tokens, prompt_tokens, drafts)
+
+    def _tweak_drafts(self, slots, crs, max_new_tokens):
+        """Per-row speculation drafts for a TWEAK sub-batch, or None.
+
+        The tweak prompt asks the small model for a light edit of the cached
+        response, so the cached response's own token ids plus EOS are the
+        draft.  Ids come from the bank's draft store, with a tokenized-text
+        fallback for slots populated elsewhere.  Returns ``(ids (B, D), lens
+        (B,))``, or None when the small generator is not speculation-ready
+        or the budget is below ``spec_k``.
+        """
+        if not getattr(self.small, "speculation_ready", False):
+            return None
+        if self.small.cfg.spec_k > max_new_tokens:
+            return None
+        eos = self.small.cfg.eos_id
+        rows = []
+        for s, cr in zip(slots, crs):
+            ids = self.bank.draft_store.get(s)
+            if ids is None:
+                t, m = self.tok.encode_batch([cr], self.cache_cfg.max_response_tokens,
+                                             add_bos=False)
+                ids = [tt for tt, mm in zip(t[0].tolist(), m[0].tolist()) if mm > 0]
+            rows.append(list(ids) + [eos])
+        width = max(len(r) for r in rows)
+        did = np.full((len(rows), width), eos, np.int32)
+        for j, r in enumerate(rows):
+            did[j, :len(r)] = r
+        return did, np.asarray([len(r) for r in rows], np.int32)
+
+    def _bill_spec_stats(self):
+        """Fold the small generator's last speculative call into stats."""
+        st = getattr(self.small, "last_spec_stats", None)
+        if st:
+            self.stats.proposed += st["proposed"]
+            self.stats.accepted += st["accepted"]
+            self.stats.spec_steps += st["spec_steps"]
+
+    @staticmethod
+    def _pad_drafts(drafts, rows: int):
+        """Empty drafts for the batch-bucket padding rows."""
+        did, dlen = drafts
+        pad = rows - did.shape[0]
+        if pad:
+            did = np.concatenate([did, np.zeros((pad, did.shape[1]), did.dtype)])
+            dlen = np.concatenate([dlen, np.zeros((pad,), dlen.dtype)])
+        return did, dlen
 
     def _emit_tweak_rows(self, rows, ids, out, lengths, ended, responses, gen_tokens):
         lengths = lengths.tolist()
@@ -395,14 +455,17 @@ class TweakLLMEngine:
             gen_tokens[i] = n_gen
 
     def _run_tweak_full(self, new_qs, cqs, crs, ids, responses, max_new_tokens,
-                        gen_tokens, prompt_tokens):
+                        gen_tokens, prompt_tokens, drafts=None):
         """Prefill the whole Appendix-A prompt (no prefix reuse)."""
         toks, mask = tweak_lib.build_tweak_batch(
             self.tok, new_qs, cqs, crs, self._tweak_encode_len(max_new_tokens))
         real_lens = mask.sum(axis=1).astype(np.int64).tolist()
         toks, mask, _ = pad_to_buckets(toks, mask)
+        kw = {} if drafts is None else {"drafts": self._pad_drafts(drafts, toks.shape[0])}
         out, lengths, ended = self.small.generate_with_lengths(
-            {"tokens": toks}, max_new_tokens=max_new_tokens, seed=self._next_seed())
+            {"tokens": toks}, max_new_tokens=max_new_tokens, seed=self._next_seed(), **kw)
+        if drafts is not None:
+            self._bill_spec_stats()
         self._emit_tweak_rows(range(len(ids)), ids, out, lengths, ended, responses,
                               gen_tokens)
         for j, i in enumerate(ids):
@@ -410,7 +473,7 @@ class TweakLLMEngine:
             self.stats.small_prompt_tokens += real_lens[j]
 
     def _run_tweak_prefixed(self, new_qs, cqs, crs, ids, responses, max_new_tokens,
-                            suffix_budget, gen_tokens, prompt_tokens):
+                            suffix_budget, gen_tokens, prompt_tokens, drafts=None):
         """Shared-prefix KV reuse, rows grouped by the length bucket of their
         REAL suffix."""
         prefix_ids = self._tweak_prefix_ids()
@@ -424,9 +487,15 @@ class TweakLLMEngine:
             rows = groups[bucket]
             sub_t = pad_to_buckets(toks[rows][:, :bucket], mask[rows][:, :bucket])[0]
             pc = self._small_prefix_cache(sub_t.shape[0])
+            kw = {}
+            if drafts is not None:
+                kw["drafts"] = self._pad_drafts((drafts[0][rows], drafts[1][rows]),
+                                                sub_t.shape[0])
             out, lengths, ended = self.small.generate_with_lengths(
                 {"tokens": sub_t}, max_new_tokens=max_new_tokens, seed=self._next_seed(),
-                prefix_cache=pc)
+                prefix_cache=pc, **kw)
+            if drafts is not None:
+                self._bill_spec_stats()
             self._emit_tweak_rows(rows, ids, out, lengths, ended, responses, gen_tokens)
             for row in rows:
                 real = len(prefix_ids) + real_lens[row]
@@ -455,6 +524,7 @@ class TweakLLMEngine:
         slots = slots.cpu().numpy().tolist()  # the one host copy per insert
         for j in range(n):
             self._text_store[slots[j]] = (texts[j], resp_texts[j])
+            self.bank.draft_store[slots[j]] = list(resp_tokens[j])
 
     def _run_miss(self, queries, ids, embs, responses, max_new_tokens,
                   gen_tokens, prompt_tokens):

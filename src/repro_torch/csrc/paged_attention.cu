@@ -1,0 +1,76 @@
+// Decode attention over a paged KV pool, for Hopper (sm_90a): one query per
+// row (paged_decode_attention_launch) or a verify block of K queries per
+// row (paged_decode_attention_block_launch).
+//
+// Replaces: src/repro/kernels/paged_attention/kernel.py:
+//   paged_decode_attention_pallas (body _kernel): slots with slot_pos < 0
+//     are masked;
+//   paged_decode_attention_block_pallas (body _kernel_block): query i keeps
+//     slot_pos >= 0 && slot_pos <= q_pos + i.
+// Each row's K/V are read through its block table, page block_tbl[b, j]
+// of the (P+1, page, Hk, dh) pool holding logical slots [j*page, (j+1)*page);
+// the dense cache is never built.  fp32 scores, softmax and accumulation;
+// output in the input dtype.
+//
+// What bounds it on an H100: bytes, the row's valid slots read once for all
+// queries (see attention_panel.cuh for the design and the rule for a row
+// with no valid slot: output 0).
+
+#include "attention_panel.cuh"
+
+namespace {
+
+int launch_paged(const void* q, const void* kp, const void* vp, const void* block_tbl,
+                 const void* slot_pos, const void* q_pos, void* out, void* part_m,
+                 void* part_l, void* part_acc, int batch, int kq, int cap, int hk, int g,
+                 int dh, int page, int npg, int causal, int dtype, int chunk, int nsplit,
+                 float scale, void* stream) {
+  using namespace repro_torch;
+  using namespace repro_torch::panel;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Geometry geo{kq, cap, hk, page, npg, causal, chunk, nsplit, scale};
+  const int* tbl = static_cast<const int*>(block_tbl);
+  const int* sp = static_cast<const int*>(slot_pos);
+  const int* qp = static_cast<const int*>(q_pos);
+  bool ok = false;
+  if (dtype == kFloat32) {
+    PagedKV<float> kv{static_cast<const float*>(kp), static_cast<const float*>(vp), tbl, sp,
+                      qp};
+    ok = launch_dh<float, PagedKV>(dh, g, q, kv, geo, batch, out, part_m, part_l, part_acc, s);
+  } else if (dtype == kBFloat16) {
+    PagedKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(kp),
+                              static_cast<const __nv_bfloat16*>(vp), tbl, sp, qp};
+    ok = launch_dh<__nv_bfloat16, PagedKV>(dh, g, q, kv, geo, batch, out, part_m, part_l,
+                                           part_acc, s);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q/out (B,H,dh) contiguous in `dtype`; kp/vp (P+1,page,Hk,dh); block_tbl
+// (B,npg) and slot_pos (B,cap) int32; scratch as in
+// decode_attention_block_launch with K = 1.  Returns cudaGetLastError().
+extern "C" int paged_decode_attention_launch(const void* q, const void* kp, const void* vp,
+                                             const void* block_tbl, const void* slot_pos,
+                                             void* out, void* part_m, void* part_l,
+                                             void* part_acc, int batch, int cap, int hk, int g,
+                                             int dh, int page, int npg, int dtype, int chunk,
+                                             int nsplit, float scale, void* stream) {
+  return launch_paged(q, kp, vp, block_tbl, slot_pos, nullptr, out, part_m, part_l, part_acc,
+                      batch, 1, cap, hk, g, dh, page, npg, 0, dtype, chunk, nsplit, scale,
+                      stream);
+}
+
+// As above with q/out (B,K,H,dh) and q_pos (B,) int32, the absolute position
+// of each row's first query.
+extern "C" int paged_decode_attention_block_launch(
+    const void* q, const void* kp, const void* vp, const void* block_tbl, const void* slot_pos,
+    const void* q_pos, void* out, void* part_m, void* part_l, void* part_acc, int batch,
+    int kq, int cap, int hk, int g, int dh, int page, int npg, int dtype, int chunk, int nsplit,
+    float scale, void* stream) {
+  return launch_paged(q, kp, vp, block_tbl, slot_pos, q_pos, out, part_m, part_l, part_acc,
+                      batch, kq, cap, hk, g, dh, page, npg, 1, dtype, chunk, nsplit, scale,
+                      stream);
+}

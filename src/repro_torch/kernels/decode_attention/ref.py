@@ -21,3 +21,20 @@ def decode_attention_ref(q, k, v, cache_len):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", w, v.float())
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+def decode_attention_block_ref(q, k, v, cache_len):
+    """q (B,K,H,dh): K queries per row whose keys sit at slots
+    ``cache_len + i``; k/v (B,T,Hk,dh); query i keeps slots
+    ``t < cache_len + i + 1`` -> (B,K,H,dh) in q.dtype (mirrors the JAX
+    ``decode_attention_block_ref``)."""
+    b, kq, h, dh = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kq, hk, h // hk, dh)
+    s = torch.einsum("bikgd,btkd->bkgit", qg.float(), k.float()) * (dh ** -0.5)
+    limit = cache_len[:, None] + torch.arange(kq, device=q.device)[None, :] + 1   # (B,K)
+    valid = torch.arange(t, device=q.device)[None, None, :] < limit[:, :, None]  # (B,K,T)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgit,btkd->bikgd", w, v.float())
+    return out.reshape(b, kq, h, dh).to(q.dtype)

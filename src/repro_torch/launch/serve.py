@@ -17,8 +17,17 @@ All weights are random, drawn on the device from ``torch.Generator``s seeded
 from ``seed`` (the repo has no public weights).  Off the ported slice —
 embedder training, the router cascade (``band > 0``), the IVF index, replica
 groups — raises.
+
+``main`` is the serving CLI of ``src/repro/launch/serve.py``: it replays a
+Zipfian arrival trace through the scheduler and prints the same report.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --queries 200 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --model llama-3.1-8b   # on the card
 """
 from __future__ import annotations
+
+import argparse
+import time
 
 import torch
 
@@ -26,11 +35,14 @@ from repro_torch.configs import llama31_8b
 from repro_torch.core.cache import CacheConfig
 from repro_torch.core.engine import TweakLLMEngine
 from repro_torch.core.router import RouterConfig
+from repro_torch.data import WorkloadGenerator
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelConfig, build_model
 from repro_torch.models.embedder import MINILM_CONFIG, init_embedder, tiny_embedder_config
 from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.sampler import SamplerConfig
+from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig, SimClock,
+                                           poisson_trace, replay_trace)
 from repro_torch.tokenizer import HashWordTokenizer
 
 MODELS = ("serve-tiny", "llama-3.1-8b")
@@ -104,3 +116,93 @@ def build_engine(**kw) -> TweakLLMEngine:
 
 def build_replica_group(n: int, **kw):
     raise NotImplementedError("replica groups over a shared bank are not ported")
+
+
+def _off_slice(args) -> None:
+    """Flags whose paths are not ported raise before anything is built."""
+    off = [(args.replicas > 1, "--replicas > 1 (replica groups, ROADMAP queue 1)"),
+           (args.cache_shards > 0, "--cache-shards (a sharded bank, ROADMAP queue 1)"),
+           (args.private_caches, "--private-caches (replica groups, ROADMAP queue 1)"),
+           (args.band > 0, "--band > 0 (the router cascade, ROADMAP queue 1)"),
+           (args.admit_floor > 0, "--admit-floor > 0 (cluster admission, ROADMAP queue 1)"),
+           (args.index == "ivf", "--index ivf (the IVF index, ROADMAP queue 1)"),
+           (args.embedder_steps > 0, "--embedder-steps > 0 (embedder training, "
+                                     "ROADMAP queue 1)")]
+    for bad, what in off:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--queries", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="scheduler max_batch (unique queries per dispatch)")
+    ap.add_argument("--rate", type=float, default=200.0,
+                    help="simulated arrival rate (requests/s)")
+    ap.add_argument("--max-wait", type=float, default=0.05,
+                    help="scheduler coalescing deadline (simulated s)")
+    ap.add_argument("--profile", default="lmsys", choices=["lmsys", "wildchat"])
+    ap.add_argument("--threshold", type=float, default=0.7)
+    ap.add_argument("--cost-threshold", type=float, default=None,
+                    help="routing operating point in [0,1] applied to every request; "
+                         "default: the router's calibrated default cost")
+    ap.add_argument("--band", type=float, default=0.0,
+                    help="uncertainty band of the router cascade (not ported: > 0 raises)")
+    ap.add_argument("--reranker-steps", type=int, default=120,
+                    help="training steps for the cascade reranker (only with --band > 0)")
+    ap.add_argument("--admit-floor", type=float, default=0.0,
+                    help="IVF cluster admission floor (not ported: > 0 raises)")
+    ap.add_argument("--policy", default="fifo", choices=["fifo", "lru", "lfu"])
+    ap.add_argument("--index", default="flat", choices=["flat", "ivf"],
+                    help="cache lookup index (ivf is not ported)")
+    ap.add_argument("--embedder-steps", type=int, default=0,
+                    help="embedder training steps (not ported: > 0 raises; the "
+                         "embedder keeps its seeded random weights)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas over one bank (not ported: > 1 raises)")
+    ap.add_argument("--cache-shards", type=int, default=0,
+                    help="row-shard the bank (not ported: > 0 raises)")
+    ap.add_argument("--private-caches", action="store_true",
+                    help="a private bank per replica (not ported)")
+    ap.add_argument("--model", default="serve-tiny", choices=list(MODELS))
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; the CPU only when asked for (--device cpu)")
+    args = ap.parse_args(argv)
+    _off_slice(args)
+
+    print(f"building TweakLLM stack ({args.model} on {args.device})...")
+    eng = build_engine(model=args.model, device=args.device, threshold=args.threshold,
+                       policy=args.policy, index=args.index,
+                       train_embedder_steps=args.embedder_steps, band=args.band)
+    scfg = SchedulerConfig(max_wait=args.max_wait, max_batch=args.batch, max_new_tokens=8,
+                           cost_threshold=args.cost_threshold)
+    sched = Scheduler(eng, scfg, clock=SimClock())
+    wl = WorkloadGenerator(profile=args.profile, seed=0)
+    texts = [q.text for q in wl.sample(args.queries)]
+    trace = poisson_trace(texts, args.rate, seed=0)
+    t0 = time.time()
+    with torch.no_grad():
+        done = replay_trace(sched, trace)
+    dt = time.time() - t0
+    # shedding (QueueFull) is a designed outcome under overload, not a bug
+    if len(done) != len(texts) - sched.stats.rejected:
+        raise RuntimeError(f"{len(done)} completions for {len(texts)} requests "
+                           f"({sched.stats.rejected} rejected)")
+
+    s, ss = eng.stats, sched.stats
+    print(f"\n== TweakLLM serving report ({args.profile} profile) ==")
+    print(f"requests: {ss.completed}  ({dt/max(ss.completed,1)*1e3:.1f} "
+          f"ms/request wall on {eng.device.type})")
+    print(f"scheduler: batches={ss.batches} mean_batch={ss.mean_batch:.1f} "
+          f"dedup_joined={ss.joined} rejected={ss.rejected}")
+    print(f"routing: miss={s.miss} tweak={s.tweak} exact={s.exact} "
+          f"hit_rate={s.hit_rate:.2%} (+{ss.joined} joined in flight)")
+    print(f"tokens:  big={s.big_tokens} small={s.small_tokens}")
+    print(f"cost:    {s.cost:,.0f} vs all-big {s.baseline_cost:,.0f} "
+          f"-> {s.cost/max(s.baseline_cost,1):.2%} of baseline")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -58,8 +58,27 @@ class Model:
     def decode_step(self, params, token, caches):
         return tf_lib.decode_step(params, token, caches, self.cfg)
 
+    @property
+    def supports_paged_decode(self) -> bool:
+        """Decode over a paged KV pool: every cached layer a plain global KV
+        cache (a windowed ring buffer cannot be paged)."""
+        return self.cfg.sliding_window == 0 and set(self.cfg.block_pattern) == {ATTN}
+
+    @property
+    def supports_spec_decode(self) -> bool:
+        """Verify (B, k) draft blocks and rewind the rejected suffix: the
+        same structural condition as paged decode."""
+        return self.supports_paged_decode
+
     def decode_block(self, params, tokens, caches):
-        raise NotImplementedError("q-block (speculative) decode is not ported")
+        """tokens (B, k) -> (logits (B, k, V), caches); speculative verify.
+        Caches carry per-row positions; the caller owns acceptance and the
+        rewind of rejected tokens."""
+        if not self.supports_spec_decode:
+            raise NotImplementedError(
+                f"{self.cfg.name}: block (speculative) decode unsupported for this "
+                f"architecture — use decode_step")
+        return tf_lib.decode_block(params, tokens, caches, self.cfg)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -4,13 +4,18 @@
 Parameters are a dict: ``embed`` (V,d), ``final_norm``, ``lm_head`` (d,V)
 unless tied, and ``layers``, one dict per block.  Caches keep the JAX
 package's ``{"scan", "rem", "pos"}`` structure: ``scan[0]`` stacks every
-layer's dense KV (``k``/``v`` (L,B,T,Hk,dh), ``slot_pos`` (L,B,T)), ``rem``
-is empty for an ATTN-only stack, and ``pos`` (the tokens already in the
-cache) is a host integer, so decode needs no device round trip to place
-the next token.
+layer's KV, ``rem`` is empty for an ATTN-only stack.  Two forms:
+
+* dense (prefill's): ``k``/``v`` (L,B,T,Hk,dh), ``slot_pos`` (L,B,T), and
+  ``pos`` (the tokens already in the cache) a host integer, so the dense
+  decode step needs no device round trip to place the next token;
+* per-row: ``pos`` a (B,) int32 device tensor, for paged caches
+  (``serving.paged_kv``) and for block (speculative) decode, whose rows
+  advance by different amounts (``paged_kv.row_pos_caches`` converts).
 
   prefill(params, tokens, cfg, capacity[, prefix]) -> (last logits (B,V), caches)
   decode_step(params, token, caches, cfg)          -> (logits (B,V), caches)
+  decode_block(params, tokens, caches, cfg)        -> (logits (B,k,V), caches)
 
 Decode updates the cache tensors in place (the JAX package donates them)
 and returns a new top-level dict with ``pos`` advanced.  Other block kinds,
@@ -119,14 +124,44 @@ def prefill(params, tokens, cfg: ModelConfig, capacity: int, prefix=None):
 
 
 def decode_step(params, token, caches, cfg: ModelConfig):
-    """token (B,) int -> (logits (B,V) fp32, caches with ``pos`` + 1)."""
+    """token (B,) int -> (logits (B,V) fp32, caches with ``pos`` + 1).
+
+    Dense caches carry a host-int ``pos``; paged caches a per-row one."""
     b = token.shape[0]
     pos = caches["pos"]
     kv = caches["scan"][0]
-    cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=token.device)
+    if "kp" in kv:
+        plan = attn_lib.write_plan(kv, pos, 1, block=False)
+        cache_len = None
+    else:
+        if torch.is_tensor(pos):
+            raise ValueError("dense decode_step takes a host-int pos; per-row caches "
+                             "decode through decode_block")
+        plan = None
+        cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=token.device)
     x = params["embed"][token[:, None]]
     for i, p in enumerate(params["layers"]):
         a = attn_lib.decode_attention(p["attn"], apply_norm(p["norm1"], x, cfg.norm_type),
-                                      kv, i, pos, cache_len, cfg)
+                                      kv, i, pos, cache_len, cfg, plan=plan)
         x = _mlp_residual(p, x + a, cfg)
     return _logits(params, x, cfg)[:, 0], {"scan": caches["scan"], "rem": (), "pos": pos + 1}
+
+
+def decode_block(params, tokens, caches, cfg: ModelConfig):
+    """tokens (B,k) verify block -> (logits (B,k,V) fp32, caches with ``pos``
+    + k).  ``logits[:, i]`` is the next-token distribution after
+    ``tokens[:, :i+1]`` on top of the cache.  Needs per-row positions
+    (``paged_kv.row_pos_caches``); the caller rewinds rejected tokens."""
+    pos = caches["pos"]
+    if not torch.is_tensor(pos):
+        raise ValueError("decode_block needs per-row (B,) positions: convert the "
+                         "caches with serving.paged_kv.row_pos_caches")
+    kv = caches["scan"][0]
+    plan = attn_lib.write_plan(kv, pos, tokens.shape[1], block=True)
+    x = params["embed"][tokens]
+    for i, p in enumerate(params["layers"]):
+        a = attn_lib.decode_attention_block(
+            p["attn"], apply_norm(p["norm1"], x, cfg.norm_type), kv, i, pos, plan, cfg)
+        x = _mlp_residual(p, x + a, cfg)
+    return _logits(params, x, cfg), {"scan": caches["scan"], "rem": (),
+                                     "pos": pos + tokens.shape[1]}

@@ -1,0 +1,389 @@
+"""Request scheduler over ``TweakLLMEngine`` (counterpart of
+``src/repro/serving/scheduler.py``, without the replica lanes).
+
+Requests are *submitted* individually with arrival timestamps, admitted
+through a bounded queue (backpressure), coalesced into bucket-shaped serve
+batches, deduplicated against identical in-flight queries, and dispatched
+when a batch bucket fills or the oldest request's max-wait deadline
+expires: queue -> coalesce -> dedup -> dispatch.
+
+* **Dedup** — N concurrent copies of one query text join one group; a
+  dispatch sends one copy, so N copies of the same MISS trigger ONE Big-LLM
+  generation.  All N requests get the response; the N-1 extras count as
+  ``joined``.
+* **Determinism** — time enters only through the injected ``Clock``; the
+  scheduler never sleeps and never reads wall time itself.  Under
+  ``SimClock`` an arrival trace replays deterministically
+  (``replay_trace``).
+* **Backpressure** — ``submit`` raises ``QueueFull`` once
+  ``queue_capacity`` requests are pending.
+* **Service model** — optionally, a dispatch occupies the engine for
+  ``service_model(batch_size)`` simulated seconds; ``poll`` does not
+  dispatch again before ``busy_until``.
+* **Continuous mode** (``SchedulerConfig(continuous=True)``) — ``slots``
+  persistent decode slots replace the bucket barrier: a request dispatches
+  the moment a slot frees and holds it for ``service_model(slots)/slots``
+  seconds, the request-level mirror of ``serving/continuous.DecodeSession``.
+  With a deterministic engine, responses and EngineStats equal barrier
+  mode; only latency and throughput change.
+
+Pure host Python; it imports nothing but the batcher.  ``ReplicaScheduler``
+(replica lanes with work stealing) is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Protocol, Tuple
+
+from .batcher import bucket_batch
+
+
+# ------------------------------------------------------------------ time
+class Clock(Protocol):
+    def now(self) -> float: ...
+
+
+class WallClock:
+    """Real time, for interactive / production use."""
+
+    def now(self) -> float:
+        return time.monotonic()
+
+
+class SimClock:
+    """Deterministic, manually-advanced clock — the simulation substrate.
+
+    Never goes backwards; tests and benches own time entirely, so traces
+    replay bit-identically with zero sleeps.
+    """
+
+    def __init__(self, start: float = 0.0):
+        self._t = float(start)
+
+    def now(self) -> float:
+        return self._t
+
+    def advance(self, dt: float) -> float:
+        if dt < 0:
+            raise ValueError(f"cannot advance by negative dt={dt}")
+        self._t += dt
+        return self._t
+
+    def advance_to(self, t: float) -> float:
+        self._t = max(self._t, float(t))
+        return self._t
+
+
+class QueueFull(RuntimeError):
+    """Admission rejected: the bounded request queue is at capacity."""
+
+
+# ------------------------------------------------------------- requests
+@dataclasses.dataclass
+class SchedulerConfig:
+    max_wait: float = 0.05        # flush deadline for the oldest request (s)
+    max_batch: int = 32           # unique queries per dispatch (snaps UP to
+                                  # a BATCH_BUCKETS shape so full dispatches
+                                  # hit an existing engine compile bucket)
+    queue_capacity: int = 1024    # bounded admission queue (backpressure)
+    dedup: bool = True            # coalesce identical in-flight texts
+    max_new_tokens: int = 32
+    # Continuous (slot-based) mode, DESIGN.md §11: instead of holding a
+    # bucket open behind the max_wait barrier, a request is dispatched
+    # the moment a decode slot frees — the request-level mirror of
+    # ``DecodeSession``'s mid-flight join/leave.  ``slots`` is the
+    # persistent batch width; each admitted request occupies one slot
+    # for ``service_model(slots) / slots`` simulated seconds (its
+    # steady-state share of a full fused-decode step), so the service
+    # process matches the device reality: rows at different depths
+    # decode together and one finishing does not stall the rest.
+    continuous: bool = False
+    slots: int = 8
+    # ReplicaScheduler (not ported) only: let an idle replica steal queued
+    # groups from a backed-up one.  Ignored by the single-lane Scheduler.
+    steal: bool = True
+    # Default per-request routing operating point (DESIGN.md §13); None
+    # defers to the engine's RouterConfig.default_cost.  A request-level
+    # ``submit(text, cost_threshold=...)`` overrides this.
+    cost_threshold: Optional[float] = None
+
+    def __post_init__(self):
+        if self.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if self.queue_capacity < 1:
+            raise ValueError("queue_capacity must be >= 1")
+        if self.max_wait < 0:
+            raise ValueError("max_wait must be >= 0")
+        if self.slots < 1:
+            raise ValueError("slots must be >= 1")
+        self.max_batch = bucket_batch(self.max_batch)
+
+
+@dataclasses.dataclass
+class Request:
+    """One submitted query; filled in when its dispatch completes."""
+    rid: int
+    text: str
+    arrival: float
+    # routing operating point for this request (None = engine default);
+    # part of the dedup key — two copies of one text at different
+    # operating points may route differently, so they must not coalesce
+    cost_threshold: Optional[float] = None
+    response: Optional[str] = None
+    meta: Optional[dict] = None
+    joined: bool = False          # rode along on another request's dispatch
+    finish: Optional[float] = None
+
+    @property
+    def done(self) -> bool:
+        return self.response is not None
+
+    @property
+    def latency(self) -> Optional[float]:
+        return None if self.finish is None else self.finish - self.arrival
+
+
+@dataclasses.dataclass
+class SchedulerStats:
+    submitted: int = 0
+    completed: int = 0
+    rejected: int = 0             # QueueFull admissions
+    joined: int = 0               # dedup-coalesced copies (N-1 per group)
+    batches: int = 0              # engine dispatches
+    dispatched: int = 0           # unique queries sent to the engine
+    stolen: int = 0               # groups moved between replica lanes
+    big_tokens: int = 0
+    small_tokens: int = 0
+    busy_time: float = 0.0        # modeled engine-busy simulated seconds
+    latency_sum: float = 0.0
+    latency_max: float = 0.0
+
+    @property
+    def mean_latency(self) -> float:
+        return self.latency_sum / max(self.completed, 1)
+
+    @property
+    def mean_batch(self) -> float:
+        return self.dispatched / max(self.batches, 1)
+
+
+# ------------------------------------------------------------ scheduler
+class Scheduler:
+    """Event-driven continuous-batching frontend (DESIGN.md §6).
+
+    Drive it with ``submit`` + ``poll``; ``poll`` dispatches every batch
+    whose flush condition holds at ``clock.now()`` and returns the
+    requests completed by this call.  ``next_wakeup`` tells a simulation
+    loop the earliest time ``poll`` would act, so traces replay
+    event-to-event with no busy waiting (see ``replay_trace``).
+    """
+
+    def __init__(self, engine, cfg: Optional[SchedulerConfig] = None, *,
+                 clock: Optional[Clock] = None,
+                 service_model: Optional[Callable[[int], float]] = None):
+        self.engine = engine
+        self.cfg = cfg if cfg is not None else SchedulerConfig()
+        self.clock = clock if clock is not None else WallClock()
+        self.service_model = service_model
+        self.stats = SchedulerStats()
+        # FIFO of dedup groups; each group shares one query text and is
+        # ordered by arrival (index 0 = primary, the rest join its dispatch)
+        self._groups: List[List[Request]] = []
+        self._by_text: Dict[Tuple[str, Optional[float]],
+                            List[Request]] = {}
+        # completions park here until a poll/flush RETURNS them: if one
+        # dispatch in a multi-batch poll raises, earlier batches' completed
+        # requests survive and are delivered by the next call
+        self._completed: List[Request] = []
+        self._n_pending = 0
+        self._busy_until = 0.0
+        # continuous mode: when each decode slot next frees (multiset —
+        # slots hold no host state here, only their busy horizon; the
+        # device-side identity lives in DecodeSession's leases)
+        self._slot_free: List[float] = [0.0] * self.cfg.slots
+        self._rid = itertools.count()
+
+    # -------------------------------------------------------- admission
+    @property
+    def pending(self) -> int:
+        return self._n_pending
+
+    def submit(self, text: str,
+               cost_threshold: Optional[float] = None) -> Request:
+        """Admit one request at ``clock.now()``; raises QueueFull.
+
+        ``cost_threshold`` picks this request's routing operating point
+        (DESIGN.md §13); None falls back to ``cfg.cost_threshold``, then
+        to the engine's default.
+        """
+        if self._n_pending >= self.cfg.queue_capacity:
+            self.stats.rejected += 1
+            raise QueueFull(
+                f"request queue at capacity ({self.cfg.queue_capacity})")
+        if cost_threshold is None:
+            cost_threshold = self.cfg.cost_threshold
+        req = Request(next(self._rid), text, self.clock.now(),
+                      cost_threshold=cost_threshold)
+        self.stats.submitted += 1
+        key = (text, cost_threshold)
+        group = self._by_text.get(key) if self.cfg.dedup else None
+        if group is not None:
+            group.append(req)
+        else:
+            group = [req]
+            self._groups.append(group)
+            if self.cfg.dedup:
+                self._by_text[key] = group
+        self._n_pending += 1
+        return req
+
+    # --------------------------------------------------------- dispatch
+    def next_wakeup(self) -> Optional[float]:
+        """Earliest time ``poll`` would dispatch; None when queue empty."""
+        if not self._groups:
+            return None
+        t = self._groups[0][0].arrival
+        if self.cfg.continuous:
+            # no fill barrier: dispatch the moment a slot frees
+            return max(t, min(self._slot_free))
+        if len(self._groups) < self.cfg.max_batch:
+            t += self.cfg.max_wait          # waiting to fill the bucket
+        return max(t, self._busy_until)
+
+    def poll(self) -> List[Request]:
+        """Dispatch every due batch at ``clock.now()``; returns completions
+        (including any parked by an earlier, partially-failed call)."""
+        while True:
+            w = self.next_wakeup()
+            if w is None or w > self.clock.now():
+                out, self._completed = self._completed, []
+                return out
+            self._dispatch()
+
+    def flush(self) -> List[Request]:
+        """Drain the queue now, ignoring deadlines (end-of-stream)."""
+        while self._groups:
+            self._dispatch()
+        out, self._completed = self._completed, []
+        return out
+
+    def _dispatch(self) -> None:
+        if self.cfg.continuous:
+            self._dispatch_continuous()
+            return
+        take = min(len(self._groups), self.cfg.max_batch)
+        groups = self._groups[:take]
+        result = self._serve(groups)
+        start = max(self.clock.now(), self._busy_until)
+        service = self.service_model(take) if self.service_model else 0.0
+        finish = start + service
+        self._busy_until = finish
+        self.stats.busy_time += service
+        self._complete(groups, result, finish)
+
+    def _dispatch_continuous(self) -> None:
+        """Slot-based dispatch: the cohort is whatever fits the slots that
+        are free RIGHT NOW (no fill barrier) — the request-level analogue
+        of ``DecodeSession.admit`` splicing rows in at a step boundary."""
+        start = max(self.clock.now(), min(self._slot_free))
+        free = [i for i, t in enumerate(self._slot_free) if t <= start]
+        take = min(len(self._groups), len(free), self.cfg.max_batch)
+        groups = self._groups[:take]
+        result = self._serve(groups)
+        # each request holds one slot for its steady-state share of a
+        # full-slot fused decode: finishing frees ONLY that slot
+        service = (self.service_model(self.cfg.slots) / self.cfg.slots
+                   if self.service_model else 0.0)
+        finish = start + service
+        for i in free[:take]:
+            self._slot_free[i] = finish
+        self.stats.busy_time += service * take
+        self._complete(groups, result, finish)
+
+    def _serve(self, groups):
+        # engine first, queue mutation after: if the engine raises, every
+        # request stays pending (and countable) for a retry or flush
+        texts = [g[0].text for g in groups]
+        costs = [g[0].cost_threshold for g in groups]
+        # only surface the kwarg when an operating point was actually set:
+        # cost-oblivious engines (baselines, test doubles) keep working
+        kw = ({"cost_thresholds": costs}
+              if any(c is not None for c in costs) else {})
+        result = self.engine.handle_batch_result(
+            texts, max_new_tokens=self.cfg.max_new_tokens, **kw)
+        del self._groups[:len(groups)]
+        if self.cfg.dedup:
+            for g in groups:
+                self._by_text.pop((g[0].text, g[0].cost_threshold), None)
+        return result
+
+    def _complete(self, groups, result, finish: float) -> None:
+        self.stats.batches += 1
+        self.stats.dispatched += len(groups)
+        self.stats.big_tokens += result.big_tokens
+        self.stats.small_tokens += result.small_tokens
+        for group, resp, meta in zip(groups, result.responses, result.meta):
+            for j, req in enumerate(group):
+                req.response = resp
+                req.meta = dict(meta)
+                req.joined = j > 0
+                req.finish = finish
+                self.stats.completed += 1
+                self.stats.joined += int(j > 0)
+                lat = finish - req.arrival
+                self.stats.latency_sum += lat
+                self.stats.latency_max = max(self.stats.latency_max, lat)
+                self._completed.append(req)
+        self._n_pending -= sum(len(g) for g in groups)
+
+
+# ------------------------------------------------------------- replay
+def replay_trace(sched: Scheduler, trace: Iterable[Tuple[float, str]], *,
+                 drain: bool = True) -> List[Request]:
+    """Replay (arrival_time, text) events through a SimClock'd scheduler.
+
+    Advances the scheduler's clock event-to-event (deadline fires between
+    arrivals are honored in order), submits each arrival, and finally
+    drains the queue.  Rejected (QueueFull) arrivals are shed and counted
+    in ``sched.stats.rejected``.  Returns completed requests; sort by
+    ``rid`` to recover submission order.
+    """
+    clock = sched.clock
+    if not isinstance(clock, SimClock):
+        raise TypeError("replay_trace requires a Scheduler on a SimClock")
+    done: List[Request] = []
+    for t, text in trace:
+        while True:
+            w = sched.next_wakeup()
+            if w is None or w > t:
+                break
+            clock.advance_to(w)
+            done.extend(sched.poll())
+        clock.advance_to(t)
+        try:
+            sched.submit(text)
+        except QueueFull:
+            continue
+        done.extend(sched.poll())
+    while drain:
+        w = sched.next_wakeup()
+        if w is None:
+            break
+        clock.advance_to(w)
+        done.extend(sched.poll())
+    return done
+
+
+def poisson_trace(texts: List[str], rate: float, *,
+                  seed: int = 0) -> List[Tuple[float, str]]:
+    """Poisson-process arrival trace over ``texts`` at ``rate`` req/s."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / rate, size=len(texts)).tolist()
+    t, out = 0.0, []
+    for g, text in zip(gaps, texts):
+        t += g
+        out.append((t, text))
+    return out

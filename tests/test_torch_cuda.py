@@ -1,6 +1,6 @@
 """The port on an NVIDIA GPU: each Hopper kernel against its plain PyTorch
-version, and a small engine served on the card against the same engine on
-the CPU.  Every test is marked ``cuda`` and skips without a card.  This
+version, and small engines (dense; paged with a speculating small model)
+served on the card against the same engines on the CPU.  Every test is marked ``cuda`` and skips without a card.  This
 file imports no JAX, so it runs where the card is:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -8,6 +8,8 @@ file imports no JAX, so it runs where the card is:
 Tolerances: fp32 kernels 1e-5 (summation order differs from the plain
 version's); bf16 2e-2 (bf16 output rounding, ulp 2**-8 near 1).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,13 +18,18 @@ from repro_torch.core import router
 from repro_torch.core.cache import CacheConfig
 from repro_torch.core.engine import TweakLLMEngine
 from repro_torch.core.router import RouterConfig
+from repro_torch.core.tweak import preprocess_query
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.cosine_topk import ops as cos_ops
 from repro_torch.kernels.cosine_topk.ref import cosine_topk_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_block_ref
 from repro_torch.kernels.flash_attention.ref import attend_blockwise, attend_naive
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention.ref import (paged_decode_attention_block_ref,
+                                                     paged_decode_attention_ref)
 from repro_torch.launch.serve import model_configs
 from repro_torch.models import build_model
 from repro_torch.models.embedder import init_embedder
@@ -32,6 +39,7 @@ from repro_torch.tokenizer import HashWordTokenizer
 
 pytestmark = pytest.mark.cuda
 TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
+DENSE_PATH = ("flash_attention", "decode_attention", "cosine_topk")
 
 
 def _cuda():
@@ -81,6 +89,72 @@ def test_decode_kernel_matches_plain(dtype, tol, b, h, hk, t, dh):
     out = dec_ops.decode_attention(q, k, v, lens)
     ref = decode_attention_ref(q.float(), k.float(), v.float(), lens)
     torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("kq", [1, 4])
+@pytest.mark.parametrize("b,h,hk,t,dh", [(8, 32, 8, 206, 128), (3, 8, 1, 700, 128),
+                                         (2, 16, 2, 45, 64)])
+def test_decode_block_kernel_matches_plain(dtype, tol, kq, b, h, hk, t, dh):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(t + kq)
+    q = torch.randn(b, kq, h, dh, device=dev, generator=g).to(dtype)
+    k = torch.randn(b, t, hk, dh, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, t, hk, dh, device=dev, generator=g).to(dtype)
+    lens = torch.randint(0, t - kq + 1, (b,), device=dev, generator=g, dtype=torch.int32)
+    lens[0] = t - kq
+    before = dec_ops.block_launches
+    out = dec_ops.decode_attention_block(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert dec_ops.block_launches == before + 1
+    ref = decode_attention_block_ref(q.float(), k.float(), v.float(), lens)
+    torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+
+
+def _paged_case(dev, g, b, kq, h, hk, dh, page, cap, dtype):
+    """A pool with a prefix of two pages shared by every row (pinned), then
+    private pages; ragged per-row lengths; the last row parked on TRASH."""
+    npg = -(-cap // page)
+    pages = 2 + b * (npg - 2) + 1
+    kp = torch.randn(pages + 1, page, hk, dh, device=dev, generator=g).to(dtype)
+    vp = torch.randn(pages + 1, page, hk, dh, device=dev, generator=g).to(dtype)
+    perm = torch.randperm(pages - 2, device=dev, generator=g)[:b * (npg - 2)] + 2
+    tbl = torch.cat([torch.arange(2, device=dev).expand(b, 2), perm.view(b, npg - 2)], 1)
+    tbl = tbl.to(torch.int32).contiguous()
+    tbl[-1] = pages                                        # TRASH
+    qpos = torch.randint(2 * page, cap - kq + 1, (b,), device=dev, generator=g,
+                         dtype=torch.int32)
+    t = torch.arange(cap, device=dev)[None, :]
+    sp = torch.where(t < (qpos + kq)[:, None], t, -1).to(torch.int32)
+    sp[:, 5] = -1                                          # a rewound hole
+    sp[-1] = -1
+    q = torch.randn(b, kq, h, dh, device=dev, generator=g).to(dtype)
+    return q, kp, vp, tbl, sp.contiguous(), qpos
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("kq", [1, 4])
+@pytest.mark.parametrize("page", [16, 32])
+@pytest.mark.parametrize("b,h,hk,dh,cap", [(8, 32, 8, 128, 206), (3, 8, 2, 64, 75)])
+def test_paged_kernels_match_plain(dtype, tol, kq, page, b, h, hk, dh, cap):
+    """Rows with at least one valid slot against the plain versions; the
+    TRASH row with none is finite (the kernels' rule gives 0 there)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(cap + page + kq)
+    q, kp, vp, tbl, sp, qpos = _paged_case(dev, g, b, kq, h, hk, dh, page, cap, dtype)
+    before = paged_ops.block_launches
+    out = paged_ops.paged_decode_attention_block(q, kp, vp, tbl, sp, qpos)
+    torch.cuda.synchronize()
+    assert paged_ops.block_launches == before + 1
+    f = [x.float() for x in (q, kp, vp)]
+    ref = paged_decode_attention_block_ref(f[0], f[1], f[2], tbl, sp, qpos)
+    torch.testing.assert_close(out[:-1].float(), ref[:-1], rtol=tol, atol=tol)
+    assert bool(torch.isfinite(out[-1].float()).all()) and not out[-1].float().abs().max()
+    if kq == 1:
+        one = paged_ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, tbl, sp)
+        ref1 = paged_decode_attention_ref(f[0][:, 0], f[1], f[2], tbl, sp)
+        torch.testing.assert_close(one[:-1].float(), ref1[:-1], rtol=tol, atol=tol)
+        assert bool(torch.isfinite(one.float()).all())
 
 
 @pytest.mark.parametrize("b,n,d,p_valid,block_n", [(8, 8192, 384, 0.9, 1024),
@@ -152,10 +226,56 @@ def test_engine_on_the_card_matches_the_cpu():
         reset_launch_counts()
         out[device.type] = eng.handle_batch(batch, max_new_tokens=6, collect_meta=True)
         counts = launch_counts()
-        assert min(counts.values()) > 0 if device.type == "cuda" else max(counts.values()) == 0
+        if device.type == "cuda":
+            assert min(counts[k] for k in DENSE_PATH) > 0
+        else:
+            assert max(counts.values()) == 0
     (r_cpu, m_cpu), (r_gpu, m_gpu) = out["cpu"], out["cuda"]
     assert [m["decision"] for m in m_gpu] == [m["decision"] for m in m_cpu]
     assert {m["decision"] for m in m_gpu} >= {router.EXACT, router.MISS}
     np.testing.assert_allclose([m["sim"] for m in m_gpu], [m["sim"] for m in m_cpu],
                                atol=1e-5)
     assert r_gpu == r_cpu
+
+
+def _ids(text):
+    """Token ids of a generated response (the tokenizer renders id i as wi)."""
+    return [int(w[1:]) for w in text.split() if w[1:].isdigit()]
+
+
+def test_paged_spec_engine_on_the_card_matches_the_cpu():
+    """Paged generators and a speculating small one (spec_k 4), drafts set in
+    the bank from a first pass: same routes, responses and speculation
+    counters on the card as on the CPU, through the paged and q-block
+    kernels, with no page leaked."""
+    from repro_torch.serving.continuous import leaked_pages
+    dev = _cuda()
+    pairs = (["how do i learn rust setup", "why is keto diet good"],
+             ["practice daily", "it helps"])
+    batch = ["how do i learn rust setup please", "what is the price of solar panels",
+             "why is keto diet good please", "how do i learn rust setup"]
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        eng = _small_engine(device)
+        for gen in (eng.big, eng.small):
+            gen.cfg = dataclasses.replace(gen.cfg, paged=True, pool_pages=128,
+                                          spec_k=4 if gen is eng.small else 1)
+        eng.populate(*pairs)
+        first = eng.handle_batch(batch, max_new_tokens=6, collect_meta=True)
+        slot_of = {q: s_ for s_, (q, _) in eng.bank.text_store.items()}
+        for i, m in enumerate(first[1]):
+            if m["decision"] == router.TWEAK:
+                src = preprocess_query(batch[i][:-len(" please")])
+                eng.bank.draft_store[slot_of[src]] = _ids(first[0][i])
+        reset_launch_counts()
+        second = eng.handle_batch(batch, max_new_tokens=6, collect_meta=True)
+        counts = launch_counts()
+        st = eng.stats
+        out[device.type] = (first, second, (st.proposed, st.accepted, st.spec_steps), counts)
+        assert leaked_pages(eng.big, eng.small) == 0
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert [m["decision"] for m in gpu[1][1]] == [m["decision"] for m in cpu[1][1]]
+    assert gpu[0][0] == cpu[0][0] and gpu[1][0] == cpu[1][0]
+    assert gpu[2] == cpu[2] and cpu[2][0] > 0
+    assert gpu[3]["paged_decode_attention_block"] > 0
+    assert max(cpu[3].values()) == 0

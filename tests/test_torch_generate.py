@@ -19,6 +19,7 @@ from repro_torch.checkpoint import jax_params_to_torch
 from repro_torch.launch.serve import model_configs
 from repro_torch.models import ModelConfig as PortModelConfig
 from repro_torch.models import build_model
+from repro_torch.serving.continuous import DecodeSession
 from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.sampler import SamplerConfig, greedy_ids, mask_vocab
 
@@ -131,12 +132,16 @@ def test_zero_budget_and_off_slice_options():
     t, n, e = pg.generate_with_lengths({"tokens": np.zeros((2, 4), np.int32)},
                                        max_new_tokens=0)
     assert t.shape == (2, 0) and n.tolist() == [0, 0] and e.tolist() == [False, False]
-    with pytest.raises(NotImplementedError):
-        pg.generate_with_lengths({"tokens": np.zeros((2, 4), np.int32)},
-                                 drafts=(np.zeros((2, 1), np.int32), np.ones(2, np.int32)))
-    with pytest.raises(NotImplementedError):
-        GenerateConfig(spec_k=2)
-    with pytest.raises(NotImplementedError):
-        GenerateConfig(paged=True)
+    # the JAX package's speculation checks, now that drafts are ported
+    with pytest.raises(ValueError, match="spec_k"):
+        GenerateConfig(spec_k=0)
+    with pytest.raises(ValueError, match="max_new_tokens"):
+        GenerateConfig(max_new_tokens=4, spec_k=8)
+    with pytest.raises(ValueError, match="greedy"):
+        GenerateConfig(spec_k=2, sampler=SamplerConfig(temperature=0.5))
+    # what stays off the slice
+    with pytest.raises(NotImplementedError, match="spec_k > 1"):
+        DecodeSession(Generator(pg.model, pg.params, GenerateConfig(max_new_tokens=8)),
+                      slots=2, capacity=32, spec_k=2)
     with pytest.raises(NotImplementedError):
         build_model(PortModelConfig(sliding_window=16))

@@ -2,6 +2,7 @@
 imports JAX or the ``repro`` package; default-device entry points refuse to
 run without a card; a missing ``nvcc`` raises instead of falling back."""
 import ast
+import importlib
 import pathlib
 
 import numpy as np
@@ -86,4 +87,30 @@ def test_missing_nvcc_raises(monkeypatch):
 
 def test_launch_counts_reset():
     reset_launch_counts()
-    assert launch_counts() == {"flash_attention": 0, "decode_attention": 0, "cosine_topk": 0}
+    assert launch_counts() == {"flash_attention": 0, "decode_attention": 0, "cosine_topk": 0,
+                               "decode_attention_block": 0, "paged_decode_attention": 0,
+                               "paged_decode_attention_block": 0}
+
+
+SLICE_2 = ("serving/scheduler.py", "serving/paged_kv.py", "serving/continuous.py",
+           "kernels/paged_attention/ops.py", "kernels/paged_attention/ref.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_2)
+def test_slice_2_modules_stand_alone(rel):
+    """Each module of the second slice imports and is among the files the
+    import check above walks; the CUDA sources it launches are in csrc."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in _port_files()
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    importlib.import_module("repro_torch." + rel[:-3].replace("/", "."))
+
+
+def test_new_kernel_sources_and_signatures():
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    for src in ("decode_attention_block.cu", "paged_attention.cu", "attention_panel.cuh"):
+        assert (csrc / src).exists()
+    for name in ("decode_attention_block_launch", "paged_decode_attention_launch",
+                 "paged_decode_attention_block_launch"):
+        assert name in build.SIGNATURES
+        assert any(f"int {name}(" in f.read_text() for f in csrc.glob("*.cu"))
