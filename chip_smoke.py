@@ -32,12 +32,19 @@ Prints one JSON object per line:
   session ``DecodeSession(slots=8)`` on the big model, paged: the inaugural
           cohort against dense greedy decode, join and leave mid-flight,
           zero leaked pages;
+  ivf     the serve traffic through an engine whose bank has the IVF index
+          (2,048 clusters, 8 probed), on the serve phase's weights and
+          restored bank: one k-means rebuild (seconds, spilled rows, largest
+          cluster), every valid slot with exactly one live member entry, a
+          full probe against the flat kernel, recall@1 at the default probe,
+          routes, lookup time per batch flat and IVF, the shortlist kernel's
+          launches;
   profile where the time goes, after the serve run: one small-model decode
           step timed alone (host enqueue, wall and device time), then one
           more serve batch under ``torch.profiler`` (wall time, device-busy
           share, device time by kernel name);
   kernels the ported kernels with their launches on the path that runs
-          them (serve for the dense kernels, paged, spec);
+          them (serve for the dense kernels, paged, spec, ivf);
   wall    the script's wall time;
 
 then the raw nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
@@ -89,11 +96,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, split: bool = False):
     """Device time of ``fn`` per call: the summed durations of the GPU kernels
     it launches, from ``torch.profiler``.  For a kernel of a few microseconds
     the CUDA-event time of back-to-back calls (``time_ms``) is the host's
-    launch rate instead; this is the card's own time."""
+    launch rate instead; this is the card's own time.  ``split`` also
+    returns {kernel name: (ms per call, launches per call)}."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -101,10 +109,13 @@ def device_ms(fn, reps: int = 10) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(r[1] for r in kernel_rows(prof))
+    rows = kernel_rows(prof)
+    us = sum(r[1] for r in rows)
     if us <= 0:
         raise AssertionError("the profiler recorded no device time")
-    return us / 1e3 / reps
+    if not split:
+        return us / 1e3 / reps
+    return us / 1e3 / reps, {k[:60]: (t / 1e3 / reps, c / reps) for k, t, c in rows}
 
 
 def kernel_rows(prof):
@@ -257,6 +268,88 @@ def cosine_case(label, b, n, d, k, block_n, gen):
             "max_abs_err": err, "tolerance": tol, "ms": time_ms(run),
             "plain_ms": time_ms(plain, reps=5), "library_ms": time_ms(library, reps=5),
             "bound_ms": bms, "bound_by": by}, (run, library, 10)
+
+
+def gather_case(label, b, n, nprobe, bucket, d, k, sets, gen):
+    """The IVF shortlist kernel at the probe's shape, fp32: M = nprobe x
+    bucket candidate positions per query, each probed cluster's bucket filled
+    3/8 to 5/8 with members, -1 padding behind them, and 5% of members stale,
+    so about half the candidates are live.  The timed loop walks ``sets`` distinct
+    candidate lists, so the live rows (12.6 MB per list at M 2,048) come from
+    device memory, not from the 50 MB L2.  The first list holds the corner
+    cases: two tied candidates (the lower position must win), a row listed
+    twice, and a query with fewer than k live candidates."""
+    import torch
+    from repro_torch.kernels.cosine_topk import ops, ref
+    dev = gen.device
+    m = nprobe * bucket
+    q = torch.nn.functional.normalize(torch.randn(b, d, device=dev, generator=gen), dim=-1)
+    db = torch.nn.functional.normalize(torch.randn(n, d, device=dev, generator=gen), dim=-1)
+    lists = []
+    for _ in range(sets):
+        idx = torch.randint(0, n, (b, m), device=dev, generator=gen, dtype=torch.int32)
+        fill = torch.randint(3 * bucket // 8, 5 * bucket // 8 + 1, (b, nprobe, 1), device=dev,
+                             generator=gen)
+        pos = torch.arange(bucket, device=dev)[None, None, :]
+        idx = torch.where(pos < fill, idx.view(b, -1, bucket), -1).view(b, m).contiguous()
+        valid = (torch.rand(b, m, device=dev, generator=gen) < 0.95) & (idx >= 0)
+        lists.append((idx, valid))
+    idx, valid = lists[0]
+    ra, rb, rd = 11, 7, 5
+    db[ra] = q[0]                        # a tie at score 1: ra at position 3 ...
+    db[rb] = q[0]                        # ... before rb at position 9
+    db[rd] = q[2]                        # rd listed twice, at positions 0 and 1
+    idx[0, 3], idx[0, 9], idx[2, 0], idx[2, 1] = ra, rb, rd, rd
+    valid[0, 3] = valid[0, 9] = valid[2, 0] = valid[2, 1] = True
+    valid[1] = False
+    valid[1, :2] = idx[1, :2] >= 0       # query 1: fewer live candidates than k
+    live = [v & (i >= 0) for i, v in lists]
+    s, i = ops.cosine_topk_gather(q, db, idx, valid, k=k)
+    s_ref, i_ref = ref.cosine_topk_gather_ref(q, db[idx.clamp(min=0).long()], idx, live[0], k)
+    fin = torch.isfinite(s_ref)
+    if not torch.equal(torch.isfinite(s), fin) or not bool((i[~fin] == -1).all()):
+        raise AssertionError(f"cosine_topk_gather[{label}]: empty slots differ: {i}")
+    err = (s[fin] - s_ref[fin]).abs().max().item()
+    tol = 1e-5
+    check(f"cosine_topk_gather[{label}]", err, tol)
+    gap = torch.full_like(s_ref, float("inf"))
+    d_ = torch.diff(torch.where(fin, s_ref, 1e9), dim=1).abs()
+    gap[:, 1:] = torch.minimum(gap[:, 1:], d_)
+    gap[:, :-1] = torch.minimum(gap[:, :-1], d_)
+    sure = fin & (gap > tol)
+    if not torch.equal(i[sure], i_ref[sure]):
+        raise AssertionError(f"cosine_topk_gather[{label}]: indices differ from the plain "
+                             "version")
+    if i[0, :2].tolist() != [ra, rb] or i[2, :2].tolist() != [rd, rd]:
+        raise AssertionError(f"cosine_topk_gather[{label}]: tie or repeat misplaced: {i[:3]}")
+    step = [0]
+
+    def pick():
+        j = step[0] % sets
+        step[0] += 1
+        return lists[j][0], lists[j][1], live[j]
+
+    def run():
+        ix, v, _ = pick()
+        return ops.cosine_topk_gather(q, db, ix, v, k=k)
+
+    def library():
+        ix, _, lv = pick()
+        sc = torch.einsum("bd,bmd->bm", q, db[ix.clamp(min=0).long()])
+        return torch.topk(torch.where(lv, sc, -torch.inf), k, dim=1)
+
+    plain = lambda: ref.cosine_topk_gather_ref(q, db[idx.clamp(min=0).long()], idx, live[0], k)
+    n_live = sum(int(x.sum().item()) for x in live) / sets
+    moved = 4 * n_live * d + 5 * b * m + 4 * b * d + 8 * b * k   # live rows, index + mask
+    bms, by = bound(moved, 2.0 * n_live * d, "fp32")
+    return {"phase": "kernel", "name": "cosine_topk_gather", "case": label,
+            "shape": {"B": b, "N": n, "M": m, "nprobe": nprobe, "bucket": bucket, "D": d,
+                      "k": k, "block_m": 64,
+                      "live_per_list": n_live, "lists": sets, "dtype": "float32"},
+            "max_abs_err": err, "tolerance": tol, "ms": time_ms(run, reps=4 * sets),
+            "plain_ms": time_ms(plain, reps=5), "library_ms": time_ms(library, reps=sets),
+            "library": "yardstick: topk(where(live, einsum(q, db[cand_idx]), -inf))",
+            "bound_ms": bms, "bound_by": by}, (run, library, sets)
 
 
 def block_case(label, b, kq, h, hk, dh, t, cache_len, layers, gen):
@@ -421,6 +514,8 @@ def kernel_phase(prefix_len: int, seed: int):
                     prefix_len + 128 + 16, cfg.num_layers, gen),
         decode_case("big-miss-decode", 8, h, hk, dh, 64 + 33, 64 + 16, cfg.num_layers, gen),
         cosine_case("serve-bank", 8, LLAMA_CAPACITY, 384, 4, 1024, gen),
+        gather_case("ivf-probe", 8, LLAMA_CAPACITY, 8, 256, 384, 4, 8, gen),
+        gather_case("ivf-probe-1m", 8, 1 << 20, 8, 1024, 384, 4, 8, gen),
         block_case("small-tweak-verify-k4", 8, 4, h, hk, dh, tweak_cap, tweak_len,
                    cfg.num_layers, gen),
         block_case("small-tweak-verify-k1", 8, 1, h, hk, dh, tweak_cap, tweak_len,
@@ -1067,6 +1162,116 @@ def session_phase(eng, texts, max_new_tokens: int, seed: int, noise):
             "launches": launches, "leaked_pages": leaked, "path_noise": noise}
 
 
+# ------------------------------------------------------------------ slice 3
+
+def ivf_phase(eng, plan, serve_out, max_new_tokens: int):
+    """The serve traffic through an engine whose bank has the IVF index
+    (``CacheConfig(index="ivf")``: 2,048 clusters, bucket 256, nprobe 8 at
+    262,144 rows), on the serve phase's weights and the serve phase's
+    restored bank: one k-means rebuild, the member invariant, a full probe
+    against the flat kernel, the 6 batches at the default nprobe (routes,
+    recall@1 against the flat lookup, the shortlist kernel's launches), and
+    the lookup time per batch of 8, flat and IVF, on the same bank."""
+    import dataclasses
+    import torch
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core import index as index_lib
+    from repro_torch.core.engine import SharedCacheBank, TweakLLMEngine
+    from repro_torch.core.router import RouterConfig
+    from repro_torch.core.tweak import preprocess_query
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    pairs, batches, n_fill, seed, threshold = plan
+    cfg = dataclasses.replace(eng.cache_cfg, index="ivf")
+    p = index_lib.resolve(cfg)
+    rcfg = RouterConfig(tweak_threshold=threshold)
+    ieng = TweakLLMEngine(tokenizer=eng.tok, embedder_params=eng.embedder_params,
+                          embedder_cfg=eng.embedder_cfg, big=eng.big, small=eng.small,
+                          cache_cfg=cfg, router_cfg=rcfg)
+    fill_bank(ieng, n_fill, seed)
+    ieng.populate(*pairs)
+    st = ieng.state
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    index_lib.build_index(st, cfg, seed=seed)
+    _sync(eng.device)
+    build_s = time.perf_counter() - t0
+    per_slot = index_lib.live_entries_per_slot(st)
+    bad = int((per_slot != st["valid"].long()).sum().item())
+    if bad:
+        raise AssertionError(f"ivf: {bad} slots do not have exactly one live member entry")
+    valid = torch.nonzero(st["valid"])[:, 0]
+    nearest = torch.cat([index_lib.nearest_clusters(st["ivf_centroids"], st["emb"][r])
+                         for r in valid.split(8192)])
+    spilled = int((nearest != st["ivf_assign"][valid]).sum().item())
+
+    flat = dataclasses.replace(cfg, index="flat")
+    full = dataclasses.replace(cfg, nprobe=p.nclusters)
+    with torch.no_grad():
+        q_all = [ieng.embed_texts([preprocess_query(x) for x in b]) for b in batches]
+    worst, recall, held = 0.0, [], 0
+    for q in q_all:
+        fs, fi = cache_lib.lookup(st, flat, q)
+        vs, vi = cache_lib.lookup(st, full, q)
+        worst = max(worst, (vs - fs).abs().max().item())
+        gap = torch.full_like(fs, float("inf"))
+        d_ = torch.diff(fs, dim=1).abs()
+        gap[:, 1:] = torch.minimum(gap[:, 1:], d_)
+        gap[:, :-1] = torch.minimum(gap[:, :-1], d_)
+        sure = gap > 1e-5
+        if not torch.equal(vi[sure], fi[sure]):
+            raise AssertionError("ivf: the full probe's indices differ from the flat kernel's")
+        _, di = cache_lib.lookup(st, cfg, q)                     # the default nprobe
+        probes = index_lib.probe_clusters(st["ivf_centroids"], q, p.nprobe)
+        reach = (probes == st["ivf_assign"][fi[:, 0].long()][:, None]).any(1)
+        same = di[:, 0] == fi[:, 0]
+        reach &= sure[:, 0]                  # a tied flat top-1 may come back as its twin
+        if not bool(same[reach].all()):
+            raise AssertionError("ivf: a top-1 whose cluster was probed was missed")
+        recall.append(same.float().mean().item())
+        held += int(reach.sum().item())
+    check("ivf full probe vs flat kernel", worst, 1e-5)
+
+    reset_launch_counts()          # the IVF path starts here ...
+    lat, res = _serve(ieng, batches, max_new_tokens)
+    launches = launch_counts()     # ... and ends here
+    n = len(batches) * len(batches[0])
+    if eng.device.type == "cuda" and (launches["cosine_topk_gather"] < len(batches)
+                                      or launches["cosine_topk"]):
+        raise AssertionError(f"ivf: the lookups did not go through the shortlist kernel: "
+                             f"{launches}")
+    s = ieng.stats
+    if s.total != n or s.suppressed_inserts != 0:
+        raise AssertionError(f"ivf: EngineStats inconsistent: {s}")
+    decisions = lambda rs: [[m["decision"] for m in r.meta] for r in rs]
+    same_routes = sum(a == b for a, b in zip(decisions(res), decisions(serve_out)))
+
+    lookup_ms = lookup_dev = None
+    if eng.device.type == "cuda":
+        flat_bank = SharedCacheBank(flat, rcfg, device=eng.device, state=st)
+        banks = (("flat", flat_bank), ("ivf", ieng.bank))
+        lookup_ms = {name: time_ms(lambda bank=bank: bank.route_batch(q_all[0]))
+                     for name, bank in banks}
+        # device time and kernel launches of one route_batch: what the host waits on
+        lookup_dev = {}
+        for name, bank in banks:
+            ms, rows = device_ms(lambda bank=bank: bank.route_batch(q_all[0]), 5, split=True)
+            lookup_dev[name] = {"device_ms": ms, "launches": sum(c for _, c in rows.values()),
+                                "top": sorted(rows.items(), key=lambda r: -r[1][0])[:6]}
+    return {"phase": "ivf", "bank_rows": cfg.capacity, "nclusters": p.nclusters,
+            "bucket": p.bucket, "nprobe": p.nprobe, "candidates": p.nprobe * p.bucket,
+            "build_index_s": build_s, "spilled_rows": spilled,
+            "largest_cluster": int(st["ivf_count"].max().item()),
+            "live_member_entries": int(per_slot.sum().item()), "valid_rows": int(valid.numel()),
+            "full_probe_max_abs_err": worst, "recall_at_1": sum(recall) / len(recall),
+            "rows_top1_reachable": held, "rows": n,
+            "routes": {"exact": s.exact, "tweak": s.tweak, "miss": s.miss},
+            "batches_with_serve_routes": same_routes, "batch_ms": lat,
+            "steady_batch_ms_mean": sum(lat[1:]) / max(len(lat) - 1, 1),
+            "lookup_ms_per_batch_of_8": lookup_ms, "lookup_device": lookup_dev,
+            "launches": launches,
+            "suppressed_inserts": s.suppressed_inserts}
+
+
 def spare_tokens(eng, batch):
     """A planned batch as the big model's padded prompt tokens (B, 16)."""
     from repro_torch.core.tweak import preprocess_query
@@ -1144,17 +1349,21 @@ SOURCES = {
                                "src/repro/kernels/paged_attention/kernel.py:151"),
     "paged_decode_attention_block": ("src/repro_torch/csrc/paged_attention.cu",
                                      "src/repro/kernels/paged_attention/kernel.py:103"),
+    "cosine_topk_gather": ("src/repro_torch/csrc/cosine_topk_gather.cu",
+                           "src/repro/kernels/cosine_topk/kernel.py:103"),
 }
 SUMMARY_CASE = {"flash_attention": "small-suffix-over-prefix",
                 "decode_attention": "small-tweak-decode", "cosine_topk": "serve-bank",
                 "decode_attention_block": "small-tweak-verify-k4",
                 "paged_decode_attention": "small-tweak-paged-decode",
-                "paged_decode_attention_block": "small-tweak-paged-verify-k4"}
+                "paged_decode_attention_block": "small-tweak-paged-verify-k4",
+                "cosine_topk_gather": "ivf-probe"}
 SERVE_KERNELS = ("flash_attention", "decode_attention", "cosine_topk")
 # the phase whose run each kernel's launches are read from
 LAUNCH_PHASE = {"flash_attention": "serve", "decode_attention": "serve",
                 "cosine_topk": "serve", "decode_attention_block": "spec",
-                "paged_decode_attention": "paged", "paged_decode_attention_block": "spec"}
+                "paged_decode_attention": "paged", "paged_decode_attention_block": "spec",
+                "cosine_topk_gather": "ivf"}
 
 
 def main(argv=None) -> int:
@@ -1201,12 +1410,15 @@ def main(argv=None) -> int:
     del peng
     session = session_phase(eng, spare + plan[1][1], MAX_NEW_TOKENS, args.seed, noise["big"])
     emit(session)
-    phase_launches = {"serve": launches, "paged": paged["launches"], "spec": spec["launches"]}
+    ivf = ivf_phase(eng, plan, served, MAX_NEW_TOKENS)
+    emit(ivf)
+    phase_launches = {"serve": launches, "paged": paged["launches"], "spec": spec["launches"],
+                      "ivf": ivf["launches"]}
     # the profiler only after serving: the serve timings stay free of
     # whatever it leaves attached to the process
     cases = []
     for row, (run, library, reps) in checked:
-        row["device_ms"] = device_ms(run, reps)
+        row["device_ms"], row["device_by_kernel"] = device_ms(run, reps, split=True)
         row["library_device_ms"] = device_ms(library, reps)
         cases.append(row)
         emit(row)

@@ -82,3 +82,24 @@ def jax_params_to_torch(flat: Dict[str, np.ndarray], cfg: ModelConfig, device="c
     if "lm_head" in flat:
         params["lm_head"] = _tensor(flat["lm_head"], dt, device)
     return params
+
+
+def jax_cache_state_to_torch(state_np: Dict[str, np.ndarray], cfg, device="cuda"):
+    """The port's cache state from a JAX cache state of numpy arrays (IVF and
+    admission keys included), on ``device`` (the card unless the caller asks
+    for ``"cpu"``).  Keys, shapes and dtypes must be those of
+    ``core.cache.init_cache(cfg)``."""
+    from repro_torch.core.cache import init_cache
+    device = resolve_device(device)
+    want = init_cache(cfg, torch.device("meta"))
+    if set(state_np) != set(want):
+        raise ValueError(f"cache state keys differ: missing {sorted(set(want) - set(state_np))}, "
+                         f"unexpected {sorted(set(state_np) - set(want))}")
+    out = {}
+    for key, ref in want.items():
+        t = torch.from_numpy(np.array(state_np[key], copy=True))
+        if tuple(t.shape) != tuple(ref.shape) or t.dtype != ref.dtype:
+            raise ValueError(f"cache state {key!r}: got {t.dtype} {tuple(t.shape)}, "
+                             f"want {ref.dtype} {tuple(ref.shape)}")
+        out[key] = t.to(device)
+    return out

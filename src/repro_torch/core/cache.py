@@ -1,10 +1,13 @@
-"""Semantic vector cache, flat index (counterpart of ``src/repro/core/cache.py``).
+"""Semantic vector cache (counterpart of ``src/repro/core/cache.py``).
 
 Fixed-capacity state on the device: unit-norm embeddings, token buffers of
 the cached query/response texts, a validity mask, and the bookkeeping of
 the FIFO (ring pointer), LRU (``last_used`` against ``clock``) and LFU
 (``hits``) policies.  Lookup is the flat cosine top-k scan
-(``kernels.cosine_topk``: the Hopper kernel on CUDA, plain on CPU).
+(``kernels.cosine_topk``) or, with ``index="ivf"``, the clustered index of
+``core/index.py`` (``kernels.cosine_topk`` shortlist scan), beside which
+the state carries the per-cluster admission statistics (``adm_ema``,
+``adm_count``).  The kernels run on CUDA; their plain versions on the CPU.
 
 Updates happen in place: the JAX package donates the state buffers to each
 jitted step, so no caller may hold an older state.  The functions still
@@ -24,9 +27,11 @@ import torch
 
 from repro_torch.kernels.cosine_topk import ops as cosine_ops
 
+from . import index as index_lib
 from . import router as router_lib
 
 POLICIES = ("fifo", "lru", "lfu")
+INDEXES = ("flat", "ivf")
 INT32_MAX = 2 ** 31 - 1
 
 
@@ -39,19 +44,27 @@ class CacheConfig:
     policy: str = "fifo"
     topk: int = 4
     block_n: int = 1024       # bank rows one lookup-kernel block scans
-    index: str = "flat"       # the IVF index is not ported
+    # clustered (IVF) index, DESIGN.md §7; 0 = resolved from the capacity
+    # (index.resolve): nclusters ~ capacity/128 within [64, 2048], bucket
+    # ceil(capacity/nclusters) with 2x slack
+    index: str = "flat"       # flat | ivf
+    nclusters: int = 0
+    nprobe: int = 8
+    ivf_bucket: int = 0
+    reindex_every: int = 0    # writes between k-means rebuilds (0 = auto)
+    kmeans_iters: int = 10
 
     def __post_init__(self):
         if self.policy not in POLICIES:
             raise ValueError(f"policy {self.policy!r} not in {POLICIES}")
-        if self.index != "flat":
-            raise NotImplementedError(f"index {self.index!r} is not ported (flat only)")
+        if self.index not in INDEXES:
+            raise ValueError(f"index {self.index!r} not in {INDEXES}")
 
 
 def init_cache(cfg: CacheConfig, device):
     c = cfg.capacity
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
-    return {
+    state = {
         "emb": z((c, cfg.dim), torch.float32),
         "q_tokens": z((c, cfg.max_query_tokens), torch.int32),
         "q_mask": z((c, cfg.max_query_tokens), torch.float32),
@@ -64,6 +77,18 @@ def init_cache(cfg: CacheConfig, device):
         "clock": z((), torch.int32),
         "size": z((), torch.int32),
     }
+    if cfg.index == "ivf":
+        state.update(index_lib.init_ivf(cfg, device))
+        state.update(init_admission(cfg, device))
+    return state
+
+
+def init_admission(cfg: CacheConfig, device):
+    """Per-cluster admission state, optimistic: every cluster admits until
+    ``admit_min`` observations say otherwise."""
+    n = index_lib.resolve(cfg).nclusters
+    return {"adm_ema": torch.ones((n,), dtype=torch.float32, device=device),
+            "adm_count": torch.zeros((n,), dtype=torch.int32, device=device)}
 
 
 def _normalize(embs):
@@ -99,8 +124,9 @@ def insert_batch(state, cfg: CacheConfig, embs, q_tokens, q_mask, r_tokens, r_ma
 
     FIFO lands row i at ring slot ``(ptr + i) % capacity``; when the batch
     laps the ring the later row wins, so only rows ``[count - capacity,
-    count)`` are written.  LRU/LFU pick each victim after the previous
-    insert, one row at a time, on the device.
+    count)`` are written, and only they are filed in an IVF table.  LRU/LFU
+    pick each victim after the previous insert, one row at a time, on the
+    device, and file it right after.
     """
     b = embs.shape[0]
     count = min(b if count is None else int(count), b)
@@ -117,8 +143,13 @@ def insert_batch(state, cfg: CacheConfig, embs, q_tokens, q_mask, r_tokens, r_ma
         state["ptr"] += count
         state["clock"] += count
         state["size"].copy_(torch.clamp(state["size"] + count, max=cfg.capacity))
+        if cfg.index == "ivf" and count > lo:
+            index_lib.update_batch(state, cfg, embs[lo:count], slots[lo:count])
         return state, torch.where(row < count, slots, -1).to(torch.int32)
     slots = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    if cfg.index == "ivf":
+        # nearest clusters in one product; only the filing is sequential
+        cn = index_lib.nearest_clusters(state["ivf_centroids"], embs)
     for i in range(count):
         slot = _victim_slot(state, cfg)
         _write_rows(state, slot.long().view(1), slice(i, i + 1), embs, q_tokens,
@@ -127,11 +158,17 @@ def insert_batch(state, cfg: CacheConfig, embs, q_tokens, q_mask, r_tokens, r_ma
         state["ptr"] += 1
         state["clock"] += 1
         state["size"].copy_(torch.clamp(state["size"] + 1, max=cfg.capacity))
+        if cfg.index == "ivf":
+            index_lib.file_row(state, cn[i:i + 1], slot.view(1))
     return state, slots
 
 
 def lookup(state, cfg: CacheConfig, q_embs):
-    """q_embs (B,D) unit vectors -> (scores (B,k), indices (B,k))."""
+    """q_embs (B,D) unit vectors -> (scores (B,k), indices (B,k)): the flat
+    scan, or the IVF probe of the ``nprobe`` nearest clusters (the flat
+    scan's scores at ``nprobe == nclusters``)."""
+    if cfg.index == "ivf":
+        return index_lib.lookup(state, cfg, q_embs)
     k = min(cfg.topk, cfg.capacity)
     return cosine_ops.cosine_topk(q_embs.contiguous(), state["emb"], state["valid"],
                                   k=k, block_n=min(cfg.block_n, cfg.capacity))
@@ -167,16 +204,31 @@ def lookup_and_touch(state, cfg: CacheConfig, router_cfg, q_embs):
 
 def route_touch_core(state, cfg: CacheConfig, router_cfg, q_embs, scores, idx, cost):
     """Route the top-k at per-row operating points and touch committed hits.
-    Returns ``(state, decisions, tau, cluster, admit)``; a flat cache has no
-    clusters (-1) and admits every row."""
+    Returns ``(state, decisions, tau, cluster, admit)``.  An IVF cache reads
+    each query's cluster and its admission flag (from the statistics before
+    this batch) and folds the batch's hits into the cluster hit EMA; a flat
+    cache has no clusters (-1) and admits every row."""
     tau = router_lib.threshold_for(cost, router_cfg)
     decisions = router_lib.route_cascade(scores[:, 0], tau, router_cfg)
     top1 = idx[:, 0]
     hit = ((decisions == router_lib.TWEAK) | (decisions == router_lib.EXACT)) & (top1 >= 0)
     _touch_rows(state, cfg, top1, hit)
     b = scores.shape[0]
-    cluster = torch.full((b,), -1, dtype=torch.int32, device=scores.device)
-    admit = torch.ones((b,), dtype=torch.bool, device=scores.device)
+    if cfg.index == "ivf":
+        # a cold index (zero centroids) puts every query in cluster 0:
+        # harmless, the EMA starts optimistic
+        cluster = index_lib.nearest_clusters(state["ivf_centroids"], q_embs)
+        admit = router_lib.admission_admit(state["adm_ema"], state["adm_count"], cluster,
+                                           router_cfg)
+        # at band 0 every decision is certain, so every row is observed
+        ema, cnt = router_lib.admission_update(
+            state["adm_ema"], state["adm_count"], cluster, hit, torch.ones_like(hit),
+            router_cfg)
+        state["adm_ema"].copy_(ema)
+        state["adm_count"].copy_(cnt)
+    else:
+        cluster = torch.full((b,), -1, dtype=torch.int32, device=scores.device)
+        admit = torch.ones((b,), dtype=torch.bool, device=scores.device)
     return state, decisions, tau, cluster, admit
 
 

@@ -1,19 +1,21 @@
 """TweakLLMEngine — the paper's Figure-1 pipeline on one device (counterpart
-of ``src/repro/core/engine.py``: one engine, one local flat bank, FIFO/LRU/
-LFU, the single-stage router; dense or paged decode, greedy or sampled,
-and speculative TWEAK decode on cached-response drafts).
+of ``src/repro/core/engine.py``: one engine, one local bank with a flat or
+IVF index and per-cluster admission, FIFO/LRU/LFU, the single-stage router;
+dense or paged decode, greedy or sampled, and speculative TWEAK decode on
+cached-response drafts).
 
 Per batch of text queries:
   1. tokenize + embed (MiniLM-class embedder, unit vectors);
-  2. fused lookup + route + touch on the bank (cosine top-k kernel);
-  3. ONE device->host copy of scores, slots and decisions;
+  2. fused lookup + route + touch on the bank (cosine top-k kernels);
+  3. ONE device->host copy of scores, slots, decisions and admit flags;
   4. EXACT -> the cached response verbatim;
      TWEAK -> the small LM prefills the Appendix-A prompt's suffix over the
               shared instruction-prefix KV and decodes; a speculating small
               generator verifies the cached response's own token ids as
               drafts (``SharedCacheBank.draft_store``);
-     MISS  -> the big LM prefills the query and decodes, then the pair is
-              committed with one ``insert_batch``.
+     MISS  -> the big LM prefills the query and decodes, then the pairs
+              whose cluster admits are committed with one ``insert_batch``
+              (an IVF bank may then recluster: ``maybe_reindex``).
 
 Token counts are real generated tokens (up to and including each row's
 EOS) and real prompt lengths, as in the reference.
@@ -35,6 +37,7 @@ from repro_torch.serving.generate import Generator
 from repro_torch.tokenizer import HashWordTokenizer
 
 from . import cache as cache_lib
+from . import index as index_lib
 from . import router as router_lib
 from . import tweak as tweak_lib
 
@@ -111,6 +114,8 @@ class SharedCacheBank:
         # cached-response token ids, the speculation drafts: the exact ids
         # generation produced (a text round trip need not be identity)
         self.draft_store: Dict[int, List[int]] = {}
+        # commits so far: the seed stream of the IVF rebuilds
+        self.insert_seq = 0
         self._default_costs: Dict[int, torch.Tensor] = {}
         self.state = cache_lib.init_cache(cache_cfg, self.device) if state is None else state
 
@@ -138,16 +143,27 @@ class SharedCacheBank:
                                                    q_mask, r_tokens, r_mask, count)
         return slots
 
+    def maybe_reindex(self) -> bool:
+        """IVF maintenance after a commit (no-op for a flat bank); advances
+        ``insert_seq``, the rebuilds' seed stream, either way."""
+        rebuilt = False
+        if self.cfg.index == "ivf":
+            self.state, rebuilt = index_lib.maybe_reindex(self.state, self.cfg,
+                                                          seed=self.insert_seq)
+        self.insert_seq += 1
+        return rebuilt
 
-def _fetch_route(scores, idx, dec):
-    """Scores (B,k) f32, indices (B,k) i32 and decisions (B,) i32 to the host
-    in ONE copy: the integers ride bit-for-bit as float32 lanes."""
-    packed = torch.cat([scores, idx.view(torch.float32),
-                        dec.to(torch.int32).view(torch.float32)[:, None]], dim=1)
+
+def _fetch_route(scores, idx, dec, admit):
+    """Scores (B,k) f32, indices (B,k) i32, decisions (B,) i32 and admit
+    flags (B,) bool to the host in ONE copy: the integers ride bit-for-bit
+    as float32 lanes."""
+    ints = torch.stack([dec.to(torch.int32), admit.to(torch.int32)], dim=1)
+    packed = torch.cat([scores, idx.view(torch.float32), ints.view(torch.float32)], dim=1)
     host = packed.cpu().numpy()
     k = scores.shape[1]
     return (host[:, :k], host[:, k:2 * k].view(np.int32),
-            host[:, 2 * k].view(np.int32))
+            host[:, 2 * k].view(np.int32), host[:, 2 * k + 1].view(np.int32) != 0)
 
 
 class TweakLLMEngine:
@@ -237,9 +253,9 @@ class TweakLLMEngine:
         self.stats.baseline_prompt_tokens += sum(qlens)
         cost_dev = (None if cost_thresholds is None
                     else to_device(np.asarray(cost_l, np.float32), self.device))
-        d_scores, d_idx, d_dec, *_ = self.bank.route_batch(embs, cost_dev)
+        d_scores, d_idx, d_dec, _, _, d_admit = self.bank.route_batch(embs, cost_dev)
         # THE per-serve-batch device->host sync
-        scores, idxs, decisions = _fetch_route(d_scores, d_idx, d_dec)
+        scores, idxs, decisions, admit = _fetch_route(d_scores, d_idx, d_dec, d_admit)
         top1 = scores[:, 0]
         slot_l = idxs[:, 0].tolist()
         dec_l = decisions.tolist()
@@ -258,7 +274,7 @@ class TweakLLMEngine:
         miss_ids = np.nonzero(decisions == router_lib.MISS)[0]
         if len(miss_ids):
             self._run_miss(queries, miss_ids, embs, responses, max_new_tokens,
-                           gen_tokens, prompt_tokens)
+                           gen_tokens, prompt_tokens, admit)
 
         self.stats.total += n
         bands = np.full(n, -1, np.int32)
@@ -503,7 +519,8 @@ class TweakLLMEngine:
                 self.stats.small_prompt_tokens += real
 
     def _insert_entries(self, texts, resp_tokens, resp_texts, embs):
-        """Commit entries to the bank in one call; one host copy of slots."""
+        """Commit entries to the bank in one call (one host copy of slots),
+        then the bank's IVF maintenance."""
         n = len(texts)
         ccfg = self.cache_cfg
         qt, qm = self.tok.encode_batch(texts, ccfg.max_query_tokens)
@@ -525,9 +542,10 @@ class TweakLLMEngine:
         for j in range(n):
             self._text_store[slots[j]] = (texts[j], resp_texts[j])
             self.bank.draft_store[slots[j]] = list(resp_tokens[j])
+        self.bank.maybe_reindex()
 
     def _run_miss(self, queries, ids, embs, responses, max_new_tokens,
-                  gen_tokens, prompt_tokens):
+                  gen_tokens, prompt_tokens, admit=None):
         texts = [queries[i] for i in ids]
         toks, mask = self.tok.encode_batch(texts, self.max_query_len)
         real_lens = mask.sum(axis=1).astype(np.int64).tolist()
@@ -549,8 +567,15 @@ class TweakLLMEngine:
             self.stats.miss += 1
             gen_tokens[i] = n_gen
             prompt_tokens[i] = real_lens[j]
-        rows = to_device(np.asarray(ids, np.int64), self.device)
-        self._insert_entries(texts, resp_tokens, resp_texts, embs[rows])
+        # admission control: the response is served either way, but rows of
+        # a cluster whose hit EMA has shut are not cached
+        keep = [j for j, i in enumerate(ids) if admit is None or admit[i]]
+        self.stats.suppressed_inserts += len(ids) - len(keep)
+        if not keep:
+            return
+        rows = to_device(np.asarray([ids[j] for j in keep], np.int64), self.device)
+        self._insert_entries([texts[j] for j in keep], [resp_tokens[j] for j in keep],
+                             [resp_texts[j] for j in keep], embs[rows])
 
     # ------------------------------------------------- offline population
     def populate(self, queries: List[str], responses: List[str]):

@@ -4,9 +4,12 @@ The single-stage router of the paper (§3.1) with the JAX package's
 calibrated operating curve: a per-request cost in [0, 1] picks the
 TWEAK/MISS boundary ``tau`` (``threshold_for``), and ``route_cascade``
 thresholds the top-1 similarity at it.  At ``cost == default_cost`` tau is
-``tweak_threshold`` exactly, so ``route`` is that operating point.  The
-stage-2 cascade (``band > 0``), the reranker and admission control are not
-ported: a ``band > 0`` config raises.
+``tweak_threshold`` exactly, so ``route`` is that operating point.
+
+Admission control (IVF caches): a per-cluster hit EMA; a cluster that keeps
+missing stops admitting inserts (``admit_floor`` 0 admits everything).  The
+stage-2 cascade (``band > 0``) and its reranker are not ported: a
+``band > 0`` config raises.
 """
 from __future__ import annotations
 
@@ -27,6 +30,10 @@ class RouterConfig:
     cal_taus: tuple = ()
     cal_span: float = 0.2
     band: float = 0.0
+    # per-cluster admission control (IVF caches; floor 0 disables)
+    admit_alpha: float = 0.05      # hit-EMA step per observation
+    admit_floor: float = 0.0       # suppress inserts when the cluster EMA < floor
+    admit_min: int = 16            # observations before a cluster can be shut
 
     def __post_init__(self):
         if len(self.cal_costs) != len(self.cal_taus):
@@ -85,6 +92,35 @@ def route_cascade(top1, tau, cfg: RouterConfig):
     """Stage-1 decisions at per-row operating points ``tau`` (band 0)."""
     d = torch.where(top1 >= tau, TWEAK, MISS)
     return torch.where(top1 >= cfg.exact_threshold, EXACT, d).to(torch.int32)
+
+
+def admission_admit(adm_ema, adm_count, cluster, cfg: RouterConfig):
+    """Per-row admit flag from the cluster statistics before this batch.
+    Rows with no cluster (-1) admit; a cluster shuts only after
+    ``admit_min`` observations put its hit EMA below ``admit_floor``."""
+    c = cluster.clamp(0, adm_ema.shape[0] - 1).long()
+    shut = (adm_count[c] >= cfg.admit_min) & (adm_ema[c] < cfg.admit_floor)
+    return (cluster < 0) | ~shut
+
+
+def admission_update(adm_ema, adm_count, cluster, hit, obs, cfg: RouterConfig):
+    """Batched EMA update of the per-cluster hit rate, independent of row
+    order: a cluster with ``n_c`` observations in the batch takes the closed
+    form of ``n_c`` EMA steps towards the batch's mean hit rate,
+
+        ema_c <- (1-a)^n_c * ema_c + (1 - (1-a)^n_c) * hits_c / n_c.
+
+    Rows with ``obs`` False or no cluster add to an extra slot that is
+    dropped.  Returns (ema, count)."""
+    n = adm_ema.shape[0]
+    w = torch.where(obs & (cluster >= 0), cluster, n).long()
+    z = torch.zeros(n + 1, dtype=torch.float32, device=adm_ema.device)
+    n_c = z.index_add(0, w, torch.ones_like(w, dtype=torch.float32))[:n]
+    h_c = z.index_add(0, w, hit.to(torch.float32))[:n]
+    decay = torch.pow(1.0 - cfg.admit_alpha, n_c)
+    mean = h_c / torch.clamp(n_c, min=1.0)
+    ema = torch.where(n_c > 0, decay * adm_ema + (1.0 - decay) * mean, adm_ema)
+    return ema, adm_count + n_c.to(adm_count.dtype)
 
 
 def band_edges(cfg: RouterConfig = None):

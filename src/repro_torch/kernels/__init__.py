@@ -17,6 +17,7 @@ OPS = {
     "decode_attention_block": (decode_attention_ops, "block_launches"),
     "paged_decode_attention": (paged_attention_ops, "launches"),
     "paged_decode_attention_block": (paged_attention_ops, "block_launches"),
+    "cosine_topk_gather": (cosine_topk_ops, "gather_launches"),
 }
 
 

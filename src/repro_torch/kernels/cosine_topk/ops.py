@@ -1,17 +1,20 @@
-"""Cache lookup entry point: the Hopper kernel on CUDA, plain on CPU.
+"""Cache lookup entry points: the Hopper kernels on CUDA, plain on CPU.
 
 Replaces ``src/repro/kernels/cosine_topk/kernel.py::cosine_topk_pallas``
-with ``csrc/cosine_topk.cu``.
+with ``csrc/cosine_topk.cu`` and ``cosine_topk_gather_pallas`` with
+``csrc/cosine_topk_gather.cu``.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import build
-from .ref import cosine_topk_ref
+from .ref import cosine_topk_gather_ref, cosine_topk_ref
 
 launches = 0
-"""Kernel launches since the last reset (a plain count, read by callers)."""
+"""Flat-scan kernel launches since the last reset (a plain count)."""
+gather_launches = 0
+"""Shortlist-scan kernel launches since the last reset (a plain count)."""
 
 MAX_K = 8
 
@@ -44,4 +47,49 @@ def cosine_topk(queries, db, valid, *, k: int = 4, block_n: int = 1024):
         build.stream_ptr(dev))
     build.check(rc, "cosine_topk")
     launches += 1
+    return out_s, out_i
+
+
+def cosine_topk_gather(queries, db, cand_idx, cand_valid, *, k: int = 4, block_m: int = 64):
+    """Score only a per-query shortlist of bank rows.
+
+    queries (B,D) f32 x db (N,D) f32, cand_idx (B,M) i32 bank rows (-1 =
+    padding), cand_valid (B,M) bool -> (scores (B,k), global rows (B,k)).  A
+    candidate is live where ``cand_valid & cand_idx >= 0``.  On CUDA the
+    kernel reads each live row of ``db`` by its index and never builds the
+    (B,M,D) shortlist; ``block_m`` is the number of candidate positions one
+    kernel block scores (64 gives 256 blocks at B 8, M 2,048).
+    """
+    if queries.device.type == "cpu":
+        live = cand_valid & (cand_idx >= 0)
+        cand_emb = db[cand_idx.clamp(min=0).long()]
+        return cosine_topk_gather_ref(queries, cand_emb, cand_idx, live, k)
+    global gather_launches
+    dev = build.require_cuda("cosine_topk_gather", queries, db, cand_idx, cand_valid)
+    b, d = queries.shape
+    m = cand_idx.shape[1]
+    if (queries.dtype != torch.float32 or db.dtype != torch.float32
+            or cand_idx.dtype != torch.int32 or cand_valid.dtype != torch.bool):
+        raise ValueError("cosine_topk_gather: queries and db must be float32, cand_idx "
+                         "int32, cand_valid bool")
+    if (db.dim() != 2 or db.shape[1] != d or cand_idx.shape != (b, m)
+            or cand_valid.shape != (b, m) or d % 4 or m < 1 or block_m < 1
+            or not 1 <= k <= MAX_K):
+        raise ValueError(f"cosine_topk_gather: unsupported shapes q {tuple(queries.shape)} "
+                         f"db {tuple(db.shape)} cand {tuple(cand_idx.shape)} k {k} "
+                         f"(D % 4 == 0, 1 <= k <= {MAX_K})")
+    if queries.data_ptr() % 16 or db.data_ptr() % 16:
+        raise ValueError("cosine_topk_gather: queries and db must be 16-byte aligned")
+    nchunks = -(-m // block_m)
+    part_s = torch.empty(b * nchunks * k, dtype=torch.float32, device=dev)
+    part_p = torch.empty(b * nchunks * k, dtype=torch.int32, device=dev)
+    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    lib = build.load_library()
+    rc = lib.cosine_topk_gather_launch(
+        queries.data_ptr(), db.data_ptr(), cand_idx.data_ptr(), cand_valid.data_ptr(),
+        part_s.data_ptr(), part_p.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        b, db.shape[0], m, d, k, block_m, build.stream_ptr(dev))
+    build.check(rc, "cosine_topk_gather")
+    gather_launches += 1
     return out_s, out_i

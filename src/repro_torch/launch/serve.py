@@ -11,17 +11,21 @@ Two stacks:
   which no single H100 holds); small = the same config with fixed 64-token
   ``xla_flash`` blocks, so the TWEAK path reuses the instruction-prefix KV;
   embedder = MiniLM at full width (6L d384 12H) over the LM's 128,256-token
-  vocabulary; a flat FIFO bank of 262,144 rows.
+  vocabulary; a FIFO bank of 262,144 rows.
 
+The bank's index is flat by default; ``index="ivf"`` clusters it
+(``core/index.py``: 2,048 clusters of 256 member slots, 8 probed, at the
+llama bank size), and ``admit_floor > 0`` turns on per-cluster admission.
 All weights are random, drawn on the device from ``torch.Generator``s seeded
 from ``seed`` (the repo has no public weights).  Off the ported slice —
-embedder training, the router cascade (``band > 0``), the IVF index, replica
-groups — raises.
+embedder training, the router cascade (``band > 0``), replica groups —
+raises.
 
 ``main`` is the serving CLI of ``src/repro/launch/serve.py``: it replays a
 Zipfian arrival trace through the scheduler and prints the same report.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 200 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --index ivf --admit-floor 0.2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --model llama-3.1-8b   # on the card
 """
 from __future__ import annotations
@@ -85,11 +89,13 @@ def build_embedder(model: str = "serve-tiny", *, device="cuda", vocab: int = 819
 
 def build_stack(*, model: str = "serve-tiny", device="cuda", vocab: int = 8192,
                 capacity: int = 0, train_embedder_steps: int = 0, policy: str = "fifo",
-                index: str = "flat", threshold: float = 0.7, band: float = 0.0,
+                index: str = "flat", nclusters: int = 0, nprobe: int = 8,
+                threshold: float = 0.7, band: float = 0.0, admit_floor: float = 0.0,
                 max_new_tokens: int = 16, seed: int = 0):
     """Model stack + configs for one engine (``TweakLLMEngine(**stack)``).
 
-    ``capacity`` 0 picks the stack's bank size (4096 tiny, 262,144 llama).
+    ``capacity`` 0 picks the stack's bank size (4096 tiny, 262,144 llama);
+    ``nclusters`` 0 resolves from it (``core.index.resolve``).
     """
     if train_embedder_steps:
         raise NotImplementedError("embedder training is not ported")
@@ -104,10 +110,12 @@ def build_stack(*, model: str = "serve-tiny", device="cuda", vocab: int = 8192,
     small = Generator(small_m, small_m.init(_generator(dev, seed + 2), dev), gen_cfg)
     if not capacity:
         capacity = LLAMA_CAPACITY if model == "llama-3.1-8b" else 4096
-    cache_cfg = CacheConfig(capacity=capacity, dim=ecfg.d_model, policy=policy, index=index)
+    cache_cfg = CacheConfig(capacity=capacity, dim=ecfg.d_model, policy=policy, index=index,
+                            nclusters=nclusters, nprobe=nprobe)
     return dict(tokenizer=HashWordTokenizer(vocab), embedder_params=eparams,
                 embedder_cfg=ecfg, big=big, small=small, cache_cfg=cache_cfg,
-                router_cfg=RouterConfig(tweak_threshold=threshold, band=band))
+                router_cfg=RouterConfig(tweak_threshold=threshold, band=band,
+                                        admit_floor=admit_floor))
 
 
 def build_engine(**kw) -> TweakLLMEngine:
@@ -124,8 +132,6 @@ def _off_slice(args) -> None:
            (args.cache_shards > 0, "--cache-shards (a sharded bank, ROADMAP queue 1)"),
            (args.private_caches, "--private-caches (replica groups, ROADMAP queue 1)"),
            (args.band > 0, "--band > 0 (the router cascade, ROADMAP queue 1)"),
-           (args.admit_floor > 0, "--admit-floor > 0 (cluster admission, ROADMAP queue 1)"),
-           (args.index == "ivf", "--index ivf (the IVF index, ROADMAP queue 1)"),
            (args.embedder_steps > 0, "--embedder-steps > 0 (embedder training, "
                                      "ROADMAP queue 1)")]
     for bad, what in off:
@@ -152,10 +158,11 @@ def main(argv=None) -> int:
     ap.add_argument("--reranker-steps", type=int, default=120,
                     help="training steps for the cascade reranker (only with --band > 0)")
     ap.add_argument("--admit-floor", type=float, default=0.0,
-                    help="IVF cluster admission floor (not ported: > 0 raises)")
+                    help="IVF caches: suppress inserts of clusters whose hit EMA "
+                         "falls below this (0 = admit everything)")
     ap.add_argument("--policy", default="fifo", choices=["fifo", "lru", "lfu"])
     ap.add_argument("--index", default="flat", choices=["flat", "ivf"],
-                    help="cache lookup index (ivf is not ported)")
+                    help="cache lookup index (ivf = clustered, DESIGN.md §7)")
     ap.add_argument("--embedder-steps", type=int, default=0,
                     help="embedder training steps (not ported: > 0 raises; the "
                          "embedder keeps its seeded random weights)")
@@ -174,7 +181,8 @@ def main(argv=None) -> int:
     print(f"building TweakLLM stack ({args.model} on {args.device})...")
     eng = build_engine(model=args.model, device=args.device, threshold=args.threshold,
                        policy=args.policy, index=args.index,
-                       train_embedder_steps=args.embedder_steps, band=args.band)
+                       train_embedder_steps=args.embedder_steps, band=args.band,
+                       admit_floor=args.admit_floor)
     scfg = SchedulerConfig(max_wait=args.max_wait, max_batch=args.batch, max_new_tokens=8,
                            cost_threshold=args.cost_threshold)
     sched = Scheduler(eng, scfg, clock=SimClock())
@@ -198,6 +206,10 @@ def main(argv=None) -> int:
           f"dedup_joined={ss.joined} rejected={ss.rejected}")
     print(f"routing: miss={s.miss} tweak={s.tweak} exact={s.exact} "
           f"hit_rate={s.hit_rate:.2%} (+{ss.joined} joined in flight)")
+    if args.admit_floor > 0:
+        cost = args.cost_threshold if args.cost_threshold is not None else "default"
+        print(f"cascade: uncertain={s.uncertain} recovered={s.recovered} "
+              f"suppressed_inserts={s.suppressed_inserts} (band={args.band} cost={cost})")
     print(f"tokens:  big={s.big_tokens} small={s.small_tokens}")
     print(f"cost:    {s.cost:,.0f} vs all-big {s.baseline_cost:,.0f} "
           f"-> {s.cost/max(s.baseline_cost,1):.2%} of baseline")

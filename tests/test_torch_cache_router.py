@@ -119,8 +119,8 @@ def test_touch_minus_one_is_a_noop():
 
 
 def test_off_slice_cache_configs_raise():
-    with pytest.raises(NotImplementedError):
-        port_cache.CacheConfig(index="ivf")
+    with pytest.raises(ValueError, match="index"):
+        port_cache.CacheConfig(index="hnsw")
     with pytest.raises(NotImplementedError):
         port_router.RouterConfig(band=0.1)
 

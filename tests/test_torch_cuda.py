@@ -1,7 +1,8 @@
 """The port on an NVIDIA GPU: each Hopper kernel against its plain PyTorch
-version, and small engines (dense; paged with a speculating small model)
-served on the card against the same engines on the CPU.  Every test is marked ``cuda`` and skips without a card.  This
-file imports no JAX, so it runs where the card is:
+version, and small engines (dense; paged with a speculating small model; an
+IVF bank) served on the card against the same engines on the CPU.  Every
+test is marked ``cuda`` and skips without a card.  This file imports no JAX,
+so it runs where the card is:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -21,7 +22,7 @@ from repro_torch.core.router import RouterConfig
 from repro_torch.core.tweak import preprocess_query
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.cosine_topk import ops as cos_ops
-from repro_torch.kernels.cosine_topk.ref import cosine_topk_ref
+from repro_torch.kernels.cosine_topk.ref import cosine_topk_gather_ref, cosine_topk_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -185,6 +186,43 @@ def test_cosine_kernel_matches_plain(b, n, d, p_valid, block_n):
     assert i2[:, :2].tolist() == [[1, n // 2], [1, n // 2]]
 
 
+@pytest.mark.parametrize("b,n,m,d,k,block_m,p_live", [
+    (8, 65536, 2048, 384, 4, 64, 0.5),      # the IVF probe at the main path's widths
+    (3, 5000, 200, 64, 8, 64, 0.7),         # M not a multiple of the block
+    (5, 1000, 96, 128, 1, 32, 0.02),        # fewer live candidates than k
+])
+def test_gather_kernel_matches_plain(b, n, m, d, k, block_m, p_live):
+    """The shortlist kernel against its plain version: padding (-1), rows
+    listed twice, a tie whose lower position must win, a query with no live
+    candidate."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(m)
+    q = torch.nn.functional.normalize(torch.randn(b, d, device=dev, generator=g), dim=-1)
+    db = torch.nn.functional.normalize(torch.randn(n, d, device=dev, generator=g), dim=-1)
+    idx = torch.randint(0, n, (b, m), device=dev, generator=g, dtype=torch.int32)
+    idx[torch.rand(b, m, device=dev, generator=g) < 0.1] = -1
+    valid = torch.rand(b, m, device=dev, generator=g) < p_live
+    db[7] = q[0]                                      # rows 7 and 3 tie at score 1 ...
+    db[3] = q[0]
+    idx[0, :4] = torch.tensor([7, 3, 3, -1], dtype=torch.int32)   # ... 7 first; 3 twice
+    valid[0, :4] = True
+    valid[-1] = False                                 # no live candidate
+    s, i = cos_ops.cosine_topk_gather(q, db, idx, valid, k=k, block_m=block_m)
+    live = valid & (idx >= 0)
+    s_ref, i_ref = cosine_topk_gather_ref(q, db[idx.clamp(min=0).long()], idx, live, k)
+    torch.testing.assert_close(s, s_ref, rtol=1e-5, atol=1e-5)
+    fin = torch.isfinite(s_ref)
+    assert torch.equal(torch.isfinite(s), fin)
+    gap = torch.full_like(s_ref, float("inf"))
+    d_ = torch.diff(torch.where(fin, s_ref, 1e9), dim=1).abs()
+    gap[:, 1:] = torch.minimum(gap[:, 1:], d_)
+    gap[:, :-1] = torch.minimum(gap[:, :-1], d_)
+    sure = fin & (gap > 1e-5)
+    assert torch.equal(i[sure], i_ref[sure])
+    assert bool((i[~fin] == -1).all()) and bool((i[-1] == -1).all())
+    assert i[0, :min(k, 3)].tolist() == [7, 3, 3][:min(k, 3)]
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -193,7 +231,7 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def _small_engine(device, vocab=2048):
+def _small_engine(device, vocab=2048, **cache_kw):
     """serve-tiny widened to head dim 64 (the kernels take 64 or 128), with
     weights drawn on the CPU and moved to ``device``."""
     big_cfg, small_cfg, ecfg = model_configs("serve-tiny", vocab)
@@ -207,7 +245,7 @@ def _small_engine(device, vocab=2048):
     return TweakLLMEngine(tokenizer=HashWordTokenizer(vocab),
                           embedder_params=_to(eparams, device), embedder_cfg=ecfg,
                           big=gens[0], small=gens[1],
-                          cache_cfg=CacheConfig(capacity=256, dim=ecfg.d_model),
+                          cache_cfg=CacheConfig(capacity=256, dim=ecfg.d_model, **cache_kw),
                           router_cfg=RouterConfig(tweak_threshold=0.9))
 
 
@@ -236,6 +274,48 @@ def test_engine_on_the_card_matches_the_cpu():
     np.testing.assert_allclose([m["sim"] for m in m_gpu], [m["sim"] for m in m_cpu],
                                atol=1e-5)
     assert r_gpu == r_cpu
+
+
+def test_ivf_engine_on_the_card_matches_the_cpu():
+    """The same stack with an IVF bank (4 clusters, 2 probed) whose table was
+    rebuilt once on the CPU and handed to both engines: same routes,
+    responses and member table on the card as on the CPU after a batch whose
+    misses are filed on the device; the lookup goes through the shortlist
+    kernel, never the flat one."""
+    from repro_torch.core import index as index_lib
+    dev = _cuda()
+    pairs = (["how do i learn rust setup", "why is keto diet good", "what is origami",
+              "how to bake sourdough bread", "best way to learn piano", "what is a black hole"],
+             ["practice daily", "it helps", "paper folding", "slowly", "scales", "gravity"])
+    batch = ["how do i learn rust setup", "how do i learn rust setup please",
+             "what is the price of solar panels", "why is keto diet good please",
+             "tell me about the history of rome"]
+    base = _small_engine(torch.device("cpu"), index="ivf", nclusters=4, nprobe=2)
+    base.populate(*pairs)
+    index_lib.build_index(base.state, base.cache_cfg, seed=0)
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        eng = _small_engine(device, index="ivf", nclusters=4, nprobe=2)
+        eng.bank.state = {k: v.clone().to(device) for k, v in base.state.items()}
+        eng.bank.text_store.update(base.bank.text_store)
+        reset_launch_counts()
+        out[device.type] = (eng.handle_batch(batch, max_new_tokens=6, collect_meta=True),
+                            launch_counts(), {k: v.cpu() for k, v in eng.state.items()})
+        per_slot = index_lib.live_entries_per_slot(eng.state)
+        assert torch.equal(per_slot, eng.state["valid"].long())
+    (r_cpu, m_cpu), c_cpu, st_cpu = out["cpu"]
+    (r_gpu, m_gpu), c_gpu, st_gpu = out["cuda"]
+    assert c_gpu["cosine_topk_gather"] > 0 and c_gpu["cosine_topk"] == 0
+    assert max(c_cpu.values()) == 0
+    assert [m["decision"] for m in m_gpu] == [m["decision"] for m in m_cpu]
+    assert router.MISS in [m["decision"] for m in m_gpu]
+    np.testing.assert_allclose([m["sim"] for m in m_gpu], [m["sim"] for m in m_cpu],
+                               atol=1e-5)
+    assert r_gpu == r_cpu
+    for key in ("ivf_members", "ivf_count", "ivf_assign", "ivf_pos", "ivf_pending",
+                "adm_count", "valid"):
+        assert torch.equal(st_gpu[key], st_cpu[key]), key
+    torch.testing.assert_close(st_gpu["adm_ema"], st_cpu["adm_ema"], rtol=0, atol=1e-6)
 
 
 def _ids(text):

@@ -30,8 +30,16 @@ from repro_torch.tokenizer import HashWordTokenizer
 VOCAB, CAPACITY, THRESHOLD, MNT = 4096, 64, 0.96, 6
 
 
+def _port_configs(jstack):
+    """The port's cache and router configs with the JAX stack's settings."""
+    pick = lambda cls, obj: cls(**{f.name: getattr(obj, f.name)
+                                   for f in dataclasses.fields(cls)})
+    return pick(CacheConfig, jstack["cache_cfg"]), pick(RouterConfig, jstack["router_cfg"])
+
+
 def _port_engine(jstack):
     big_cfg, small_cfg, ecfg = model_configs("serve-tiny", VOCAB)
+    cache_cfg, router_cfg = _port_configs(jstack)
     gen_cfg = GenerateConfig(max_new_tokens=16, sampler=SamplerConfig(vocab_size=VOCAB))
     gens = [Generator(build_model(c),
                       jax_params_to_torch(_flatten(jstack[k].params), c, device="cpu"),
@@ -41,8 +49,7 @@ def _port_engine(jstack):
         embedder_params=jax_params_to_torch(_flatten(jstack["embedder_params"]), ecfg,
                                             device="cpu"),
         embedder_cfg=ecfg, big=gens[0], small=gens[1],
-        cache_cfg=CacheConfig(capacity=CAPACITY, dim=ecfg.d_model),
-        router_cfg=RouterConfig(tweak_threshold=THRESHOLD))
+        cache_cfg=cache_cfg, router_cfg=router_cfg)
 
 
 def _trace():
@@ -110,7 +117,7 @@ def test_build_engine_serves_on_cpu_and_refuses_off_slice():
                                  max_new_tokens=3, collect_meta=True)
     assert meta[0]["decision"] == router.EXACT and out[0] == "practice"
     assert eng.stats.total == 2 and eng.big.device == torch.device("cpu")
-    for kw in ({"train_embedder_steps": 5}, {"band": 0.1}, {"index": "ivf"}):
+    for kw in ({"train_embedder_steps": 5}, {"band": 0.1}):
         with pytest.raises(NotImplementedError):
             build_engine(model="serve-tiny", device="cpu", **kw)
     with pytest.raises(ValueError):

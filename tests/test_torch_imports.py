@@ -89,7 +89,7 @@ def test_launch_counts_reset():
     reset_launch_counts()
     assert launch_counts() == {"flash_attention": 0, "decode_attention": 0, "cosine_topk": 0,
                                "decode_attention_block": 0, "paged_decode_attention": 0,
-                               "paged_decode_attention_block": 0}
+                               "paged_decode_attention_block": 0, "cosine_topk_gather": 0}
 
 
 SLICE_2 = ("serving/scheduler.py", "serving/paged_kv.py", "serving/continuous.py",
@@ -104,6 +104,23 @@ def test_slice_2_modules_stand_alone(rel):
     assert path in _port_files()
     assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     importlib.import_module("repro_torch." + rel[:-3].replace("/", "."))
+
+
+SLICE_3 = ("core/index.py", "core/cache.py", "core/router.py", "checkpoint/convert.py",
+           "kernels/cosine_topk/ops.py", "kernels/cosine_topk/ref.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_3)
+def test_slice_3_modules_stand_alone(rel):
+    """The IVF slice's modules import without JAX or the JAX package; the
+    shortlist kernel's source has the entry point its wrapper binds."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in _port_files()
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    importlib.import_module("repro_torch." + rel[:-3].replace("/", "."))
+    src = ROOT / "src" / "repro_torch" / "csrc" / "cosine_topk_gather.cu"
+    assert "int cosine_topk_gather_launch(" in src.read_text()
+    assert "cosine_topk_gather_launch" in build.SIGNATURES
 
 
 def test_new_kernel_sources_and_signatures():

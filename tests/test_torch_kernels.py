@@ -8,6 +8,8 @@ import pytest
 import torch
 
 from repro.kernels.cosine_topk.ops import cosine_topk as jax_cosine_topk
+from repro.kernels.cosine_topk.ops import cosine_topk_gather as jax_gather
+from repro.kernels.cosine_topk.ref import cosine_topk_gather_ref as jax_gather_ref
 from repro.kernels.cosine_topk.ref import cosine_topk_ref as jax_cosine_ref
 from repro.kernels.decode_attention.ops import decode_attention as jax_decode
 from repro.kernels.decode_attention.ref import decode_attention_ref as jax_decode_ref
@@ -15,7 +17,7 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref
 from repro.models import attention as jax_attn
 from repro_torch.kernels.cosine_topk import ops as cos_ops
-from repro_torch.kernels.cosine_topk.ref import cosine_topk_ref
+from repro_torch.kernels.cosine_topk.ref import cosine_topk_gather_ref, cosine_topk_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -95,6 +97,78 @@ def test_cosine_topk_wrapper_uses_plain_version_on_cpu():
     s2, i2 = cosine_topk_ref(q, db, 4, valid)
     assert torch.equal(s, s2) and torch.equal(i, i2)
     assert cos_ops.launches == before          # a launch counts only on the card
+
+
+# ------------------------------------------------------------ cosine_topk_gather
+
+def _shortlist(rng, b, n, m, d, p_live):
+    """Queries, a bank, per-query candidate rows (some -1 padding, repeats
+    likely) and a validity mask."""
+    q, db = _unit(rng, (b, d)), _unit(rng, (n, d))
+    idx = rng.integers(0, n, (b, m)).astype(np.int32)
+    idx[rng.random((b, m)) < 0.15] = -1
+    return q, db, idx, rng.random((b, m)) < p_live
+
+
+@pytest.mark.parametrize("b,n,m,d,k,bm,p_live", [
+    (1, 64, 16, 16, 1, 8, 0.9), (4, 256, 96, 64, 4, 32, 0.5),
+    (2, 512, 200, 384, 8, 64, 0.6),    # M not a multiple of the block
+    (3, 128, 40, 32, 4, 16, 0.06),     # fewer live candidates than k
+])
+def test_cosine_topk_gather_plain_matches_jax(b, n, m, d, k, bm, p_live):
+    rng = np.random.default_rng(b * m + k)
+    q, db, idx, valid = _shortlist(rng, b, n, m, d, p_live)
+    live = valid & (idx >= 0)
+    cand = db[np.clip(idx, 0, None)]
+    s, i = cosine_topk_gather_ref(*map(torch.from_numpy, (q, cand, idx, live)), k)
+    s_ref, i_ref = jax_gather_ref(*map(jnp.asarray, (q, cand, idx, live)), k)
+    _assert_topk(s, i, s_ref, i_ref)
+    s_pl, i_pl = jax_gather(*map(jnp.asarray, (q, db, idx, valid)), k=k, impl="pallas",
+                            block_m=bm)
+    _assert_topk(s, i, s_pl, i_pl)
+    n_live = live.sum(axis=1)
+    for row in np.flatnonzero(n_live < k):      # sub-k slots: (-inf, -1), as Pallas
+        assert np.all(np.isneginf(s.numpy()[row, n_live[row]:]))
+        assert np.all(i.numpy()[row, n_live[row]:] == -1)
+        assert np.array_equal(i.numpy()[row], np.asarray(i_pl)[row])
+
+
+def test_cosine_topk_gather_ties_duplicates_padding_and_dead_rows():
+    """Ties go to the lowest candidate position, a row listed twice is
+    reported twice, padding and dead candidates never surface, and a query
+    with no live candidate gets (-inf, -1) everywhere."""
+    rng = np.random.default_rng(3)
+    db = _unit(rng, (6, 32))
+    db[4] = db[1]                                      # rows 1 and 4 tie for db[1]
+    q = db[[1, 1, 2]]
+    idx = np.asarray([[4, 3, 1, 1, -1, 1],             # 4 before 1, 1 twice
+                      [1, 3, 4, -1, 4, 0],             # 1 before 4
+                      [2, 2, -1, 5, 0, 1]], np.int32)  # every candidate dead
+    valid = np.ones(idx.shape, bool)
+    valid[0, 5] = False
+    valid[2] = False
+    k = 4
+    s, i = cos_ops.cosine_topk_gather(*map(torch.from_numpy, (q, db, idx, valid)), k=k)
+    assert i[0, :3].tolist() == [4, 1, 1] and i[1, :3].tolist() == [1, 4, 4]
+    assert torch.all(s[:2, :3] > 0.9999)
+    assert i[2].tolist() == [-1] * k and torch.all(torch.isneginf(s[2]))
+    for impl in ("xla", "pallas"):
+        s_j, i_j = jax_gather(*map(jnp.asarray, (q, db, idx, valid)), k=k, impl=impl,
+                              block_m=2)
+        assert np.array_equal(i.numpy(), np.asarray(i_j))
+        np.testing.assert_allclose(s.numpy(), np.asarray(s_j), rtol=TOL, atol=TOL)
+    assert s.dtype == torch.float32 and i.dtype == torch.int32
+
+
+def test_cosine_topk_gather_wrapper_uses_plain_version_on_cpu():
+    rng = np.random.default_rng(2)
+    q, db, idx, valid = map(torch.from_numpy, _shortlist(rng, 2, 128, 48, 64, 0.5))
+    before = cos_ops.gather_launches
+    s, i = cos_ops.cosine_topk_gather(q, db, idx, valid, k=4)
+    live = valid & (idx >= 0)
+    s2, i2 = cosine_topk_gather_ref(q, db[idx.clamp(min=0).long()], idx, live, 4)
+    assert torch.equal(s, s2) and torch.equal(i, i2)
+    assert cos_ops.gather_launches == before   # a launch counts only on the card
 
 
 # ------------------------------------------------------------ decode

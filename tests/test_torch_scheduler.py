@@ -119,9 +119,17 @@ def test_cli_runs_on_cpu(capsys):
     assert "routing: miss=" in report and "cost:" in report
 
 
+@pytest.mark.parametrize("flags", [["--index", "ivf"],
+                                   ["--index", "ivf", "--admit-floor", "0.9"]])
+def test_cli_serves_ivf_on_cpu(flags, capsys):
+    assert serve.main(["--queries", "24", "--device", "cpu", "--batch", "4", *flags]) == 0
+    report = capsys.readouterr().out
+    assert "requests: 24" in report and "routing: miss=" in report
+    assert ("suppressed_inserts=" in report) == ("--admit-floor" in flags)
+
+
 @pytest.mark.parametrize("flag", [["--replicas", "2"], ["--cache-shards", "2"],
                                   ["--private-caches"], ["--band", "0.1"],
-                                  ["--admit-floor", "0.2"], ["--index", "ivf"],
                                   ["--embedder-steps", "5"]])
 def test_cli_refuses_unported_paths(flag):
     with pytest.raises(NotImplementedError, match="not ported"):
