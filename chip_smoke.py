@@ -5,15 +5,20 @@
 
 Prints one JSON object per line:
 
-  env     the card (nvidia-smi name and power limit), torch/CUDA versions and
-          the seconds the kernels took to build from ``src/repro_torch/csrc``;
+  env     the card (nvidia-smi name and power limit), torch/CUDA versions, the
+          seconds the kernels took to build from ``src/repro_torch/csrc`` and
+          each kernel's registers, static shared memory, stack and spill bytes
+          from the ptxas log of that build, and its count of tensor-core
+          (HMMA/HGMMA), ldmatrix, cp.async and shuffle instructions from
+          ``cuobjdump -sass`` (the bf16 flash kernel must have HMMA and cp.async);
   kernel  one line per Hopper kernel and main-path shape: max |kernel - plain|
           against its tolerance, the kernel's time per call (CUDA events over
           back-to-back calls, ``ms``; and its kernels' device time from the
           profiler, ``device_ms``), the plain version's, one PyTorch library
           call's (a yardstick, never used by the port) and the least time the
           card could take (bytes / 3.35 TB/s or operations / peak rate,
-          whichever is larger);
+          whichever is larger); the flash suffix case also holds the suffix
+          over the stored prefix bit for bit against the inline prefill;
   serve   the full-width stack (``build_engine(model="llama-3.1-8b")``):
           a restored bank of random unit vectors, a few hundred populated
           pairs, then batches of 8 through ``TweakLLMEngine.handle_batch``
@@ -168,17 +173,49 @@ def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen):
     check(f"flash_attention[{label}]", err, tol)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     mask = (k_pos[0][None, :] <= q_pos[0][:, None])
-    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                     enable_gqa=True)
+    if prefix:      # queries after a prefix: the causal mask is not SDPA's own
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                         enable_gqa=True)
+    else:           # positions from 0 on both sides: SDPA's causal path is the same function
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True)
     pairs = b * h * int(mask.sum().item())          # allowed (query, key) pairs
     moved = 2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * (sq + sk) * b
     bms, by = bound(moved, 4.0 * pairs * dh, "bf16")
-    return {"phase": "kernel", "name": "flash_attention", "case": label,
-            "shape": {"B": b, "Sq": sq, "Sk": sk, "H": h, "Hk": hk, "dh": dh,
-                      "block": block, "impl": impl, "dtype": "bfloat16"},
-            "max_abs_err": err, "tolerance": tol, "ms": time_ms(run),
-            "plain_ms": time_ms(plain, reps=5), "library_ms": time_ms(library),
-            "bound_ms": bms, "bound_by": by}, (run, library, 10)
+    row = {"phase": "kernel", "name": "flash_attention", "case": label,
+           "shape": {"B": b, "Sq": sq, "Sk": sk, "H": h, "Hk": hk, "dh": dh,
+                     "block": block, "impl": impl, "dtype": "bfloat16"},
+           "library": "sdpa, explicit mask" if prefix else "sdpa, is_causal",
+           "max_abs_err": err, "tolerance": tol, "ms": time_ms(run),
+           "plain_ms": time_ms(plain, reps=5), "library_ms": time_ms(library),
+           "bound_ms": bms, "bound_by": by}
+    if prefix:
+        row["suffix_bitwise_equal"] = suffix_bitwise_check(q, k, v, prefix, block, impl)
+    return row, (run, library, 10)
+
+
+def suffix_bitwise_check(q, k, v, prefix, block, impl) -> bool:
+    """The TWEAK suffix over a stored prefix against the inline prefill of
+    the whole prompt: queries [P, P+S) over keys [0, P+S) must give bit for
+    bit the last S rows of queries [0, P+S) over the same K/V.  The prefix
+    rows' queries are drawn here; the suffix rows are the case's own."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    gen = torch.Generator(device=q.device).manual_seed(sk)
+    head = torch.randn(b, prefix, h, dh, device=q.device, generator=gen, dtype=q.dtype)
+    q_full = torch.cat([head, q], dim=1).contiguous()
+    pos = torch.arange(sk, device=q.device, dtype=torch.int32).expand(b, sk).contiguous()
+    run = lambda qq, qp: ops.flash_attention(qq, k, v, qp, pos, causal=True, window=0,
+                                             block_q=block, block_k=block, impl=impl)
+    full = run(q_full, pos)
+    suffix = run(q, pos[:, prefix:].contiguous())
+    if not torch.equal(suffix, full[:, prefix:]):
+        worst = (suffix.float() - full[:, prefix:].float()).abs().max().item()
+        raise AssertionError("flash_attention: the suffix over the stored prefix differs "
+                             f"from the inline prefill (max abs {worst})")
+    return True
 
 
 def decode_case(label, b, h, hk, dh, t, cache_len, layers, gen):
@@ -514,6 +551,7 @@ def kernel_phase(prefix_len: int, seed: int):
                     prefix_len + 128 + 16, cfg.num_layers, gen),
         decode_case("big-miss-decode", 8, h, hk, dh, 64 + 33, 64 + 16, cfg.num_layers, gen),
         cosine_case("serve-bank", 8, LLAMA_CAPACITY, 384, 4, 1024, gen),
+        cosine_case("serve-bank-1m", 8, 1 << 20, 384, 4, 1024, gen),
         gather_case("ivf-probe", 8, LLAMA_CAPACITY, 8, 256, 384, 4, 8, gen),
         gather_case("ivf-probe-1m", 8, 1 << 20, 8, 1024, 384, 4, 8, gen),
         block_case("small-tweak-verify-k4", 8, 4, h, hk, dh, tweak_cap, tweak_len,
@@ -1390,9 +1428,14 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     resolve_device("cuda")
     build.load_library()
+    sass = {k: v for k, v in build.sass_opcodes().items() if any(v.values())}
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build.build_seconds,
-          "device_count": torch.cuda.device_count()})
+          "device_count": torch.cuda.device_count(),
+          "kernel_resources": build.kernel_resources(), "sass_opcodes": sass})
+    mma = [v for k, v in sass.items() if k.startswith("flash_fwd_mma_kernel")]
+    if sass and not (mma and all(v["HMMA"] and v["LDGSTS"] for v in mma)):
+        raise AssertionError(f"flash_attention: the bf16 kernel lacks HMMA or LDGSTS: {mma}")
 
     prefix_len = len(tweak_lib.tweak_prefix_ids(HashWordTokenizer(128256)))
     checked = kernel_phase(prefix_len, args.seed)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -51,6 +52,7 @@ SIGNATURES = {
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_PER_BLOCK = 232_448   # bytes of shared memory one block may use on an H100
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
@@ -131,6 +133,95 @@ def load_library() -> ctypes.CDLL:
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib
+
+
+def kernel_resources(log_text: Optional[str] = None) -> dict:
+    """{kernel: {"registers", "smem_bytes", "stack_bytes", "spill_bytes"}} from
+    the ptxas output of the last build (the ``.log`` beside the library);
+    ``smem_bytes`` is static shared memory, the dynamic part is the
+    wrapper's.  Names are demangled with ``c++filt`` where it exists."""
+    if log_text is None:
+        logs = sorted(BUILD_DIR.glob("libreprotorch_*.log"), key=lambda f: f.stat().st_mtime)
+        if not logs:
+            return {}
+        log_text = logs[-1].read_text()
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "smem_bytes": 0, "stack_bytes": 0,
+                         "spill_bytes": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name]["stack_bytes"] = int(m.group(1))
+            out[name]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return _demangled(out)
+
+
+def sass_opcodes(opcodes=("HMMA", "HGMMA", "LDSM", "LDGSTS", "SHFL")) -> dict:
+    """{kernel: {opcode: count}} from ``cuobjdump -sass`` of the built
+    library: which instructions each kernel was compiled to (tensor-core
+    products, ldmatrix, cp.async, shuffles).  Empty without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    libs = sorted(BUILD_DIR.glob("libreprotorch_*.so"), key=lambda f: f.stat().st_mtime)
+    if not libs or not os.path.exists(tool):
+        return {}
+    res = subprocess.run([tool, "-sass", str(libs[-1])], capture_output=True, text=True)
+    return count_opcodes(res.stdout, opcodes)
+
+
+def count_opcodes(sass: str, opcodes) -> dict:
+    """{kernel: {opcode: count}} of a ``cuobjdump -sass`` listing."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            out[name] = {op: 0 for op in opcodes}
+        elif name is not None:
+            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+            if m and m.group(1) in out[name]:
+                out[name][m.group(1)] += 1
+    return _demangled(out)
+
+
+def _demangled(by_name: dict) -> dict:
+    """Re-key a {mangled kernel name: value} dict by short demangled names
+    where ``c++filt`` exists."""
+    filt = shutil.which("c++filt")
+    if filt and by_name:
+        names = list(by_name)
+        res = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True)
+        if res.returncode == 0 and len(res.stdout.splitlines()) == len(names):
+            return {_short(d): by_name[n] for n, d in zip(names, res.stdout.splitlines())}
+    return by_name
+
+
+def _short(demangled: str) -> str:
+    """'void ns::(anonymous namespace)::k<float, 64>(args)' -> 'k<float, 64>'."""
+    d = demangled.replace("(anonymous namespace)::", "")
+    d = d[5:] if d.startswith("void ") else d
+    depth, cut, start = 0, len(d), 0
+    for pos, ch in enumerate(d):
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+        elif ch == "(" and depth == 0:
+            cut = pos
+            break
+        elif ch == ":" and depth == 0 and d[pos:pos + 2] == "::":
+            start = pos + 2
+    return d[start:cut]
 
 
 def check(rc: int, name: str) -> None:

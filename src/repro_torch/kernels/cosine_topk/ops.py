@@ -6,6 +6,8 @@ with ``csrc/cosine_topk.cu`` and ``cosine_topk_gather_pallas`` with
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from .. import build
@@ -17,6 +19,33 @@ gather_launches = 0
 """Shortlist-scan kernel launches since the last reset (a plain count)."""
 
 MAX_K = 8
+QUERIES_PER_BLOCK = 8   # kQB: queries one scan block scores
+ROWS_PER_STAGE = 128    # two threads per row, 4 queries each
+SLICE = 32              # floats of a row per stage (kSliceF), so D % 32 == 0
+STAGES = 4              # stages of the shared-memory ring
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """How one flat scan is cut (mirrors ``csrc/cosine_topk.cu``): ``grid``
+    (chunks of ``block_n`` rows, query groups of 8), ``smem_bytes`` a scan
+    block's dynamic shared memory (the query group and the ring of row
+    slices, rows padded by 4 floats)."""
+    grid: tuple
+    smem_bytes: int
+    n: int
+    block_n: int
+
+    @property
+    def chunks(self):
+        """(start, stop) bank rows of each scan block."""
+        return tuple((s, min(s + self.block_n, self.n)) for s in range(0, self.n, self.block_n))
+
+
+def scan_plan(b: int, n: int, d: int, block_n: int) -> ScanPlan:
+    smem = 4 * (QUERIES_PER_BLOCK * d + STAGES * ROWS_PER_STAGE * (SLICE + 4))
+    return ScanPlan(grid=(-(-n // block_n), -(-b // QUERIES_PER_BLOCK)), smem_bytes=smem,
+                    n=n, block_n=block_n)
 
 
 def cosine_topk(queries, db, valid, *, k: int = 4, block_n: int = 1024):
@@ -35,7 +64,13 @@ def cosine_topk(queries, db, valid, *, k: int = 4, block_n: int = 1024):
     if db.shape != (n, d) or valid.shape != (n,) or d % 32 or not 1 <= k <= min(MAX_K, n):
         raise ValueError(f"cosine_topk: unsupported shapes q {tuple(queries.shape)} "
                          f"db {tuple(db.shape)} k {k} (D % 32 == 0, k <= {MAX_K})")
-    nchunks = -(-n // block_n)
+    if queries.data_ptr() % 16 or db.data_ptr() % 16:
+        raise ValueError("cosine_topk: queries and db must be 16-byte aligned")
+    plan = scan_plan(b, n, d, block_n)
+    if plan.smem_bytes > build.SMEM_PER_BLOCK:
+        raise ValueError(f"cosine_topk: D {d} needs {plan.smem_bytes} bytes of shared "
+                         f"memory, more than {build.SMEM_PER_BLOCK}")
+    nchunks = plan.grid[0]
     part_s = torch.empty(nchunks * b * k, dtype=torch.float32, device=dev)
     part_i = torch.empty(nchunks * b * k, dtype=torch.int32, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)

@@ -4,8 +4,16 @@ Replaces ``src/repro/kernels/flash_attention`` (the Pallas kernel) with
 ``csrc/flash_attention.cu``, which computes the position-aware function of
 ``_attend_xla_flash``.  A CPU tensor takes the plain version in ``ref``; a
 CUDA tensor launches the kernel or raises.
+
+:func:`launch_plan` states how the kernel cuts the work (it mirrors the
+constants of ``csrc/flash_attention.cu``): bf16 runs on the tensor cores in
+blocks of ``M_TILE`` (query, head) pairs of one KV group, walking key tiles
+of ``KEY_TILE`` keys counted from key 0; fp32 runs on the CUDA cores in
+blocks of 16 queries of one head.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -14,6 +22,56 @@ from . import ref
 
 launches = 0
 """Kernel launches since the last reset (a plain count, read by callers)."""
+
+M_TILE = 64          # (query, head) rows per tensor-core block (kBM)
+KEY_TILE = 64        # keys per tile of the tensor-core body (kBN)
+SIMT_QUERIES = 16    # query rows per fp32 block (kBQ)
+SIMT_KEY_TILE = 32   # keys per fp32 tile (kBK)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one call is cut into blocks.
+
+    ``route`` "mma" (bf16, tensor cores) or "simt" (fp32, CUDA cores);
+    ``grid`` the (x, y, z) block counts; ``smem_bytes`` the dynamic shared
+    memory of a block; ``sk_pad`` the keys the softmax runs over (past Sk
+    they are zeros at position 2**30); ``g`` query heads per KV head.
+    """
+    route: str
+    grid: tuple
+    smem_bytes: int
+    sk_pad: int
+    g: int
+
+    @property
+    def key_tiles(self):
+        """(start, stop) of each key tile, counted from key 0: a function of
+        ``sk_pad`` alone."""
+        tile = KEY_TILE if self.route == "mma" else SIMT_KEY_TILE
+        return tuple((s, min(s + tile, self.sk_pad)) for s in range(0, self.sk_pad, tile))
+
+
+def launch_plan(b: int, sq: int, sk: int, h: int, hk: int, dh: int, dtype,
+                impl: str, block_k: int) -> LaunchPlan:
+    sk_pad = sk if impl == "naive" else -(-sk // block_k) * block_k
+    g = h // hk
+    if dtype == torch.bfloat16:
+        ntiles = -(-sk_pad // KEY_TILE)
+        # Q tile + two (K, V) buffers of bf16 rows, two tiles of key positions,
+        # one flag per key tile rounded up to 16 bytes (MmaSmem in the source)
+        smem = (M_TILE + 4 * KEY_TILE) * dh * 2 + 2 * KEY_TILE * 4 + -(-ntiles // 16) * 16
+        return LaunchPlan("mma", (-(-sq * g // M_TILE), hk, b), smem, sk_pad, g)
+    return LaunchPlan("simt", (-(-sq // SIMT_QUERIES), h, b), 0, sk_pad, g)
+
+
+def block_rows(plan: LaunchPlan, block, sq: int):
+    """The (b, query, head) output rows that block (x, y, z) computes."""
+    x, y, z = block
+    if plan.route == "mma":
+        pairs = range(x * M_TILE, min((x + 1) * M_TILE, sq * plan.g))
+        return [(z, p // plan.g, y * plan.g + p % plan.g) for p in pairs]
+    return [(z, qi, y) for qi in range(x * SIMT_QUERIES, min((x + 1) * SIMT_QUERIES, sq))]
 
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
@@ -44,12 +102,17 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     if (q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32
             or q_pos.shape != (b, sq) or k_pos.shape != (b, sk)):
         raise ValueError("flash_attention: q_pos (B,Sq) and k_pos (B,Sk) must be int32")
-    sk_pad = sk if impl == "naive" else -(-sk // block_k) * block_k
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
+    plan = launch_plan(b, sq, sk, h, hk, dh, q.dtype, impl, block_k)
+    if plan.smem_bytes > build.SMEM_PER_BLOCK:
+        raise ValueError(f"flash_attention: {plan.smem_bytes} bytes of shared memory "
+                         f"exceed {build.SMEM_PER_BLOCK} (Sk_pad {plan.sk_pad})")
     out = torch.empty_like(q)
     lib = build.load_library()
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-        out.data_ptr(), b, sq, sk, sk_pad, h, hk, dh, build.DTYPE_CODES[q.dtype],
+        out.data_ptr(), b, sq, sk, plan.sk_pad, h, hk, dh, build.DTYPE_CODES[q.dtype],
         int(causal), int(window), float(dh) ** -0.5, build.stream_ptr(dev))
     build.check(rc, "flash_attention")
     launches += 1

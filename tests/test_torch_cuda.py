@@ -56,6 +56,9 @@ def _cuda():
     (2, 45, 64, 8, 2, 128, 64, 0),     # TWEAK suffix over a stored prefix
     (3, 0, 37, 4, 4, 64, 32, 0),       # ragged plain prefill
     (1, 10, 50, 8, 4, 64, 16, 12),     # sliding window
+    (8, 45, 128, 32, 8, 128, 64, 0),   # llama-3.1-8b TWEAK suffix (xla_flash, block 64)
+    (8, 0, 64, 32, 8, 128, 128, 0),    # llama-3.1-8b MISS prefill
+    (2, 150, 40, 8, 2, 128, 64, 20),   # window: key tiles [0, 128) masked for every row
 ])
 def test_flash_kernel_matches_plain(impl, dtype, tol, b, p, s, h, hk, dh, block, window):
     dev = _cuda()
@@ -74,6 +77,74 @@ def test_flash_kernel_matches_plain(impl, dtype, tol, b, p, s, h, hk, dh, block,
                                                              block, block), rtol=tol, atol=tol)
     torch.testing.assert_close(out.float(), attend_naive(*f, q_pos, k_pos, True, window),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("impl", ["xla_flash", "naive"])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_row_with_no_allowed_key(impl, dtype, tol, dh):
+    """Queries whose positions precede every key (and a window that excludes
+    the rest) have no allowed key: the reference gives the uniform average
+    of V over the padded keys, also where the kernel skipped masked tiles."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(dh)
+    b, s, sk, h, hk, block = 2, 40, 150, 8, 2, 64
+    q = torch.randn(b, s, h, dh, device=dev, generator=g).to(dtype)
+    k = torch.randn(b, sk, hk, dh, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, sk, hk, dh, device=dev, generator=g).to(dtype)
+    q_pos = torch.arange(s, device=dev, dtype=torch.int32).expand(b, s).contiguous()
+    q_pos = torch.where(q_pos < 24, q_pos - 1000, q_pos + 100)    # rows 0-23: no key
+    k_pos = torch.arange(sk, device=dev, dtype=torch.int32).expand(b, sk).contiguous()
+    for window in (0, 30):
+        out = flash_ops.flash_attention(q, k, v, q_pos, k_pos, causal=True, window=window,
+                                        block_q=block, block_k=block, impl=impl)
+        f = [x.float() for x in (q, k, v)]
+        want = (attend_naive(*f, q_pos, k_pos, True, window) if impl == "naive" else
+                attend_blockwise(*f, q_pos, k_pos, True, window, block, block))
+        torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("impl,block", [("naive", 64), ("xla_flash", 16)])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_keys_past_sk_pad_take_no_weight(impl, block, dtype, tol, dh):
+    """Without a causal mask every key up to Sk_pad is allowed (past Sk as a
+    zero key at position 2**30), and none beyond it: Sk 50 ends inside a
+    kernel key tile under both impls."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(dh + block)
+    b, s, sk, h, hk = 2, 37, 50, 8, 2
+    q = torch.randn(b, s, h, dh, device=dev, generator=g).to(dtype)
+    k = torch.randn(b, sk, hk, dh, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, sk, hk, dh, device=dev, generator=g).to(dtype)
+    q_pos = torch.arange(13, sk, device=dev, dtype=torch.int32).expand(b, s).contiguous()
+    k_pos = torch.arange(sk, device=dev, dtype=torch.int32).expand(b, sk).contiguous()
+    out = flash_ops.flash_attention(q, k, v, q_pos, k_pos, causal=False, window=0,
+                                    block_q=block, block_k=block, impl=impl)
+    f = [x.float() for x in (q, k, v)]
+    want = (attend_naive(*f, q_pos, k_pos, False, 0) if impl == "naive" else
+            attend_blockwise(*f, q_pos, k_pos, False, 0, block, block))
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,h,hk,dh,prefix,s", [(8, 32, 8, 128, 45, 128),
+                                                (2, 8, 2, 64, 30, 100)])
+def test_flash_suffix_is_bitwise_the_full_prefill(b, h, hk, dh, prefix, s):
+    """Queries [P, P+S) over keys [0, P+S) give bit for bit the last S rows of
+    queries [0, P+S) over the same K/V (bf16, xla_flash block 64): a row's
+    arithmetic depends on neither Sq nor the rows that share its block."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(prefix + s)
+    sk = prefix + s
+    q = torch.randn(b, sk, h, dh, device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn(b, sk, hk, dh, device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn(b, sk, hk, dh, device=dev, generator=g).to(torch.bfloat16)
+    pos = torch.arange(sk, device=dev, dtype=torch.int32).expand(b, sk).contiguous()
+    run = lambda qq, qp: flash_ops.flash_attention(qq, k, v, qp, pos, causal=True, window=0,
+                                                   block_q=64, block_k=64, impl="xla_flash")
+    full = run(q, pos)
+    suffix = run(q[:, prefix:].contiguous(), pos[:, prefix:].contiguous())
+    assert torch.equal(suffix, full[:, prefix:])
 
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
@@ -184,6 +255,37 @@ def test_cosine_kernel_matches_plain(b, n, d, p_valid, block_n):
     ones = torch.ones(n, dtype=torch.bool, device=dev)
     _, i2 = cos_ops.cosine_topk(q2.contiguous(), db, ones, k=2, block_n=block_n)
     assert i2[:, :2].tolist() == [[1, n // 2], [1, n // 2]]
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_cosine_kernel_k_ragged_empty_block_and_cross_block_tie(k):
+    """N not a multiple of block_n (nor of the 256-row stage), a block with
+    no valid row, and an exact tie whose rows lie in different blocks: the
+    lower index wins."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(k)
+    b, n, d, block_n = 8, 10_000, 384, 1024
+    q = torch.nn.functional.normalize(torch.randn(b, d, device=dev, generator=g), dim=-1)
+    db = torch.nn.functional.normalize(torch.randn(n, d, device=dev, generator=g), dim=-1)
+    valid = torch.rand(n, device=dev, generator=g) < 0.9
+    valid[2 * block_n:3 * block_n] = False               # block 2 has no valid row
+    db[300] = q[0]                                       # block 0 ...
+    db[5000] = q[0]                                      # ... and block 4 tie at 1.0
+    valid[300] = valid[5000] = True
+    before = cos_ops.launches
+    s, i = cos_ops.cosine_topk(q, db, valid, k=k, block_n=block_n)
+    torch.cuda.synchronize()
+    assert cos_ops.launches == before + 1
+    s_ref, i_ref = cosine_topk_ref(q, db, k, valid)
+    torch.testing.assert_close(s, s_ref, rtol=1e-5, atol=1e-5)
+    gap = torch.full_like(s_ref, float("inf"))
+    d_ = torch.diff(s_ref, dim=1).abs()
+    gap[:, 1:] = torch.minimum(gap[:, 1:], d_)
+    gap[:, :-1] = torch.minimum(gap[:, :-1], d_)
+    sure = gap > 1e-5
+    assert torch.equal(i[sure], i_ref[sure])
+    assert i[0, :min(k, 2)].tolist() == [300, 5000][:min(k, 2)]
+    assert not bool(((i >= 2 * block_n) & (i < 3 * block_n)).any())
 
 
 @pytest.mark.parametrize("b,n,m,d,k,block_m,p_live", [

@@ -2,6 +2,8 @@
 ``ref.py`` and its Pallas kernel (interpret mode on the CPU), within 2e-5
 as in tests/test_kernels.py.  The Hopper kernels against these plain
 versions are in tests/test_torch_cuda.py."""
+from collections import Counter
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ from repro.kernels.decode_attention.ref import decode_attention_ref as jax_decod
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref
 from repro.models import attention as jax_attn
+from repro_torch.kernels import build
 from repro_torch.kernels.cosine_topk import ops as cos_ops
 from repro_torch.kernels.cosine_topk.ref import cosine_topk_gather_ref, cosine_topk_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -262,3 +265,127 @@ def test_blockwise_is_length_invariant():
     kp2 = torch.cat([k_pos, torch.full((1, 50), 2 ** 30, dtype=torch.int32)], dim=1)
     b2 = attend_blockwise(t[0], k2, v2, q_pos, kp2, True, 0, 16, 16)
     assert torch.equal(a, b2)
+
+
+# ------------------------------------------------------------ launch plans
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,dh,dtype,impl,block", [
+    (8, 128, 173, 32, 8, 128, torch.bfloat16, "xla_flash", 64),   # TWEAK suffix, llama
+    (8, 64, 64, 32, 8, 128, torch.bfloat16, "naive", 128),        # MISS prefill, llama
+    (3, 37, 37, 4, 4, 64, torch.bfloat16, "naive", 32),           # g 1, ragged
+    (2, 50, 60, 8, 4, 64, torch.bfloat16, "xla_flash", 16),       # g 2
+    (1, 5, 5, 8, 1, 128, torch.bfloat16, "naive", 64),            # g 8, fewer rows than a tile
+    (3, 37, 37, 4, 4, 64, torch.float32, "naive", 32),            # fp32 body
+    (8, 128, 173, 32, 8, 128, torch.float32, "xla_flash", 64),
+])
+def test_flash_launch_plan_covers_every_row_once(b, sq, sk, h, hk, dh, dtype, impl, block):
+    """Every (b, query, head) output row belongs to exactly one block; a
+    tensor-core block holds (query, head) pairs of one KV group only, so its
+    K/V tiles serve all its rows; shared memory fits a block."""
+    plan = flash_ops.launch_plan(b, sq, sk, h, hk, dh, dtype, impl, block)
+    assert plan.route == ("mma" if dtype == torch.bfloat16 else "simt")
+    seen = Counter()
+    gx, gy, gz = plan.grid
+    for x in range(gx):
+        for y in range(gy):
+            for z in range(gz):
+                rows = flash_ops.block_rows(plan, (x, y, z), sq)
+                assert rows, "a block with no row"
+                seen.update(rows)
+                if plan.route == "mma":
+                    assert len(rows) <= flash_ops.M_TILE
+                    assert {head // (h // hk) for _, _, head in rows} == {y}
+    assert set(seen) == {(i, qi, hh) for i in range(b) for qi in range(sq) for hh in range(h)}
+    assert max(seen.values()) == 1
+    assert plan.smem_bytes <= build.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("sk,impl,block", [(173, "xla_flash", 64), (64, "naive", 128),
+                                           (173, "naive", 64), (1000, "xla_flash", 512)])
+def test_flash_key_tiles_depend_on_the_keys_alone(sk, impl, block):
+    """The key-tile schedule is a function of Sk_pad only (tiles of 64
+    counted from key 0), so a suffix over a stored prefix and the inline
+    prefill of the whole prompt walk the same tiles."""
+    plans = [flash_ops.launch_plan(8, sq, sk, 32, 8, 128, torch.bfloat16, impl, block)
+             for sq in (1, 37, 128, sk)]
+    assert all(p.key_tiles == plans[0].key_tiles and p.sk_pad == plans[0].sk_pad
+               for p in plans)
+    tiles, sk_pad = plans[0].key_tiles, plans[0].sk_pad
+    assert sk_pad == (sk if impl == "naive" else -(-sk // block) * block)
+    assert tiles[0][0] == 0 and tiles[-1][1] == sk_pad
+    assert all(a[1] == c[0] for a, c in zip(tiles, tiles[1:]))
+    assert all(lo % flash_ops.KEY_TILE == 0 and hi - lo <= flash_ops.KEY_TILE
+               for lo, hi in tiles)
+
+
+def test_flash_plan_shared_memory():
+    """Two tensor-core blocks share an SM at the main-path shapes (82,448
+    bytes each at dh 128), and one block fits up to Sk 131,072."""
+    main = flash_ops.launch_plan(8, 128, 173, 32, 8, 128, torch.bfloat16, "xla_flash", 64)
+    assert main.smem_bytes == 82_448 and 2 * main.smem_bytes <= 228 * 1024 - 2 * 1024
+    for dh in (64, 128):
+        for sk in (1, 173, 4096, 131_072):
+            plan = flash_ops.launch_plan(1, 16, sk, 8, 2, dh, torch.bfloat16, "naive", 64)
+            assert plan.smem_bytes <= build.SMEM_PER_BLOCK
+    assert flash_ops.launch_plan(1, 16, 173, 8, 2, 128, torch.float32, "naive",
+                                 64).smem_bytes == 0
+
+
+@pytest.mark.parametrize("b,n,d,block_n", [(8, 262_144, 384, 1024), (8, 1 << 20, 384, 1024),
+                                           (3, 5000, 64, 512), (20, 4096, 128, 1024),
+                                           (1, 100, 32, 64)])
+def test_cosine_scan_plan_covers_the_bank_once(b, n, d, block_n):
+    """The chunks tile the bank rows [0, N) once in ascending order (the last
+    one ragged), one block per (chunk, group of 8 queries), and the shared
+    memory of a scan block fits; at D 384 two blocks share an SM."""
+    plan = cos_ops.scan_plan(b, n, d, block_n)
+    rows = [r for lo, hi in plan.chunks for r in range(lo, hi)]
+    assert rows == list(range(n))
+    assert all(hi - lo == block_n for lo, hi in plan.chunks[:-1])
+    assert plan.grid == (len(plan.chunks), -(-b // cos_ops.QUERIES_PER_BLOCK))
+    assert plan.smem_bytes <= build.SMEM_PER_BLOCK
+    if d == 384:
+        assert plan.smem_bytes == 86_016 and 2 * plan.smem_bytes <= 228 * 1024 - 2 * 1024
+
+
+def test_kernel_resources_parse_the_ptxas_log():
+    """Registers, static shared memory, stack and spill bytes per kernel from
+    nvcc's ``-Xptxas -v`` output (what chip_smoke.py reports beside the
+    build); names are demangled where c++filt exists."""
+    log = """== flash_attention.cu (rc 0)
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN11repro_torch12_GLOBAL__N_120flash_fwd_mma_kernelILi128EEEvPK13__nv_bfloat16S4_S4_PKiS6_PS2_iiiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN11repro_torch12_GLOBAL__N_120flash_fwd_mma_kernelILi128EEEvPK13__nv_bfloat16S4_S4_PKiS6_PS2_iiiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 233 registers, used 1 barriers, 128 bytes smem, 456 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z6spillyPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6spillyPf
+    48 bytes stack frame, 24 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 128 registers, 400 bytes cmem[0]
+"""
+    res = build.kernel_resources(log)
+    assert len(res) == 2
+    flash, spilly = res.values()
+    assert flash == {"registers": 233, "smem_bytes": 128, "stack_bytes": 0, "spill_bytes": 0}
+    assert spilly == {"registers": 128, "smem_bytes": 0, "stack_bytes": 48, "spill_bytes": 44}
+    assert build._short("void repro_torch::(anonymous namespace)::flash_fwd_simt_kernel"
+                        "<float, 64>(float const*, int)") == "flash_fwd_simt_kernel<float, 64>"
+
+
+def test_sass_opcodes_are_counted_per_kernel():
+    """The SASS listing's instructions are counted per kernel, predicated
+    ones too, and the encoding lines are not."""
+    sass = """\tcode for sm_90a
+\t\tFunction : _Z1kPf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;           /* 0x00000a00ff017b82 */
+                                                                    /* 0x000fe20000000800 */
+        /*0150*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;   /* 0x0418723c */
+        /*0290*/               @P0 LDGSTS.E.BYPASS.LTC128B.128 [R7], desc[UR6][R2.64] ;
+        /*0300*/              @!P1 LDSM.16.M88.4 R8, [R9] ;
+        /*0310*/                   HMMA.16816.F32.BF16 R28, R4, R22, R28 ;
+\t\tFunction : _Z1gPf
+        /*0000*/                   SHFL.BFLY PT, R3, R2, 0x1, 0x1f ;
+"""
+    res = build.count_opcodes(sass, ("HMMA", "LDSM", "LDGSTS", "SHFL"))
+    assert list(res.values()) == [{"HMMA": 2, "LDSM": 1, "LDGSTS": 1, "SHFL": 0},
+                                  {"HMMA": 0, "LDSM": 0, "LDGSTS": 0, "SHFL": 1}]
