@@ -10,7 +10,8 @@ Prints one JSON object per line:
           each kernel's registers, static shared memory, stack and spill bytes
           from the ptxas log of that build, and its count of tensor-core
           (HMMA/HGMMA), ldmatrix, cp.async and shuffle instructions from
-          ``cuobjdump -sass`` (the bf16 flash kernel must have HMMA and cp.async);
+          ``cuobjdump -sass`` (the bf16 flash and paged kernels must have HMMA
+          and cp.async, and the paged ones no spill bytes);
   kernel  one line per Hopper kernel and main-path shape: max |kernel - plain|
           against its tolerance, the kernel's time per call (CUDA events over
           back-to-back calls, ``ms``; and its kernels' device time from the
@@ -47,7 +48,8 @@ Prints one JSON object per line:
   profile where the time goes, after the serve run: one small-model decode
           step timed alone (host enqueue, wall and device time), then one
           more serve batch under ``torch.profiler`` (wall time, device-busy
-          share, device time by kernel name);
+          share, device time by kernel name), then one paged big-model
+          decode of that batch (device-busy ms, the paged kernels' share);
   kernels the ported kernels with their launches on the path that runs
           them (serve for the dense kernels, paged, spec, ivf);
   wall    the script's wall time;
@@ -453,7 +455,6 @@ def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, g
     PyTorch call reads pages)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import split_plan
     from repro_torch.kernels.paged_attention import ops, ref
     dev = torch.device("cuda")
     npg = -(-cap // page)
@@ -477,6 +478,7 @@ def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, g
     q = torch.randn(b, kq, h, dh, device=dev, generator=gen, dtype=torch.bfloat16)
     q1 = q[:, 0].contiguous()
     step = [0]
+    plan = ops.launch_plan(b, kq if block else 1, cap, hk, h // hk, dh, page, torch.bfloat16)
     if block:
         call = lambda j: ops.paged_decode_attention_block(q, kps[j], vps[j], tbl, sp, qpos)
         plain = lambda: ref.paged_decode_attention_block_ref(q, kps[0], vps[0], tbl, sp, qpos)
@@ -492,8 +494,8 @@ def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, g
     out = call(0)
     torch.cuda.synchronize()
     name = "paged_decode_attention_block" if block else "paged_decode_attention"
-    if not bool(torch.isfinite(out[-1].float()).all()):
-        raise AssertionError(f"{name}[{label}]: the TRASH row is not finite")
+    if out[-1].float().abs().max().item() != 0:      # also catches NaN
+        raise AssertionError(f"{name}[{label}]: the TRASH row is not 0")
     err = (out[:-1].float() - want[:-1]).abs().max().item()   # rows with a valid slot
     tol = 2e-2
     check(f"{name}[{label}]", err, tol)
@@ -521,11 +523,11 @@ def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, g
     moved = (2 * 2 * valid * hk * dh + 2 * 2 * b * nq * h * dh + 4 * tbl.numel()
              + 4 * sp.numel() + (4 * b if block else 0))
     bms, by = bound(moved, 4.0 * h * dh * pairs, "bf16")
-    chunk, nsplit = split_plan(b, hk, cap)
     return {"phase": "kernel", "name": name, "case": label,
             "shape": {"B": b, "K": nq, "H": h, "Hk": hk, "dh": dh, "page": page, "cap": cap,
                       "pages": pages, "pinned_pages": n_pin, "valid_slots": valid,
-                      "splits": nsplit, "chunk": chunk, "dtype": "bfloat16"},
+                      "route": plan.route, "grid": list(plan.grid), "chunk": plan.chunk,
+                      "smem_bytes": plan.smem_bytes, "dtype": "bfloat16"},
             "max_abs_err": err, "tolerance": tol, "ms": time_ms(run, reps=layers),
             "plain_ms": time_ms(plain), "library_ms": time_ms(library, reps=layers),
             "library": "yardstick: scaled_dot_product_attention over a dense cache "
@@ -1014,8 +1016,8 @@ def paged_phase(eng, plan, serve_out, max_new_tokens: int, noise):
 
 
 def _overlap_drafts(ref, overlap: float, vocab: int):
-    """Drafts from the plain run's own greedy output: the first ``overlap``
-    share kept, the tail rewritten so that it never matches."""
+    """Drafts from a plain run's own greedy output ``ref``: the first
+    ``overlap`` share kept, the tail rewritten so that it never matches."""
     import numpy as np
     ids = ref.copy()
     keep = int(round(overlap * ref.shape[1]))
@@ -1026,9 +1028,11 @@ def _overlap_drafts(ref, overlap: float, vocab: int):
 def spec_phase(eng, peng, batch, max_new_tokens: int, noise):
     """Speculation on the TWEAK route.  Generator level: a TWEAK batch over
     the shared prefix, plain and speculating (k 4), dense and paged, drafts
-    at overlap 1.0 / 0.5 / 0.0; engine level: the paged engine with a
-    speculating small generator, drafts from ``draft_store``.  Each
-    generator-level run is timed twice, the second time in reverse order."""
+    at overlap 1.0 / 0.5 / 0.0 of the same path's plain greedy tokens (the
+    paged path's may leave the dense path's at a near-tie); engine level:
+    the paged engine with a speculating small generator, drafts from
+    ``draft_store``.  Each generator-level run is timed twice, the second
+    time in reverse order."""
     import torch
     from repro_torch.core import tweak as tweak_lib
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1058,11 +1062,13 @@ def spec_phase(eng, peng, batch, max_new_tokens: int, noise):
     runs = [("plain-dense", None), ("plain-paged", None)]
     for kind in ("spec-dense", "spec-paged"):
         runs += [(kind, ov) for ov in (1.0, 0.5, 0.0)]
+    own = {"spec-dense": ref}      # each path's drafts: its own plain greedy tokens
     call = lambda name, ov: gens[name].generate_with_lengths(
         {"tokens": st}, max_new_tokens=max_new_tokens, seed=0, prefix_cache=pc,
-        drafts=None if ov is None else _overlap_drafts(ref, ov, vocab))
+        drafts=None if ov is None else _overlap_drafts(own[name], ov, vocab))
     reset_launch_counts()          # the speculative paths start here ...
     with torch.no_grad():
+        own["spec-paged"] = call("plain-paged", None)[0]
         for name in gens:          # warm each generator once (pool, pins)
             call(name, None if name.startswith("plain") else 0.0)
         out = {run: {"run": run[0], "overlap": run[1], "ms": []} for run in runs}
@@ -1348,9 +1354,33 @@ def decode_step_timing(eng, seed: int, steps: int = 16):
             "kernels_per_step": sum(r[2] for r in kernel_rows(prof))}
 
 
+def paged_decode_profile(eng, batch, max_new_tokens: int, seed: int):
+    """One paged decode of ``batch`` on the big model (a paged generator on
+    its weights, warmed once) under ``torch.profiler``: wall and device-busy
+    ms, and the paged attention kernels' device ms and launches in it."""
+    import torch
+    gen = _gen_like(eng.big, paged=True, page_size=PAGE, pool_pages=POOL_PAGES)
+    toks = {"tokens": spare_tokens(eng, batch)}
+    run = lambda: gen.generate_with_lengths(toks, max_new_tokens=max_new_tokens, seed=seed)
+    run()
+    _sync(eng.device)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        _sync(eng.device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof)
+    paged = [r for r in rows if "PagedKV" in r[0]]
+    return {"wall_ms": wall_ms, "device_busy_ms": sum(r[1] for r in rows) / 1e3,
+            "kernel_launches": sum(r[2] for r in rows),
+            "paged_attention_device_ms": sum(r[1] for r in paged) / 1e3,
+            "paged_attention_launches": sum(r[2] for r in paged)}
+
+
 def profile_phase(eng, batch, max_new_tokens: int, seed: int):
     """Where the time goes, on the engine the serve phase left: one decode
-    step alone, then one more serve batch under ``torch.profiler``."""
+    step alone, then one more serve batch under ``torch.profiler``, then one
+    paged decode of the same batch (``paged_decode``)."""
     import torch
     with torch.no_grad():
         step = decode_step_timing(eng, seed)
@@ -1361,6 +1391,7 @@ def profile_phase(eng, batch, max_new_tokens: int, seed: int):
                                        collect_meta=True)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        paged = paged_decode_profile(eng, batch, max_new_tokens, seed)
     rows = kernel_rows(prof)
     busy_ms = sum(r[1] for r in rows) / 1e3
     if busy_ms <= 0:
@@ -1371,7 +1402,7 @@ def profile_phase(eng, batch, max_new_tokens: int, seed: int):
             "routes_miss_tweak_exact": [routes[0], routes[1], routes[2]],
             "kernel_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
-                    for k, us, c in rows[:15]]}
+                    for k, us, c in rows[:15]], "paged_decode": paged}
 
 
 SOURCES = {
@@ -1433,9 +1464,14 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "kernel_build_s": build.build_seconds,
           "device_count": torch.cuda.device_count(),
           "kernel_resources": build.kernel_resources(), "sass_opcodes": sass})
-    mma = [v for k, v in sass.items() if k.startswith("flash_fwd_mma_kernel")]
-    if sass and not (mma and all(v["HMMA"] and v["LDGSTS"] for v in mma)):
-        raise AssertionError(f"flash_attention: the bf16 kernel lacks HMMA or LDGSTS: {mma}")
+    for kernel in ("flash_fwd_mma_kernel", "panel_mma_kernel"):   # flash; paged bf16
+        mma = [v for k, v in sass.items() if k.startswith(kernel)]
+        if sass and not (mma and all(v["HMMA"] and v["LDGSTS"] for v in mma)):
+            raise AssertionError(f"{kernel}: an instance lacks HMMA or LDGSTS: {mma}")
+    spilled = {k: v["spill_bytes"] for k, v in build.kernel_resources().items()
+               if k.startswith("panel_mma_kernel") and v["spill_bytes"]}
+    if spilled:
+        raise AssertionError(f"panel_mma_kernel spills: {spilled}")
 
     prefix_len = len(tweak_lib.tweak_prefix_ids(HashWordTokenizer(128256)))
     checked = kernel_phase(prefix_len, args.seed)

@@ -4,8 +4,10 @@
 // table into a (P+1,page,Hk,dh) pool.
 //
 // Used by decode_attention_block.cu (dense, per-query limit
-// t < cache_len + i + 1) and paged_attention.cu (validity from slot_pos,
-// optionally causal: slot_pos <= q_pos + i).
+// t < cache_len + i + 1) and, for fp32, by paged_attention.cu (validity
+// from slot_pos, optionally causal: slot_pos <= q_pos + i); bf16 paged
+// calls run panel_mma.cuh, which reads the cache through the same DenseKV /
+// PagedKV accessors.
 //
 // What bounds these kernels on an H100: bytes.  A verify step reads the
 // cache once for all its KQ queries (the Pallas kernels' K x g panel), so
@@ -273,7 +275,8 @@ void launch_panel(const void* q, const KV& kv, const Geometry& geo, int batch, v
 }
 
 // Queries per panel: the fewest powers of two covering K, at most
-// kMaxRows / G (taller panels are split over blockIdx.z).
+// kMaxRows / G (taller panels are split over blockIdx.z).  The dense verify
+// block takes this; the paged wrapper computes the same in its launch plan.
 inline int pick_kq(int kq, int g) {
   int cap = kMaxRows / g;
   if (cap > 4) cap = 4;
@@ -283,9 +286,9 @@ inline int pick_kq(int kq, int g) {
 }
 
 template <typename T, int DH, int G, template <typename> class KVT>
-bool launch_kq(const void* q, const KVT<T>& kv, const Geometry& geo, int batch, void* out,
-               void* part_m, void* part_l, void* part_acc, cudaStream_t stream) {
-  switch (pick_kq(geo.kq, G)) {
+bool launch_kq(int kqp, const void* q, const KVT<T>& kv, const Geometry& geo, int batch,
+               void* out, void* part_m, void* part_l, void* part_acc, cudaStream_t stream) {
+  switch (kqp) {
     case 1: launch_panel<T, DH, G, 1>(q, kv, geo, batch, out, part_m, part_l, part_acc, stream); return true;
     case 2: launch_panel<T, DH, G, 2>(q, kv, geo, batch, out, part_m, part_l, part_acc, stream); return true;
     case 4:
@@ -299,23 +302,25 @@ bool launch_kq(const void* q, const KVT<T>& kv, const Geometry& geo, int batch, 
 }
 
 template <typename T, int DH, template <typename> class KVT>
-bool launch_g(int g, const void* q, const KVT<T>& kv, const Geometry& geo, int batch,
+bool launch_g(int g, int kqp, const void* q, const KVT<T>& kv, const Geometry& geo, int batch,
               void* out, void* part_m, void* part_l, void* part_acc, cudaStream_t stream) {
   switch (g) {
-    case 1: return launch_kq<T, DH, 1, KVT>(q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
-    case 2: return launch_kq<T, DH, 2, KVT>(q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
-    case 4: return launch_kq<T, DH, 4, KVT>(q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
-    case 8: return launch_kq<T, DH, 8, KVT>(q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
+    case 1: return launch_kq<T, DH, 1, KVT>(kqp, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
+    case 2: return launch_kq<T, DH, 2, KVT>(kqp, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
+    case 4: return launch_kq<T, DH, 4, KVT>(kqp, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
+    case 8: return launch_kq<T, DH, 8, KVT>(kqp, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
     default: return false;
   }
 }
 
+// kqp queries per panel: 1, 2, or 4 where G <= 4 (pick_kq's values).
 template <typename T, template <typename> class KVT>
-bool launch_dh(int dh, int g, const void* q, const KVT<T>& kv, const Geometry& geo, int batch,
-               void* out, void* part_m, void* part_l, void* part_acc, cudaStream_t stream) {
+bool launch_dh(int dh, int g, int kqp, const void* q, const KVT<T>& kv, const Geometry& geo,
+               int batch, void* out, void* part_m, void* part_l, void* part_acc,
+               cudaStream_t stream) {
   switch (dh) {
-    case 64: return launch_g<T, 64, KVT>(g, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
-    case 128: return launch_g<T, 128, KVT>(g, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
+    case 64: return launch_g<T, 64, KVT>(g, kqp, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
+    case 128: return launch_g<T, 128, KVT>(g, kqp, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
     default: return false;
   }
 }

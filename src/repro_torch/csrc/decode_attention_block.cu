@@ -31,13 +31,14 @@ extern "C" int decode_attention_block_launch(const void* q, const void* k, const
   if (dtype == kFloat32) {
     DenseKV<float> kv{static_cast<const float*>(k), static_cast<const float*>(v),
                       static_cast<const int*>(cache_len)};
-    ok = launch_dh<float, DenseKV>(dh, g, q, kv, geo, batch, out, part_m, part_l, part_acc, s);
+    ok = launch_dh<float, DenseKV>(dh, g, pick_kq(kq, g), q, kv, geo, batch, out, part_m,
+                                   part_l, part_acc, s);
   } else if (dtype == kBFloat16) {
     DenseKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(k),
                               static_cast<const __nv_bfloat16*>(v),
                               static_cast<const int*>(cache_len)};
-    ok = launch_dh<__nv_bfloat16, DenseKV>(dh, g, q, kv, geo, batch, out, part_m, part_l,
-                                           part_acc, s);
+    ok = launch_dh<__nv_bfloat16, DenseKV>(dh, g, pick_kq(kq, g), q, kv, geo, batch, out,
+                                           part_m, part_l, part_acc, s);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -45,10 +45,10 @@ SIGNATURES = {
     "decode_attention_block_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "paged_decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "paged_decode_attention_block_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                            _F, _P),
+                                            _I, _F, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -205,12 +205,15 @@ def _paged_case(dev, g, b, kq, h, hk, dh, page, cap, dtype):
 
 
 @pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize("kq", [1, 4])
+@pytest.mark.parametrize("kq", [1, 2, 3, 4])
 @pytest.mark.parametrize("page", [16, 32])
-@pytest.mark.parametrize("b,h,hk,dh,cap", [(8, 32, 8, 128, 206), (3, 8, 2, 64, 75)])
+@pytest.mark.parametrize("b,h,hk,dh,cap", [(8, 32, 8, 128, 206), (3, 8, 2, 64, 75),
+                                           (2, 8, 8, 128, 150), (3, 16, 8, 64, 75),
+                                           (2, 16, 2, 128, 300)])
 def test_paged_kernels_match_plain(dtype, tol, kq, page, b, h, hk, dh, cap):
-    """Rows with at least one valid slot against the plain versions; the
-    TRASH row with none is finite (the kernels' rule gives 0 there)."""
+    """Rows with at least one valid slot against the plain versions, at G 4,
+    1, 2 and 8 and K 1-4 (panels that do not fill their n-tiles); the TRASH
+    row with none gives exactly 0 (the kernels' rule)."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(cap + page + kq)
     q, kp, vp, tbl, sp, qpos = _paged_case(dev, g, b, kq, h, hk, dh, page, cap, dtype)
@@ -227,6 +230,77 @@ def test_paged_kernels_match_plain(dtype, tol, kq, page, b, h, hk, dh, cap):
         ref1 = paged_decode_attention_ref(f[0][:, 0], f[1], f[2], tbl, sp)
         torch.testing.assert_close(one[:-1].float(), ref1[:-1], rtol=tol, atol=tol)
         assert bool(torch.isfinite(one.float()).all())
+
+
+def _scrambled_case(dev, kq, g, page, dtype, seed):
+    """Rows whose valid slots hold a permutation of positions [0, n) (so a
+    slot's position is not its index), with rewound holes, a 64-slot tile
+    [64, 128) empty in the middle of the row, and row 0 with no valid slot.
+    Table entries of pages with no valid slot are out of range: a read of
+    them faults.  Returns the inputs and the table the plain version takes
+    (those entries on the TRASH page)."""
+    rng = np.random.default_rng(seed)
+    b, hk, dh, cap = 4, 2, 128, 300
+    npg = -(-cap // page)
+    pages = b * npg
+    sp = np.full((b, cap), -1, np.int32)
+    for row in range(1, b):
+        slots = np.setdiff1d(np.arange(cap - int(rng.integers(0, 40))), np.arange(64, 128))
+        slots = slots[rng.random(slots.size) > 0.15]                # rewound holes
+        sp[row, slots] = rng.permutation(slots.size)
+    tbl = rng.permutation(pages).reshape(b, npg).astype(np.int32)
+    empty = (np.pad(sp, ((0, 0), (0, npg * page - cap)), constant_values=-1)
+             .reshape(b, npg, page) < 0).all(-1)
+    ref_tbl = np.where(empty, pages, tbl).astype(np.int32)
+    tbl = np.where(empty, 1 << 28, tbl).astype(np.int32)
+    qpos = np.maximum((sp.max(1) + 1) - kq, 0).astype(np.int32)
+    t = lambda x: torch.from_numpy(x).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, kq, hk * g, dh), dtype=np.float32))
+    kp = torch.from_numpy(rng.standard_normal((pages + 1, page, hk, dh), dtype=np.float32))
+    vp = torch.from_numpy(rng.standard_normal((pages + 1, page, hk, dh), dtype=np.float32))
+    return (q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype), t(tbl), t(sp), t(qpos),
+            t(ref_tbl))
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("kq", [1, 2, 3, 4])
+@pytest.mark.parametrize("page", [16, 32])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_paged_kernels_follow_positions_not_slots(dtype, tol, kq, page, g):
+    """Masks come from slot_pos per slot and query, never from the slot
+    index; a page with no valid slot is never read (its table entry is out
+    of range); an empty tile mid-row, cap 300 (not a multiple of 64) and
+    page 32; a row with no valid slot gives exactly 0."""
+    dev = _cuda()
+    q, kp, vp, tbl, sp, qpos, ref_tbl = _scrambled_case(dev, kq, g, page, dtype, kq + 7 * g)
+    out = paged_ops.paged_decode_attention_block(q, kp, vp, tbl, sp, qpos)
+    torch.cuda.synchronize()
+    f = [x.float() for x in (q, kp, vp)]
+    ref = paged_decode_attention_block_ref(f[0], f[1], f[2], ref_tbl, sp, qpos)
+    torch.testing.assert_close(out[1:].float(), ref[1:], rtol=tol, atol=tol)
+    assert not out[0].float().abs().max()
+    one = paged_ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, tbl, sp)
+    torch.cuda.synchronize()
+    ref1 = paged_decode_attention_ref(f[0][:, 0], f[1], f[2], ref_tbl, sp)
+    torch.testing.assert_close(one[1:].float(), ref1[1:], rtol=tol, atol=tol)
+    assert not one[0].float().abs().max()
+
+
+@pytest.mark.parametrize("kq", [1, 4])
+def test_paged_cluster_merge_repeats_bit_for_bit(kq):
+    """bf16 at the main shapes, whose splits merge inside their thread-block
+    cluster: the rows match the plain version, and bit for bit from one call
+    to the next."""
+    dev = _cuda()
+    g_ = torch.Generator(device=dev).manual_seed(kq)
+    q, kp, vp, tbl, sp, qpos = _paged_case(dev, g_, 8, kq, 32, 8, 128, 16, 206, torch.bfloat16)
+    assert paged_ops.launch_plan(8, kq, 206, 8, 4, 128, 16, torch.bfloat16).splits > 1
+    f = [x.float() for x in (q, kp, vp)]
+    ref = paged_decode_attention_block_ref(f[0], f[1], f[2], tbl, sp, qpos)
+    outs = [paged_ops.paged_decode_attention_block(q, kp, vp, tbl, sp, qpos) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0][:-1].float(), ref[:-1], rtol=2e-2, atol=2e-2)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
 @pytest.mark.parametrize("b,n,d,p_valid,block_n", [(8, 8192, 384, 0.9, 1024),

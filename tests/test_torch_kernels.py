@@ -25,6 +25,7 @@ from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attend_blockwise, attend_naive
+from repro_torch.kernels.paged_attention import ops as paged_ops
 
 TOL = 2e-5
 
@@ -329,6 +330,92 @@ def test_flash_plan_shared_memory():
             assert plan.smem_bytes <= build.SMEM_PER_BLOCK
     assert flash_ops.launch_plan(1, 16, 173, 8, 2, 128, torch.float32, "naive",
                                  64).smem_bytes == 0
+
+
+@pytest.mark.parametrize("b,kq,cap,hk,g,dh,page,dtype", [
+    (8, 1, 206, 8, 4, 128, 16, torch.bfloat16),    # llama-3.1-8b paged decode
+    (8, 4, 206, 8, 4, 128, 16, torch.bfloat16),    # its verify block, K 4
+    (3, 3, 75, 2, 4, 64, 32, torch.bfloat16),      # K 3: a panel short of its n-tiles
+    (2, 4, 45, 8, 8, 64, 16, torch.bfloat16),      # G 8: two panels of 2 queries
+    (3, 3, 700, 1, 8, 128, 16, torch.bfloat16),    # G 8, K 3: panels of 2 and 1
+    (1, 2, 4096, 8, 1, 128, 32, torch.bfloat16),   # G 1, long cache: splits of 2 tiles
+    (64, 1, 100, 8, 2, 128, 16, torch.bfloat16),   # many rows: one split, no merge
+    (8, 4, 206, 8, 4, 128, 16, torch.float32),     # fp32: the panel body
+    (3, 3, 75, 2, 8, 64, 32, torch.float32),
+])
+def test_paged_launch_plan_covers_every_slot_and_row_once(b, kq, cap, hk, g, dh, page, dtype):
+    """Every slot of a row falls in exactly one (split, tile), every
+    (query, head) row of a KV head in exactly one panel; tensor-core tiles
+    are 64 slots counted from slot 0; two blocks share an SM."""
+    plan = paged_ops.launch_plan(b, kq, cap, hk, g, dh, page, dtype)
+    mma = dtype == torch.bfloat16
+    assert plan.route == ("mma" if mma else "panel")
+    gx, gy, gz = plan.grid
+    assert gx == b * hk and gy == plan.splits
+    tiles = [plan.tiles(split, cap) for split in range(gy)]
+    assert all(tiles), "a split with no slot"
+    slots = Counter(s for ts in tiles for lo, hi in ts for s in range(lo, hi))
+    assert set(slots) == set(range(cap)) and max(slots.values()) == 1
+    if mma:
+        assert plan.tile == paged_ops.TILE and plan.chunk % paged_ops.TILE == 0
+        assert all(lo % paged_ops.TILE == 0 for ts in tiles for lo, _ in ts)
+        assert plan.splits <= paged_ops.MAX_SPLITS
+    else:   # the panel instances the kernel has: 1, 2 or 4 queries
+        assert plan.kq_panel in (1, 2, 4)
+    rows = Counter((qi, gi) for z in range(gz) for qi in plan.panel_queries(z, kq)
+                   for gi in range(g))
+    assert set(rows) == {(qi, gi) for qi in range(kq) for gi in range(g)}
+    assert max(rows.values()) == 1
+    assert all(0 < len(plan.panel_queries(z, kq)) * g
+               <= (paged_ops.MAX_COLS if mma else paged_ops.PANEL_ROWS) for z in range(gz))
+    assert 2 * plan.smem_bytes <= build.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("kq", [1, 4])
+def test_paged_plan_at_the_main_shapes(kq):
+    """B 8 x Hk 8 x 4 splits of one 64-slot tile at cap 206: 256 blocks, at
+    least one per SM of an H100, merged in the kernel; 71,184 bytes of
+    dynamic shared memory at dh 128."""
+    plan = paged_ops.launch_plan(8, kq, 206, 8, 4, 128, 16, torch.bfloat16)
+    assert plan.grid == (64, 4, 1) and plan.chunk == 64 and plan.kq_panel == kq
+    assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= 132
+    assert plan.smem_bytes == 71_184
+    for cap in (1, 206, 4096, 131_072):
+        for dh in (64, 128):
+            big = paged_ops.launch_plan(1, 4, cap, 1, 1, dh, 16, torch.bfloat16)
+            assert 2 * big.smem_bytes <= build.SMEM_PER_BLOCK
+
+
+def test_paged_wrappers_use_the_plain_version_on_cpu():
+    """On CPU tensors both wrappers return the plain versions and count no
+    launch."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, 3, 8, 64), dtype=np.float32))
+    kp = torch.from_numpy(rng.standard_normal((5, 16, 2, 64), dtype=np.float32))
+    vp = torch.from_numpy(rng.standard_normal((5, 16, 2, 64), dtype=np.float32))
+    tbl = torch.tensor([[0, 1], [2, 4]], dtype=torch.int32)
+    sp = torch.where(torch.arange(20)[None] < torch.tensor([[18], [0]]),
+                     torch.arange(20)[None], -1).to(torch.int32)
+    qpos = torch.tensor([15, 0], dtype=torch.int32)
+    before = (paged_ops.launches, paged_ops.block_launches)
+    out = paged_ops.paged_decode_attention_block(q, kp, vp, tbl, sp, qpos)
+    one = paged_ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, tbl, sp)
+    assert (paged_ops.launches, paged_ops.block_launches) == before
+    ref = paged_ops.paged_decode_attention_block_ref(q, kp, vp, tbl, sp, qpos)
+    assert torch.equal(out, ref)
+    assert torch.equal(one, paged_ops.paged_decode_attention_ref(q[:, 0], kp, vp, tbl, sp))
+
+
+def test_c_entry_points_match_their_ctypes_signatures():
+    """Each extern "C" entry point of csrc has as many parameters as its
+    ctypes signature in build.SIGNATURES (nothing compiles the sources on a
+    CPU box, so this is what catches a wrapper and a kernel drifting)."""
+    import re
+    text = "\n".join(f.read_text() for f in build.CSRC.glob("*.cu"))
+    for name, argtypes in build.SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(argtypes), name
 
 
 @pytest.mark.parametrize("b,n,d,block_n", [(8, 262_144, 384, 1024), (8, 1 << 20, 384, 1024),
