@@ -10,8 +10,12 @@ Prints one JSON object per line:
           each kernel's registers, static shared memory, stack and spill bytes
           from the ptxas log of that build, and its count of tensor-core
           (HMMA/HGMMA), ldmatrix, cp.async and shuffle instructions from
-          ``cuobjdump -sass`` (the bf16 flash and paged kernels must have HMMA
-          and cp.async, and the paged ones no spill bytes);
+          ``cuobjdump -sass`` (the bf16 flash kernel and every instance of the
+          attention-panel body, dense and paged, must have HMMA and
+          cp.async, the panel instances no spill bytes, and no CUDA-core
+          attention body may be built for bf16), and how many clusters of
+          1..8 blocks of the panel body the card holds at once (no fewer
+          than the launch plan assumes);
   kernel  one line per Hopper kernel and main-path shape: max |kernel - plain|
           against its tolerance, the kernel's time per call (CUDA events over
           back-to-back calls, ``ms``; and its kernels' device time from the
@@ -145,6 +149,40 @@ def check(name: str, err: float, tol: float) -> None:
         raise AssertionError(f"{name}: max abs error {err} exceeds tolerance {tol}")
 
 
+def wave_clusters(build) -> dict:
+    """{"nt1", "nt2": clusters of 1..8 blocks of the bf16 attention-panel
+    body (dh 128, the main shapes' shared memory) that the card holds at
+    once}; fails where the card holds fewer than the launch plan's
+    ``WAVE_CLUSTERS`` assumes, since a call would then run a second wave."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.decode_attention.ops import WAVE_CLUSTERS, launch_plan
+    smem = launch_plan(8, 1, 206, 8, 4, 128, torch.bfloat16).smem_bytes
+    lib, out = build.load_library(), {}
+    for nt in (1, 2):
+        got = []
+        for splits in range(1, len(WAVE_CLUSTERS) + 1):
+            n = ctypes.c_int(0)
+            build.check(lib.panel_mma_wave_clusters(nt, splits, smem, ctypes.byref(n)),
+                        "panel_mma_wave_clusters")
+            got.append(n.value)
+        if any(g < w for g, w in zip(got, WAVE_CLUSTERS)):
+            raise AssertionError(f"the card holds {got} clusters at NT {nt}, fewer than the "
+                                 f"launch plan's {list(WAVE_CLUSTERS)}")
+        out[f"nt{nt}"] = got
+    return out
+
+
+def mma_plan(name: str, label: str, plan) -> dict:
+    """The cut of a bf16 attention-panel call (``decode_attention.ops.
+    launch_plan``) as the kernel line reports it; it must be the
+    tensor-core route."""
+    if plan.route != "mma":
+        raise AssertionError(f"{name}[{label}]: route {plan.route}, not the tensor cores")
+    return {"route": plan.route, "grid": list(plan.grid), "chunk": plan.chunk,
+            "splits": plan.splits, "kq_panel": plan.kq_panel, "smem_bytes": plan.smem_bytes}
+
+
 # ------------------------------------------------------------------ kernels
 
 def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen):
@@ -260,10 +298,11 @@ def decode_case(label, b, h, hk, dh, t, cache_len, layers, gen):
 
     moved = 2 * 2 * b * cache_len * hk * dh + 2 * 2 * q.numel() + 4 * b
     bms, by = bound(moved, 4.0 * b * h * cache_len * dh, "bf16")
-    chunk, nsplit = ops.split_plan(b, hk, t)
+    plan = mma_plan("decode_attention", label, ops.launch_plan(b, 1, t, hk, h // hk, dh,
+                                                               torch.bfloat16))
     return {"phase": "kernel", "name": "decode_attention", "case": label,
             "shape": {"B": b, "H": h, "Hk": hk, "dh": dh, "T": t, "cache_len": cache_len,
-                      "splits": nsplit, "chunk": chunk, "dtype": "bfloat16"},
+                      **plan, "dtype": "bfloat16"},
             "max_abs_err": err, "tolerance": tol, "ms": time_ms(run, reps=layers),
             "plain_ms": time_ms(plain), "library_ms": time_ms(library, reps=layers),
             "bound_ms": bms, "bound_by": by}, (run, library, layers)
@@ -433,11 +472,11 @@ def block_case(label, b, kq, h, hk, dh, t, cache_len, layers, gen):
     visible = int(limit.sum().item())             # (row, query, slot) pairs kept
     moved = 2 * 2 * b * (cache_len + kq) * hk * dh + 2 * 2 * q.numel() + 4 * b
     bms, by = bound(moved, 4.0 * h * dh * visible, "bf16")
-    chunk, nsplit = ops.split_plan(b, hk, t)
+    plan = mma_plan("decode_attention_block", label,
+                    ops.launch_plan(b, kq, t, hk, h // hk, dh, torch.bfloat16))
     return {"phase": "kernel", "name": "decode_attention_block", "case": label,
             "shape": {"B": b, "K": kq, "H": h, "Hk": hk, "dh": dh, "T": t,
-                      "cache_len": cache_len, "splits": nsplit, "chunk": chunk,
-                      "dtype": "bfloat16"},
+                      "cache_len": cache_len, **plan, "dtype": "bfloat16"},
             "max_abs_err": err, "tolerance": tol, "ms": time_ms(run, reps=layers),
             "plain_ms": time_ms(plain), "library_ms": time_ms(library, reps=layers),
             "library": "scaled_dot_product_attention with a (B,1,K,T) mask",
@@ -455,6 +494,7 @@ def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, g
     PyTorch call reads pages)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import launch_plan
     from repro_torch.kernels.paged_attention import ops, ref
     dev = torch.device("cuda")
     npg = -(-cap // page)
@@ -478,7 +518,6 @@ def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, g
     q = torch.randn(b, kq, h, dh, device=dev, generator=gen, dtype=torch.bfloat16)
     q1 = q[:, 0].contiguous()
     step = [0]
-    plan = ops.launch_plan(b, kq if block else 1, cap, hk, h // hk, dh, page, torch.bfloat16)
     if block:
         call = lambda j: ops.paged_decode_attention_block(q, kps[j], vps[j], tbl, sp, qpos)
         plain = lambda: ref.paged_decode_attention_block_ref(q, kps[0], vps[0], tbl, sp, qpos)
@@ -494,6 +533,8 @@ def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, g
     out = call(0)
     torch.cuda.synchronize()
     name = "paged_decode_attention_block" if block else "paged_decode_attention"
+    plan = mma_plan(name, label, launch_plan(b, kq if block else 1, cap, hk, h // hk, dh,
+                                             torch.bfloat16))
     if out[-1].float().abs().max().item() != 0:      # also catches NaN
         raise AssertionError(f"{name}[{label}]: the TRASH row is not 0")
     err = (out[:-1].float() - want[:-1]).abs().max().item()   # rows with a valid slot
@@ -526,8 +567,7 @@ def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, g
     return {"phase": "kernel", "name": name, "case": label,
             "shape": {"B": b, "K": nq, "H": h, "Hk": hk, "dh": dh, "page": page, "cap": cap,
                       "pages": pages, "pinned_pages": n_pin, "valid_slots": valid,
-                      "route": plan.route, "grid": list(plan.grid), "chunk": plan.chunk,
-                      "smem_bytes": plan.smem_bytes, "dtype": "bfloat16"},
+                      **plan, "dtype": "bfloat16"},
             "max_abs_err": err, "tolerance": tol, "ms": time_ms(run, reps=layers),
             "plain_ms": time_ms(plain), "library_ms": time_ms(library, reps=layers),
             "library": "yardstick: scaled_dot_product_attention over a dense cache "
@@ -1428,6 +1468,13 @@ SUMMARY_CASE = {"flash_attention": "small-suffix-over-prefix",
                 "paged_decode_attention_block": "small-tweak-paged-verify-k4",
                 "cosine_topk_gather": "ivf-probe"}
 SERVE_KERNELS = ("flash_attention", "decode_attention", "cosine_topk")
+# bf16 calls of these run panel_mma_kernel alone: one launch, the splits
+# merged in their cluster
+PANEL_KERNELS = ("decode_attention", "decode_attention_block", "paged_decode_attention",
+                 "paged_decode_attention_block")
+# the CUDA-core attention bodies, built for fp32 only
+SIMT_FP32_ONLY = ("decode_split_kernel", "decode_merge_kernel", "panel_split_kernel",
+                  "panel_merge_kernel")
 # the phase whose run each kernel's launches are read from
 LAUNCH_PHASE = {"flash_attention": "serve", "decode_attention": "serve",
                 "cosine_topk": "serve", "decode_attention_block": "spec",
@@ -1460,18 +1507,27 @@ def main(argv=None) -> int:
     resolve_device("cuda")
     build.load_library()
     sass = {k: v for k, v in build.sass_opcodes().items() if any(v.values())}
+    waves = wave_clusters(build)
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build.build_seconds,
           "device_count": torch.cuda.device_count(),
-          "kernel_resources": build.kernel_resources(), "sass_opcodes": sass})
-    for kernel in ("flash_fwd_mma_kernel", "panel_mma_kernel"):   # flash; paged bf16
+          "kernel_resources": build.kernel_resources(), "sass_opcodes": sass,
+          "wave_clusters": waves})
+    for kernel in ("flash_fwd_mma_kernel", "panel_mma_kernel"):   # flash; attention panels
         mma = [v for k, v in sass.items() if k.startswith(kernel)]
         if sass and not (mma and all(v["HMMA"] and v["LDGSTS"] for v in mma)):
             raise AssertionError(f"{kernel}: an instance lacks HMMA or LDGSTS: {mma}")
-    spilled = {k: v["spill_bytes"] for k, v in build.kernel_resources().items()
+    for kv in ("DenseKV", "PagedKV"):   # dense decode and verify; paged decode and verify
+        if sass and not any(k.startswith("panel_mma_kernel") and kv in k for k in sass):
+            raise AssertionError(f"panel_mma_kernel: no {kv} instance was built")
+    resources = build.kernel_resources()
+    spilled = {k: v["spill_bytes"] for k, v in resources.items()
                if k.startswith("panel_mma_kernel") and v["spill_bytes"]}
     if spilled:
         raise AssertionError(f"panel_mma_kernel spills: {spilled}")
+    simt_bf16 = [k for k in resources if k.split("<")[0] in SIMT_FP32_ONLY and "bfloat16" in k]
+    if simt_bf16:
+        raise AssertionError(f"bf16 instances of the CUDA-core attention bodies: {simt_bf16}")
 
     prefix_len = len(tweak_lib.tweak_prefix_ids(HashWordTokenizer(128256)))
     checked = kernel_phase(prefix_len, args.seed)
@@ -1498,6 +1554,10 @@ def main(argv=None) -> int:
     cases = []
     for row, (run, library, reps) in checked:
         row["device_ms"], row["device_by_kernel"] = device_ms(run, reps, split=True)
+        per_call = [n for _, n in row["device_by_kernel"].values()]
+        if row["name"] in PANEL_KERNELS and per_call != [1.0]:
+            raise AssertionError(f"{row['name']}[{row['case']}]: launches per call "
+                                 f"{row['device_by_kernel']}, not one kernel once")
         row["library_device_ms"] = device_ms(library, reps)
         cases.append(row)
         emit(row)

@@ -1,24 +1,25 @@
-// Shared body of the q-block and paged decode attention kernels, for Hopper
-// (sm_90a): a panel of KQ queries x G grouped heads of one KV head against
-// a KV cache that is either dense (B,T,Hk,dh) or paged through a block
-// table into a (P+1,page,Hk,dh) pool.
+// Shared body of the fp32 q-block and paged decode attention kernels, for
+// Hopper (sm_90a): a panel of KQ queries x G grouped heads of one KV head
+// against a KV cache that is either dense (B,T,Hk,dh) or paged through a
+// block table into a (P+1,page,Hk,dh) pool; and the DenseKV / PagedKV
+// accessors through which both this body and the bf16 tensor-core body
+// (panel_mma.cuh) read the cache.
 //
-// Used by decode_attention_block.cu (dense, per-query limit
-// t < cache_len + i + 1) and, for fp32, by paged_attention.cu (validity
-// from slot_pos, optionally causal: slot_pos <= q_pos + i); bf16 paged
-// calls run panel_mma.cuh, which reads the cache through the same DenseKV /
-// PagedKV accessors.
+// Used, for fp32, by decode_attention_block.cu (dense, per-query limit
+// t < cache_len + i + 1) and paged_attention.cu (validity from slot_pos,
+// optionally causal: slot_pos <= q_pos + i); bf16 calls of both, and of
+// decode_attention.cu, run panel_mma.cuh.
 //
 // What bounds these kernels on an H100: bytes.  A verify step reads the
 // cache once for all its KQ queries (the Pallas kernels' K x g panel), so
-// at the main-path shapes (B=8, H=32, Hk=8, dh=128, T ~ 200 slots, bf16)
-// it moves ~6.5 MB (~2 us at 3.35 TB/s) against ~0.1 GFLOP of fp32 FMA.
+// at the main-path shapes (B=8, H=32, Hk=8, dh=128, T ~ 200 slots) it
+// moves ~13 MB in fp32 (~4 us at 3.35 TB/s) against ~0.1 GFLOP of FMA.
 //
 // Design (simple first: no TMA, no wgmma, no cp.async pipelining):
 //  * One block per (row b, KV head, slot split, query group).  The TPU
 //    walked the cache as a sequential grid axis with (m, l, acc) in
 //    scratch; Hopper blocks run in parallel, so the slots are split into
-//    chunks (ops.split_plan: enough blocks to fill 132 SMs), each block
+//    chunks (ops.launch_plan: enough blocks to fill 132 SMs), each block
 //    writes a partial (m, l, acc) and panel_merge_kernel combines them.
 //    With one split the block writes the normalised output directly.
 //  * Inside a block each warp takes every kWarps-th slot.  A lane holds
@@ -37,6 +38,7 @@
 //    any write): the output is 0, finite.  The plain version averages V
 //    uniformly there (its finite -1e30 mask); such rows are discarded by
 //    done-masking upstream and the checks compare rows with a visible slot.
+//    (The dense verify block never has one: cache_len >= 0.)
 #pragma once
 
 #include "common.cuh"
@@ -59,16 +61,23 @@ struct Geometry {
   float scale;
 };
 
-// Dense cache: slot t of row b; query i sees t < cache_len[b] + i + 1.
+// Dense cache: slot t of row b; query i sees t < cache_len[b] + i + 1 - shift.
+// shift 0 is the verify block (its keys sit at slots cache_len + i); shift
+// 1 the single-token kernel (t < cache_len), whose reference gives a row
+// with cache_len <= 0, where every slot is masked, the uniform average of V
+// over all T slots: uniform() then makes every slot visible, and
+// panel_mma.cuh scores them all alike.
 template <typename T>
 struct DenseKV {
   const T* k;
   const T* v;
   const int* cache_len;
+  int shift;
 
+  __device__ __forceinline__ bool uniform(int b) const { return shift && cache_len[b] <= 0; }
   // First slot past which no query of [q0, q0 + nq) sees anything.
   __device__ __forceinline__ int end(int b, int q_last, const Geometry& g) const {
-    return min(g.tlen, cache_len[b] + q_last + 1);
+    return uniform(b) ? g.tlen : min(g.tlen, cache_len[b] + q_last + 1 - shift);
   }
   // Row index (in units of dh) of slot t's K/V for KV head kh.
   __device__ __forceinline__ long long row(int b, int t, int kh, const Geometry& g) const {
@@ -77,7 +86,7 @@ struct DenseKV {
   // The absolute position that query i compares against (here the slot).
   __device__ __forceinline__ int key_pos(int b, int t, const Geometry&) const { return t; }
   __device__ __forceinline__ int limit(int b, int i, const Geometry&) const {
-    return cache_len[b] + i;   // visible iff key_pos <= limit
+    return uniform(b) ? 0x7fffffff : cache_len[b] + i - shift;   // visible iff key_pos <= limit
   }
 };
 
@@ -90,6 +99,8 @@ struct PagedKV {
   const int* slot_pos;
   const int* q_pos;
 
+  // A row with no valid slot gives 0 (the panel bodies' rule).
+  __device__ __forceinline__ bool uniform(int) const { return false; }
   __device__ __forceinline__ int end(int, int, const Geometry& g) const { return g.tlen; }
   __device__ __forceinline__ long long row(int b, int t, int kh, const Geometry& g) const {
     const int phys = block_tbl[(long long)b * g.npg + t / g.page];
@@ -274,17 +285,6 @@ void launch_panel(const void* q, const KV& kv, const Geometry& geo, int batch, v
   }
 }
 
-// Queries per panel: the fewest powers of two covering K, at most
-// kMaxRows / G (taller panels are split over blockIdx.z).  The dense verify
-// block takes this; the paged wrapper computes the same in its launch plan.
-inline int pick_kq(int kq, int g) {
-  int cap = kMaxRows / g;
-  if (cap > 4) cap = 4;
-  int t = 1;
-  while (t < kq && t < cap) t *= 2;
-  return t;
-}
-
 template <typename T, int DH, int G, template <typename> class KVT>
 bool launch_kq(int kqp, const void* q, const KVT<T>& kv, const Geometry& geo, int batch,
                void* out, void* part_m, void* part_l, void* part_acc, cudaStream_t stream) {
@@ -313,7 +313,7 @@ bool launch_g(int g, int kqp, const void* q, const KVT<T>& kv, const Geometry& g
   }
 }
 
-// kqp queries per panel: 1, 2, or 4 where G <= 4 (pick_kq's values).
+// kqp queries per panel: 1, 2, or 4 where G <= 4 (ops.launch_plan's values).
 template <typename T, template <typename> class KVT>
 bool launch_dh(int dh, int g, int kqp, const void* q, const KVT<T>& kv, const Geometry& geo,
                int batch, void* out, void* part_m, void* part_l, void* part_acc,

@@ -4,13 +4,21 @@
 // (body _kernel).  Computes, for each row b and query head h,
 //   softmax_t(q[b,h] . k[b,t,h//g] * scale  masked to t < cache_len[b]) @ v
 // with fp32 scores, softmax and accumulation; output in the input dtype.
+// A row with cache_len <= 0 has every slot masked, and the reference's
+// softmax over its finite -1e30 scores is then uniform: the average of V
+// over all T slots.  Both routes keep that rule.
 //
 // What bounds it on an H100: bytes.  At the main-path shape (B=8, H=32,
 // Hk=8, dh=128, T ~ 100-300 slots, bf16) the cache read is 2*B*T*Hk*dh*2
 // bytes (~4 MB at T=128, ~1.3 us at 3.35 TB/s) against ~17 MFLOP; in
 // practice a launch of a few microseconds.
 //
-// Design:
+// bf16 runs the tensor-core panel body (panel_mma.cuh) with one query per
+// row, through DenseKV with shift 1 (t < cache_len): cp.async tiles of 64
+// slots, mma.sync for both products, the splits merged inside their
+// thread-block cluster; one launch, no scratch.
+//
+// fp32 (tensor cores would mean TF32) runs the CUDA-core kernels below:
 //  * One block per (b, kv head, T split).  The g = H/Hk query heads of a
 //    KV group are one register panel, so each K/V row is read from device
 //    memory once per group (the Pallas kernel's GQA panel).
@@ -23,9 +31,9 @@
 //    dh/32 consecutive elements, the dot product is a warp shuffle
 //    reduction, and each warp keeps its own online softmax.  The warps'
 //    states are merged through shared memory at the end.
-// Simple and right first: no TMA, no wgmma, no cp.async pipelining.
 
 #include "common.cuh"
+#include "panel_mma.cuh"
 
 namespace repro_torch {
 namespace {
@@ -212,9 +220,11 @@ bool dispatch_dh(int dh, int g, const void* q, const void* k, const void* v,
 }  // namespace repro_torch
 
 // q (B,H,dh), k/v (B,T,Hk,dh) contiguous in `dtype`; cache_len (B,) int32;
-// out (B,H,dh); part_m/part_l (B*Hk*nsplit*g,) and part_acc
-// (B*Hk*nsplit*g*dh,) fp32 scratch, read only when nsplit > 1.
-// Returns cudaGetLastError() after the launches.
+// out (B,H,dh).  `chunk` and `nsplit` come from ops.launch_plan.  fp32:
+// part_m/part_l (B*Hk*nsplit*g,) and part_acc (B*Hk*nsplit*g*dh,) fp32
+// scratch, read only when nsplit > 1.  bf16: `chunk` a multiple of 64 slots,
+// nsplit at most 8, q/k/v 16-byte aligned; no part_* is read.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* cache_len, void* out, void* part_m,
                                        void* part_l, void* part_acc, int batch, int tlen,
@@ -222,14 +232,18 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        float scale, void* stream) {
   using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok = false;
+  int rc = static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kFloat32) {
-    ok = dispatch_dh<float>(dh, g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch,
-                            tlen, hk, chunk, nsplit, scale, s);
+    if (dispatch_dh<float>(dh, g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch,
+                           tlen, hk, chunk, nsplit, scale, s))
+      rc = 0;
   } else if (dtype == kBFloat16) {
-    ok = dispatch_dh<__nv_bfloat16>(dh, g, q, k, v, cache_len, out, part_m, part_l, part_acc,
-                                    batch, tlen, hk, chunk, nsplit, scale, s);
+    panel::Geometry geo{1, tlen, hk, 1, 1, 0, chunk, nsplit, scale};
+    panel::DenseKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(k),
+                                     static_cast<const __nv_bfloat16*>(v),
+                                     static_cast<const int*>(cache_len), 1};
+    rc = panel_mma::launch(dh, q, kv, geo, panel_mma::Args{g, 1}, batch, out, s);
   }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

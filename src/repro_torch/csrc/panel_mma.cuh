@@ -3,22 +3,30 @@
 // a KV cache, read through an accessor (attention_panel.cuh's PagedKV, or
 // DenseKV) that gives each slot's position and row.
 //
-// Used by paged_attention.cu for bf16 (paged decode and the paged verify
-// block); fp32 stays on attention_panel.cuh's CUDA-core body, since tensor
-// cores would mean TF32.
+// Used for bf16 by paged_attention.cu (paged decode and the paged verify
+// block, PagedKV), decode_attention_block.cu (the dense verify block,
+// DenseKV) and decode_attention.cu (dense decode: one query, DenseKV with
+// shift 1); fp32 stays on the CUDA cores (attention_panel.cuh,
+// decode_attention.cu), since tensor cores would mean TF32.
 //
 // What bounds it on an H100: bytes.  At the main-path shapes (B 8, H 32,
 // Hk 8, dh 128, cap 206, page 16) a call reads ~5.4 MB of K/V, 1.6 us at
 // 3.35 TB/s.  Each slot's read is a dependent chain (position, table entry,
-// row), so the design keeps a whole tile's chains in flight at once and
-// puts the arithmetic on the tensor cores, leaving latency, not bytes or
-// operations, as what the kernel waits on.
+// row; dense: the row alone), so the design keeps a whole tile's chains in
+// flight at once and puts the arithmetic on the tensor cores, leaving
+// latency, not bytes or operations, as what the kernel waits on.  When a
+// dense and a paged cache hold the same rows at cap == T, both accessors
+// give the same positions, so the same tiles are loaded and summed in the
+// same order: the two results are equal bit for bit.
 //
 // Design:
 //  * One block per (row b, KV head, split of the slots, panel of queries),
-//    4 warps.  A split is a whole number of 64-slot tiles (ops.launch_plan
-//    mirrors the numbers: 64 x 4 splits = 256 blocks at the main shapes).  Panel rows are
-//    queries x G heads of the KV head, at most 16: two n-tiles of 8.
+//    4 warps.  A split is a whole number of 64-slot tiles.  ops.launch_plan
+//    mirrors the numbers and keeps a call's clusters (below) within what the
+//    card holds at once (wave_clusters): at the main shapes 64 x 2 splits of
+//    two tiles = 128 blocks, since 4 splits would make 64 clusters of 4, two
+//    more than an H100 holds, and a second wave.  Panel rows are queries x G
+//    heads of the KV head, at most 16: two n-tiles of 8.
 //  * Gather: for a tile, thread i < 64 resolves slot i (its position; its
 //    table entry only if some panel row may see the slot) into a shared row
 //    table; then all threads copy the tile's K and V rows with 16-byte
@@ -40,6 +48,10 @@
 //    query i iff 0 <= key_pos <= limit(i); masked scores are -inf, so they
 //    add exactly nothing (exp(-inf) = 0) and a row with no visible slot
 //    keeps (m, l, acc) = (kNeg, 0, 0) and gives 0, the panel body's rule.
+//    The exception is the accessor's uniform(b) (dense single-token decode
+//    with cache_len <= 0): every slot t < T is visible at score 0, so the
+//    row gets the reference's uniform average of V, with no host read and
+//    no extra launch.
 //  * Online softmax per warp in registers (a panel row's 16 scores of the
 //    warp sit in the 8 lanes of one lane-in-quad, so the max takes 3
 //    shuffles); the 4 warps merge through shared memory at the end, four
@@ -101,7 +113,8 @@ __device__ __forceinline__ void fma4(float4& a, float w, const float4& x) {
 }
 
 // grid (B*Hk, nsplit, panels), clusters of (1, nsplit, 1); kThreads threads;
-// Smem<DH>::bytes dynamic.  q/out (B,K,H,dh) bf16.
+// Smem<DH>::bytes dynamic.  q/out (B,K,H,dh) bf16; q and the cache 16-byte
+// aligned (cp.async).
 template <int DH, int NT, class KV>
 __global__ void __launch_bounds__(kThreads, 2)
 panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo, Args args,
@@ -156,6 +169,7 @@ panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo
     }
   }
   const int lim_max = kv.limit(b, qbase + nq - 1, geo);   // limits grow with the query
+  const bool flat = kv.uniform(b);                        // every slot at score 0
   const int s0 = split * geo.chunk;
   const int s1 = min(s0 + geo.chunk, kv.end(b, qbase + nq - 1, geo));
   const int ntl = s1 > s0 ? (s1 - s0 + kTile - 1) / kTile : 0;
@@ -262,7 +276,8 @@ panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kp = e < 2 ? kp_lo : kp_hi;
-        s[nt][e] = kp >= 0 && kp <= lim[nt][e & 1] ? s[nt][e] * geo.scale : -CUDART_INF_F;
+        s[nt][e] = kp >= 0 && kp <= lim[nt][e & 1] ? (flat ? 0.f : s[nt][e] * geo.scale)
+                                                   : -CUDART_INF_F;
       }
       float mx0 = fmaxf(s[nt][0], s[nt][2]);
       float mx1 = fmaxf(s[nt][1], s[nt][3]);
@@ -434,6 +449,33 @@ int launch_nt(const void* q, const KV& kv, const panel::Geometry& geo, const Arg
   return static_cast<int>(cudaLaunchKernelEx(
       &cfg, panel_mma_kernel<DH, NT, KV>, static_cast<const __nv_bfloat16*>(q), kv, geo, args,
       static_cast<__nv_bfloat16*>(out)));
+}
+
+// The most clusters of `splits` blocks of this instance, `smem` bytes of
+// dynamic shared memory each, that the card holds at once
+// (cudaOccupancyMaxActiveClusters): ops.launch_plan keeps a call's clusters
+// within one such wave.
+template <int DH, int NT, class KV>
+int wave_clusters(int splits, int smem, int* clusters) {
+  cudaFuncAttributes attr;   // the limit is only raised: launch_nt keeps its own
+  cudaError_t err = cudaFuncGetAttributes(&attr, panel_mma_kernel<DH, NT, KV>);
+  if (err == cudaSuccess && attr.maxDynamicSharedSizeBytes < smem)
+    err = cudaFuncSetAttribute(panel_mma_kernel<DH, NT, KV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, splits, 1);   // one cluster: only its shape is read
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = splits;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(panel_mma_kernel<DH, NT, KV>), &cfg));
 }
 
 template <int DH, class KV>

@@ -183,6 +183,175 @@ def test_decode_block_kernel_matches_plain(dtype, tol, kq, b, h, hk, t, dh):
     torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
 
 
+def _dense_case(dev, seed, b, kq, h, hk, t, dh, dtype):
+    """q (B,H,dh) for kq 0, else (B,K,H,dh), and a dense cache k/v (B,T,Hk,dh)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, h, dh) if kq == 0 else (b, kq, h, dh)
+    q = torch.randn(*shape, device=dev, generator=g).to(dtype)
+    k = torch.randn(b, t, hk, dh, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, t, hk, dh, device=dev, generator=g).to(dtype)
+    return q, k, v
+
+
+def _dense_both(q, k, v, lens, kq):
+    """The kernel and the plain version (fp32) of the single-token kernel
+    (kq 0, ``t < lens``) or the verify block (``t < lens + i + 1``)."""
+    f = [x.float() for x in (q, k, v)]
+    if kq == 0:
+        return dec_ops.decode_attention(q, k, v, lens), decode_attention_ref(*f, lens)
+    return dec_ops.decode_attention_block(q, k, v, lens), decode_attention_block_ref(*f, lens)
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_decode_kernel_uniform_at_cache_len_zero(dtype, tol):
+    """A row with cache_len 0 (every slot masked) gets the plain version's
+    uniform average of V over all T slots, on both routes; the other rows
+    are unchanged by it."""
+    dev = _cuda()
+    q, k, v = _dense_case(dev, 3, 4, 0, 32, 8, 97, 128, dtype)
+    lens = torch.tensor([0, 5, 0, 97], device=dev, dtype=torch.int32)
+    out, ref = _dense_both(q, k, v, lens, 0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+    mean = v.float().mean(1).repeat_interleave(4, dim=1)          # (B,H,dh)
+    torch.testing.assert_close(out[0].float(), mean[0], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("kq", [0, 1, 4])
+@pytest.mark.parametrize("t", [45, 97, 206])
+def test_dense_kernels_ragged_t_and_a_full_cache(dtype, tol, kq, t):
+    """T not a multiple of 64 (the last tile ragged), and rows whose last
+    query sees the whole cache (decode: cache_len == T; the block:
+    cache_len + K == T) beside ragged ones."""
+    dev = _cuda()
+    q, k, v = _dense_case(dev, t + kq, 3, kq, 16, 4, t, 128, dtype)
+    full = t - max(kq, 1) + (kq == 0)
+    lens = torch.tensor([full, full // 2, 1], device=dev, dtype=torch.int32)
+    out, ref = _dense_both(q, k, v, lens, kq)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kq", [0, 4])
+@pytest.mark.parametrize("b,hk,t,splits", [(1, 1, 4096, 8), (40, 8, 300, 1)])
+def test_dense_kernels_one_and_eight_splits(kq, b, hk, t, splits):
+    """bf16: a long cache of one row and one KV head runs 8 splits, one
+    cluster merging through distributed shared memory; many rows run one
+    split that writes its output directly."""
+    dev = _cuda()
+    assert dec_ops.launch_plan(b, max(kq, 1), t, hk, 4, 128, torch.bfloat16).splits == splits
+    q, k, v = _dense_case(dev, t + kq, b, kq, 4 * hk, hk, t, 128, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(b)
+    lens = torch.randint(1, t - kq + 1, (b,), device=dev, generator=g, dtype=torch.int32)
+    lens[0] = t - kq
+    out, ref = _dense_both(q, k, v, lens, kq)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("kq", [0, 1, 4])
+def test_dense_kernels_repeat_bit_for_bit(kq):
+    """bf16 at the main shapes (B 8, H 32 / Hk 8, dh 128, T 206: 2 splits
+    merged in their cluster): three calls equal bit for bit."""
+    dev = _cuda()
+    q, k, v = _dense_case(dev, 11 + kq, 8, kq, 32, 8, 206, 128, torch.bfloat16)
+    lens = torch.full((8,), 189, device=dev, dtype=torch.int32)
+    outs = [_dense_both(q, k, v, lens, kq)[0] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def _pages_of(x, tbl, page):
+    """A (P+1,page,Hk,dh) pool holding dense rows x (B,T,Hk,dh) through the
+    block table: logical slot t of row b in page tbl[b, t // page]."""
+    b, t, hk, dh = x.shape
+    npg = tbl.shape[1]
+    pool = torch.zeros(b * npg + 1, page, hk, dh, device=x.device, dtype=x.dtype)
+    padded = torch.zeros(b, npg * page, hk, dh, device=x.device, dtype=x.dtype)
+    padded[:, :t] = x
+    pool[tbl.long().flatten()] = padded.view(b * npg, page, hk, dh)
+    return pool
+
+
+@pytest.mark.parametrize("kq", [0, 1, 4])
+def test_dense_and_paged_kernels_agree_bit_for_bit(kq):
+    """bf16, a dense cache and a page pool holding the same rows at cap == T
+    (206, pages of 16 in a permuted table), ragged lengths: both read
+    through the same tensor-core body with the same cut and the same tiles,
+    so decode (kq 0) and the verify block (K 1, 4) agree bit for bit."""
+    dev = _cuda()
+    b, h, hk, dh, t, page = 8, 32, 8, 128, 206, 16
+    q, k, v = _dense_case(dev, 5 + kq, b, kq, h, hk, t, dh, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(kq)
+    npg = -(-t // page)
+    tbl = torch.randperm(b * npg, device=dev, generator=g).view(b, npg).to(torch.int32)
+    kp, vp = _pages_of(k, tbl, page), _pages_of(v, tbl, page)
+    lens = torch.randint(1, t - max(kq, 1) + 1, (b,), device=dev, generator=g,
+                         dtype=torch.int32)
+    lens[0] = t - max(kq, 1)
+    slots = torch.arange(t, device=dev)[None, :]
+    seen = lens + kq              # decode (kq 0): t < lens; the block: t < lens + K
+    sp = torch.where(slots < seen[:, None], slots, -1).to(torch.int32).contiguous()
+    if kq == 0:
+        dense = dec_ops.decode_attention(q, k, v, lens)
+        paged = paged_ops.paged_decode_attention(q, kp, vp, tbl, sp)
+    else:
+        dense = dec_ops.decode_attention_block(q, k, v, lens)
+        paged = paged_ops.paged_decode_attention_block(q, kp, vp, tbl, sp, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, paged)
+
+
+def test_dense_kernels_launch_once_and_allocate_only_the_output():
+    """bf16 at the main shapes: one kernel launch per call (the splits merge
+    in their cluster, no second launch) and one allocation, the output (no
+    scratch)."""
+    dev = _cuda()
+    from torch.autograd import DeviceType
+    for kq in (0, 4):
+        q, k, v = _dense_case(dev, 7, 8, kq, 32, 8, 206, 128, torch.bfloat16)
+        lens = torch.full((8,), 189, device=dev, dtype=torch.int32)
+        _dense_both(q, k, v, lens, kq)
+        torch.cuda.synchronize()
+        call = dec_ops.decode_attention if kq == 0 else dec_ops.decode_attention_block
+        before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        call(q, k, v, lens)
+        assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == before + 1
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call(q, k, v, lens)
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == 1 and kernels[0][1] == 3, kernels
+        assert "panel_mma_kernel" in kernels[0][0], kernels
+
+
+@pytest.mark.parametrize("kq", [0, 4])
+def test_dense_kernels_raise_on_a_misaligned_bf16_input(kq):
+    """cp.async needs 16-byte aligned q and cache on the bf16 route: a
+    contiguous view two bytes off raises before any launch."""
+    dev = _cuda()
+    q, k, v = _dense_case(dev, 9, 2, kq, 8, 2, 64, 64, torch.bfloat16)
+    lens = torch.full((2,), 10, device=dev, dtype=torch.int32)
+    call = dec_ops.decode_attention if kq == 0 else dec_ops.decode_attention_block
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, device=dev, dtype=x.dtype)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    before = (dec_ops.launches, dec_ops.block_launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(shifted(q), k, v, lens)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(q, shifted(k), v, lens)
+    assert (dec_ops.launches, dec_ops.block_launches) == before
+    _dense_both(q, k, v, lens, kq)   # the aligned call runs
+
+
 def _paged_case(dev, g, b, kq, h, hk, dh, page, cap, dtype):
     """A pool with a prefix of two pages shared by every row (pinned), then
     private pages; ragged per-row lengths; the last row parked on TRASH."""
@@ -294,7 +463,7 @@ def test_paged_cluster_merge_repeats_bit_for_bit(kq):
     dev = _cuda()
     g_ = torch.Generator(device=dev).manual_seed(kq)
     q, kp, vp, tbl, sp, qpos = _paged_case(dev, g_, 8, kq, 32, 8, 128, 16, 206, torch.bfloat16)
-    assert paged_ops.launch_plan(8, kq, 206, 8, 4, 128, 16, torch.bfloat16).splits > 1
+    assert dec_ops.launch_plan(8, kq, 206, 8, 4, 128, torch.bfloat16).splits > 1
     f = [x.float() for x in (q, kp, vp)]
     ref = paged_decode_attention_block_ref(f[0], f[1], f[2], tbl, sp, qpos)
     outs = [paged_ops.paged_decode_attention_block(q, kp, vp, tbl, sp, qpos) for _ in range(3)]

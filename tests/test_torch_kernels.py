@@ -14,6 +14,7 @@ from repro.kernels.cosine_topk.ops import cosine_topk_gather as jax_gather
 from repro.kernels.cosine_topk.ref import cosine_topk_gather_ref as jax_gather_ref
 from repro.kernels.cosine_topk.ref import cosine_topk_ref as jax_cosine_ref
 from repro.kernels.decode_attention.ops import decode_attention as jax_decode
+from repro.kernels.decode_attention.ref import decode_attention_block_ref as jax_block_ref
 from repro.kernels.decode_attention.ref import decode_attention_ref as jax_decode_ref
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref
@@ -22,7 +23,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.cosine_topk import ops as cos_ops
 from repro_torch.kernels.cosine_topk.ref import cosine_topk_gather_ref, cosine_topk_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (decode_attention_block_ref,
+                                                      decode_attention_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attend_blockwise, attend_naive
 from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -332,22 +334,24 @@ def test_flash_plan_shared_memory():
                                  64).smem_bytes == 0
 
 
-@pytest.mark.parametrize("b,kq,cap,hk,g,dh,page,dtype", [
-    (8, 1, 206, 8, 4, 128, 16, torch.bfloat16),    # llama-3.1-8b paged decode
-    (8, 4, 206, 8, 4, 128, 16, torch.bfloat16),    # its verify block, K 4
-    (3, 3, 75, 2, 4, 64, 32, torch.bfloat16),      # K 3: a panel short of its n-tiles
-    (2, 4, 45, 8, 8, 64, 16, torch.bfloat16),      # G 8: two panels of 2 queries
-    (3, 3, 700, 1, 8, 128, 16, torch.bfloat16),    # G 8, K 3: panels of 2 and 1
-    (1, 2, 4096, 8, 1, 128, 32, torch.bfloat16),   # G 1, long cache: splits of 2 tiles
-    (64, 1, 100, 8, 2, 128, 16, torch.bfloat16),   # many rows: one split, no merge
-    (8, 4, 206, 8, 4, 128, 16, torch.float32),     # fp32: the panel body
-    (3, 3, 75, 2, 8, 64, 32, torch.float32),
+@pytest.mark.parametrize("b,kq,cap,hk,g,dh,dtype", [
+    (8, 1, 206, 8, 4, 128, torch.bfloat16),    # llama-3.1-8b paged decode
+    (8, 4, 206, 8, 4, 128, torch.bfloat16),    # its verify block, K 4
+    (3, 3, 75, 2, 4, 64, torch.bfloat16),      # K 3: a panel short of its n-tiles
+    (2, 4, 45, 8, 8, 64, torch.bfloat16),      # G 8: two panels of 2 queries
+    (3, 3, 700, 1, 8, 128, torch.bfloat16),    # G 8, K 3: panels of 2 and 1
+    (1, 2, 4096, 8, 1, 128, torch.bfloat16),   # G 1, long cache: splits of 2 tiles
+    (64, 1, 100, 8, 2, 128, torch.bfloat16),   # many rows: one split, no merge
+    (8, 4, 206, 8, 4, 128, torch.float32),     # fp32: the panel body
+    (3, 3, 75, 2, 8, 64, torch.float32),
 ])
-def test_paged_launch_plan_covers_every_slot_and_row_once(b, kq, cap, hk, g, dh, page, dtype):
+def test_paged_launch_plan_covers_every_slot_and_row_once(b, kq, cap, hk, g, dh, dtype):
     """Every slot of a row falls in exactly one (split, tile), every
     (query, head) row of a KV head in exactly one panel; tensor-core tiles
-    are 64 slots counted from slot 0; two blocks share an SM."""
-    plan = paged_ops.launch_plan(b, kq, cap, hk, g, dh, page, dtype)
+    are 64 slots counted from slot 0; two blocks share an SM.  (The plan is
+    the one of the dense kernels too, with T as cap; it does not depend on
+    the page size.)"""
+    plan = dec_ops.launch_plan(b, kq, cap, hk, g, dh, dtype)
     mma = dtype == torch.bfloat16
     assert plan.route == ("mma" if mma else "panel")
     gx, gy, gz = plan.grid
@@ -357,9 +361,9 @@ def test_paged_launch_plan_covers_every_slot_and_row_once(b, kq, cap, hk, g, dh,
     slots = Counter(s for ts in tiles for lo, hi in ts for s in range(lo, hi))
     assert set(slots) == set(range(cap)) and max(slots.values()) == 1
     if mma:
-        assert plan.tile == paged_ops.TILE and plan.chunk % paged_ops.TILE == 0
-        assert all(lo % paged_ops.TILE == 0 for ts in tiles for lo, _ in ts)
-        assert plan.splits <= paged_ops.MAX_SPLITS
+        assert plan.tile == dec_ops.TILE and plan.chunk % dec_ops.TILE == 0
+        assert all(lo % dec_ops.TILE == 0 for ts in tiles for lo, _ in ts)
+        assert plan.splits <= dec_ops.MAX_SPLITS
     else:   # the panel instances the kernel has: 1, 2 or 4 queries
         assert plan.kq_panel in (1, 2, 4)
     rows = Counter((qi, gi) for z in range(gz) for qi in plan.panel_queries(z, kq)
@@ -367,23 +371,98 @@ def test_paged_launch_plan_covers_every_slot_and_row_once(b, kq, cap, hk, g, dh,
     assert set(rows) == {(qi, gi) for qi in range(kq) for gi in range(g)}
     assert max(rows.values()) == 1
     assert all(0 < len(plan.panel_queries(z, kq)) * g
-               <= (paged_ops.MAX_COLS if mma else paged_ops.PANEL_ROWS) for z in range(gz))
+               <= (dec_ops.MAX_COLS if mma else dec_ops.PANEL_ROWS) for z in range(gz))
     assert 2 * plan.smem_bytes <= build.SMEM_PER_BLOCK
 
 
 @pytest.mark.parametrize("kq", [1, 4])
 def test_paged_plan_at_the_main_shapes(kq):
-    """B 8 x Hk 8 x 4 splits of one 64-slot tile at cap 206: 256 blocks, at
-    least one per SM of an H100, merged in the kernel; 71,184 bytes of
-    dynamic shared memory at dh 128."""
-    plan = paged_ops.launch_plan(8, kq, 206, 8, 4, 128, 16, torch.bfloat16)
-    assert plan.grid == (64, 4, 1) and plan.chunk == 64 and plan.kq_panel == kq
-    assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= 132
+    """B 8 x Hk 8 at cap 206 (4 tiles): 4 splits would make 64 clusters of
+    4, over the 62 an H100 holds at once, so 2 splits of two 64-slot tiles,
+    128 blocks in one wave, merged in the kernel; 71,184 bytes of dynamic
+    shared memory at dh 128."""
+    plan = dec_ops.launch_plan(8, kq, 206, 8, 4, 128, torch.bfloat16)
+    assert plan.grid == (64, 2, 1) and plan.chunk == 128 and plan.kq_panel == kq
+    assert plan.grid[0] * plan.grid[2] <= dec_ops.WAVE_CLUSTERS[plan.splits - 1]
     assert plan.smem_bytes == 71_184
     for cap in (1, 206, 4096, 131_072):
         for dh in (64, 128):
-            big = paged_ops.launch_plan(1, 4, cap, 1, 1, dh, 16, torch.bfloat16)
+            big = dec_ops.launch_plan(1, 4, cap, 1, 1, dh, torch.bfloat16)
             assert 2 * big.smem_bytes <= build.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kq", [1, 4])
+@pytest.mark.parametrize("t", [45, 97, 206, 300, 4096])
+def test_launch_plan_covers_every_slot_and_row_once(t, kq, dtype):
+    """The one plan of the dense and the paged kernels, at the cache widths
+    the tests and the main path use (T or cap): every slot of [0, T) in one
+    (split, tile) and every (query, head) row in one panel, as the paged
+    kernels walk it; the dense kernels, which stop each split at the last
+    query's limit, load the visible slots [0, end) once, in the paged walk's
+    tiles cut at ``end`` (so a dense and a paged cache holding the same rows
+    at cap == T are summed tile for tile alike)."""
+    b, hk, g, dh = 8, 8, 4, 128
+    plan = dec_ops.launch_plan(b, kq, t, hk, g, dh, dtype)
+    assert plan.route == ("mma" if dtype == torch.bfloat16 else "panel")
+    gx, gy, gz = plan.grid
+    assert (gx, gy) == (b * hk, plan.splits)
+    paged = [plan.tiles(split, t) for split in range(gy)]
+    slots = Counter(s for ts in paged for lo, hi in ts for s in range(lo, hi))
+    assert set(slots) == set(range(t)) and max(slots.values()) == 1
+    rows = Counter((qi, gi) for z in range(gz) for qi in plan.panel_queries(z, kq)
+                   for gi in range(g))
+    assert set(rows) == {(qi, gi) for qi in range(kq) for gi in range(g)}
+    assert max(rows.values()) == 1
+    rng = np.random.default_rng(t + kq)
+    for cache_len in {0, t - kq, *rng.integers(0, t - kq + 1, size=4).tolist()}:
+        end = min(t, cache_len + kq)       # the block's; decode: cache_len = pos + 1
+        # the dense kernels stop each split at end: s1 = min(s0 + chunk, DenseKV::end)
+        dense = [plan.tiles(split, end) for split in range(gy)]
+        seen = [s for ts in dense for lo, hi in ts for s in range(lo, hi)]
+        assert sorted(seen) == list(range(end))
+        cut = [[(lo, min(hi, end)) for lo, hi in ts if lo < end] for ts in paged]
+        assert dense == cut
+    if plan.route == "mma":    # the clusters fit in one wave (or there is one split)
+        assert plan.splits == 1 or gx * gz <= dec_ops.WAVE_CLUSTERS[plan.splits - 1]
+    assert plan.smem_bytes <= build.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("t,kq,chunk,nt", [(206, 1, 128, 1), (206, 4, 128, 2), (97, 1, 64, 1)])
+def test_dense_plan_at_the_main_shapes(t, kq, chunk, nt):
+    """llama-3.1-8b (B 8, H 32 / Hk 8, dh 128) in bf16: TWEAK decode and
+    verify at T 206 (4 tiles) and MISS decode at T 97 (2 tiles) cut into 2
+    splits (8 x 8 x 2 = 128 blocks, one launch, one wave; 4 splits would make
+    64 clusters of 4, over the 62 an H100 holds at once); K 4 at G 4 is one
+    panel of 16 (query, head) rows, two n-tiles of 8 (NT 2)."""
+    plan = dec_ops.launch_plan(8, kq, t, 8, 4, 128, torch.bfloat16)
+    assert plan.route == "mma" and plan.tile == 64 and plan.chunk == chunk
+    assert plan.grid == (64, 2, 1) and plan.splits == 2
+    assert plan.kq_panel == kq and -(-plan.kq_panel * 4 // 8) == nt
+    assert plan.smem_bytes == 71_184 and plan.smem_bytes <= build.SMEM_PER_BLOCK
+    assert dec_ops.launch_plan(8, kq, t, 8, 4, 128, torch.float32).route == "panel"
+
+
+@pytest.mark.parametrize("b,h,hk,t,dh", [(3, 8, 2, 45, 64), (2, 32, 8, 206, 128)])
+def test_single_token_decode_is_the_block_at_cache_len_minus_one(b, h, hk, t, dh):
+    """What the single-token route relies on: decode over ``t < len`` is the
+    verify block of one query over ``t < (len - 1) + 0 + 1``, for len >= 1,
+    in the JAX references and in the port's plain versions."""
+    rng = np.random.default_rng(t)
+    q = rng.standard_normal((b, h, dh)).astype(np.float32)
+    k = rng.standard_normal((b, t, hk, dh)).astype(np.float32)
+    v = rng.standard_normal((b, t, hk, dh)).astype(np.float32)
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lens[0], lens[-1] = 1, t
+    one = np.asarray(jax_decode_ref(*map(jnp.asarray, (q, k, v, lens))))
+    blk = np.asarray(jax_block_ref(jnp.asarray(q[:, None]), jnp.asarray(k), jnp.asarray(v),
+                                   jnp.asarray(lens - 1)))[:, 0]
+    np.testing.assert_allclose(one, blk, rtol=TOL, atol=TOL)
+    tq, tk, tv, tl = map(torch.from_numpy, (q, k, v, lens))
+    port_one = decode_attention_ref(tq, tk, tv, tl)
+    port_blk = decode_attention_block_ref(tq[:, None], tk, tv, tl - 1)[:, 0]
+    np.testing.assert_allclose(port_one.numpy(), one, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(port_blk.numpy(), blk, rtol=TOL, atol=TOL)
 
 
 def test_paged_wrappers_use_the_plain_version_on_cpu():
