@@ -12,10 +12,11 @@ Prints one JSON object per line:
           (HMMA/HGMMA), ldmatrix, cp.async and shuffle instructions from
           ``cuobjdump -sass`` (the bf16 flash kernel and every instance of the
           attention-panel body, dense and paged, must have HMMA and
-          cp.async, the panel instances no spill bytes, and no CUDA-core
-          attention body may be built for bf16), and how many clusters of
-          1..8 blocks of the panel body the card holds at once (no fewer
-          than the launch plan assumes);
+          cp.async, the panel and shortlist-kernel instances no spill bytes,
+          and no CUDA-core attention body may be built for bf16), and how
+          many clusters of 1..8 blocks of the panel body and of the shortlist
+          kernel the card holds at once (no fewer than their launch plans
+          assume);
   kernel  one line per Hopper kernel and main-path shape: max |kernel - plain|
           against its tolerance, the kernel's time per call (CUDA events over
           back-to-back calls, ``ms``; and its kernels' device time from the
@@ -56,7 +57,8 @@ Prints one JSON object per line:
           decode of that batch (device-busy ms, the paged kernels' share);
   kernels the ported kernels with their launches on the path that runs
           them (serve for the dense kernels, paged, spec, ivf);
-  wall    the script's wall time;
+  wall    the script's wall time, and how many ``device_ms`` profiler
+          sessions were whole and how many lost records and were repeated;
 
 then the raw nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero without the last
@@ -107,20 +109,42 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+# torch.profiler drops a kernel record whose start, on the host clock it is
+# converted to, falls before the session began ("Out-of-range" in Kineto's
+# log), and the card's records sometimes land up to ~2 ms before their own
+# launch ("CPU GPU out-of-order"): the first launches wait this long after
+# the session starts
+PROFILER_LEAD_S = 0.02
+PROFILER_ATTEMPTS = 3
+profiler_sessions = {"whole": 0, "short": 0}
+
+
 def device_ms(fn, reps: int = 10, split: bool = False):
     """Device time of ``fn`` per call: the summed durations of the GPU kernels
     it launches, from ``torch.profiler``.  For a kernel of a few microseconds
     the CUDA-event time of back-to-back calls (``time_ms``) is the host's
-    launch rate instead; this is the card's own time.  ``split`` also
+    launch rate instead; this is the card's own time.  Every call launches
+    the same kernels, so a session in which a kernel's count is not a whole
+    multiple of ``reps`` lost records: it is profiled again, up to
+    PROFILER_ATTEMPTS sessions, and fails if none is whole.  ``split`` also
     returns {kernel name: (ms per call, launches per call)}."""
     import torch
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = kernel_rows(prof)
+    for _ in range(PROFILER_ATTEMPTS):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_LEAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = kernel_rows(prof)
+        if rows and all(c % reps == 0 for _, _, c in rows):
+            profiler_sessions["whole"] += 1
+            break
+        profiler_sessions["short"] += 1
+    else:
+        raise AssertionError(f"the profiler lost kernel records in {PROFILER_ATTEMPTS} "
+                             f"sessions: {rows}")
     us = sum(r[1] for r in rows)
     if us <= 0:
         raise AssertionError("the profiler recorded no device time")
@@ -171,6 +195,27 @@ def wave_clusters(build) -> dict:
                                  f"launch plan's {list(WAVE_CLUSTERS)}")
         out[f"nt{nt}"] = got
     return out
+
+
+def gather_wave_clusters(build) -> list:
+    """Clusters of 1..8 blocks of the shortlist kernel that the card holds at
+    once, the least over its k instances; fails where the card holds fewer
+    than ``cosine_topk.ops.GATHER_WAVE_CLUSTERS`` assumes."""
+    import ctypes
+    from repro_torch.kernels.cosine_topk.ops import GATHER_WAVE_CLUSTERS, MAX_K
+    lib, got = build.load_library(), []
+    for cluster in range(1, len(GATHER_WAVE_CLUSTERS) + 1):
+        least = None
+        for k in range(1, MAX_K + 1):
+            n = ctypes.c_int(0)
+            build.check(lib.cosine_topk_gather_wave_clusters(k, cluster, ctypes.byref(n)),
+                        "cosine_topk_gather_wave_clusters")
+            least = n.value if least is None else min(least, n.value)
+        got.append(least)
+    if any(g < w for g, w in zip(got, GATHER_WAVE_CLUSTERS)):
+        raise AssertionError(f"the card holds {got} shortlist-kernel clusters, fewer than the "
+                             f"gather plan's {list(GATHER_WAVE_CLUSTERS)}")
+    return got
 
 
 def mma_plan(name: str, label: str, plan) -> dict:
@@ -382,6 +427,7 @@ def gather_case(label, b, n, nprobe, bucket, d, k, sets, gen):
     valid[1] = False
     valid[1, :2] = idx[1, :2] >= 0       # query 1: fewer live candidates than k
     live = [v & (i >= 0) for i, v in lists]
+    plan = ops.gather_plan(b, m, d, k)
     s, i = ops.cosine_topk_gather(q, db, idx, valid, k=k)
     s_ref, i_ref = ref.cosine_topk_gather_ref(q, db[idx.clamp(min=0).long()], idx, live[0], k)
     fin = torch.isfinite(s_ref)
@@ -422,8 +468,10 @@ def gather_case(label, b, n, nprobe, bucket, d, k, sets, gen):
     bms, by = bound(moved, 2.0 * n_live * d, "fp32")
     return {"phase": "kernel", "name": "cosine_topk_gather", "case": label,
             "shape": {"B": b, "N": n, "M": m, "nprobe": nprobe, "bucket": bucket, "D": d,
-                      "k": k, "block_m": 64,
-                      "live_per_list": n_live, "lists": sets, "dtype": "float32"},
+                      "k": k, "live_per_list": n_live, "lists": sets, "dtype": "float32"},
+            "plan": {"grid": list(plan.grid), "cluster": plan.cluster, "block_m": plan.block_m,
+                     "rounds": plan.rounds, "rows_in_flight": plan.rows_in_flight,
+                     "row_passes": plan.row_passes, "smem_bytes": plan.smem_bytes},
             "max_abs_err": err, "tolerance": tol, "ms": time_ms(run, reps=4 * sets),
             "plain_ms": time_ms(plain, reps=5), "library_ms": time_ms(library, reps=sets),
             "library": "yardstick: topk(where(live, einsum(q, db[cand_idx]), -inf))",
@@ -1468,10 +1516,11 @@ SUMMARY_CASE = {"flash_attention": "small-suffix-over-prefix",
                 "paged_decode_attention_block": "small-tweak-paged-verify-k4",
                 "cosine_topk_gather": "ivf-probe"}
 SERVE_KERNELS = ("flash_attention", "decode_attention", "cosine_topk")
-# bf16 calls of these run panel_mma_kernel alone: one launch, the splits
-# merged in their cluster
-PANEL_KERNELS = ("decode_attention", "decode_attention_block", "paged_decode_attention",
-                 "paged_decode_attention_block")
+# a call of each of these is one kernel launch: bf16 calls of the four
+# attention kernels run panel_mma_kernel alone, the splits merged in their
+# cluster; the shortlist kernel merges a query's blocks in theirs
+ONE_LAUNCH_KERNELS = ("decode_attention", "decode_attention_block", "paged_decode_attention",
+                      "paged_decode_attention_block", "cosine_topk_gather")
 # the CUDA-core attention bodies, built for fp32 only
 SIMT_FP32_ONLY = ("decode_split_kernel", "decode_merge_kernel", "panel_split_kernel",
                   "panel_merge_kernel")
@@ -1508,11 +1557,12 @@ def main(argv=None) -> int:
     build.load_library()
     sass = {k: v for k, v in build.sass_opcodes().items() if any(v.values())}
     waves = wave_clusters(build)
+    waves["gather"] = gather_wave_clusters(build)
+    resources = build.kernel_resources()
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build.build_seconds,
           "device_count": torch.cuda.device_count(),
-          "kernel_resources": build.kernel_resources(), "sass_opcodes": sass,
-          "wave_clusters": waves})
+          "kernel_resources": resources, "sass_opcodes": sass, "wave_clusters": waves})
     for kernel in ("flash_fwd_mma_kernel", "panel_mma_kernel"):   # flash; attention panels
         mma = [v for k, v in sass.items() if k.startswith(kernel)]
         if sass and not (mma and all(v["HMMA"] and v["LDGSTS"] for v in mma)):
@@ -1520,11 +1570,10 @@ def main(argv=None) -> int:
     for kv in ("DenseKV", "PagedKV"):   # dense decode and verify; paged decode and verify
         if sass and not any(k.startswith("panel_mma_kernel") and kv in k for k in sass):
             raise AssertionError(f"panel_mma_kernel: no {kv} instance was built")
-    resources = build.kernel_resources()
     spilled = {k: v["spill_bytes"] for k, v in resources.items()
-               if k.startswith("panel_mma_kernel") and v["spill_bytes"]}
+               if k.startswith(("panel_mma_kernel", "gather_topk_kernel")) and v["spill_bytes"]}
     if spilled:
-        raise AssertionError(f"panel_mma_kernel spills: {spilled}")
+        raise AssertionError(f"kernel instances that spill: {spilled}")
     simt_bf16 = [k for k in resources if k.split("<")[0] in SIMT_FP32_ONLY and "bfloat16" in k]
     if simt_bf16:
         raise AssertionError(f"bf16 instances of the CUDA-core attention bodies: {simt_bf16}")
@@ -1555,7 +1604,7 @@ def main(argv=None) -> int:
     for row, (run, library, reps) in checked:
         row["device_ms"], row["device_by_kernel"] = device_ms(run, reps, split=True)
         per_call = [n for _, n in row["device_by_kernel"].values()]
-        if row["name"] in PANEL_KERNELS and per_call != [1.0]:
+        if row["name"] in ONE_LAUNCH_KERNELS and per_call != [1.0]:
             raise AssertionError(f"{row['name']}[{row['case']}]: launches per call "
                                  f"{row['device_by_kernel']}, not one kernel once")
         row["library_device_ms"] = device_ms(library, reps)
@@ -1575,7 +1624,7 @@ def main(argv=None) -> int:
                         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                         "library_ms": c["library_ms"]})
     emit({"phase": "wall", "script_s": time.perf_counter() - t_start,
-          "kernel_build_s": build.build_seconds})
+          "kernel_build_s": build.build_seconds, "profiler_sessions": profiler_sessions})
     print(smi, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

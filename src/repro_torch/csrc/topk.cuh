@@ -14,20 +14,9 @@ __device__ __forceinline__ bool better(float s, int i, float s2, int i2) {
   return s > s2 || (s == s2 && i >= 0 && (i2 < 0 || i < i2));
 }
 
-__device__ __forceinline__ void insert_sorted(float* ts, int* ti, int k, float s, int i) {
-  if (!better(s, i, ts[k - 1], ti[k - 1])) return;
-  int j = k - 1;
-  while (j > 0 && better(s, i, ts[j - 1], ti[j - 1])) {
-    ts[j] = ts[j - 1];
-    ti[j] = ti[j - 1];
-    --j;
-  }
-  ts[j] = s;
-  ti[j] = i;
-}
-
-// insert_sorted on a list of compile-time length K held in registers: the
-// entry takes the last slot and bubbles up, every index known at compile time.
+// Insert (s, i) into a sorted list of compile-time length K held in
+// registers: the entry takes the last slot and bubbles up, every index known
+// at compile time.
 template <int K>
 __device__ __forceinline__ void insert_sorted_reg(float (&ts)[K], int (&ti)[K], float s, int i) {
   if (!better(s, i, ts[K - 1], ti[K - 1])) return;

@@ -40,8 +40,8 @@ SIGNATURES = {
     "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "cosine_topk_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "cosine_topk_gather_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _P),
+    "cosine_topk_gather_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "cosine_topk_gather_wave_clusters": (_I, _I, _P),
     "decode_attention_block_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "panel_mma_wave_clusters": (_I, _I, _I, _P),

@@ -10,6 +10,7 @@ Tolerances: fp32 kernels 1e-5 (summation order differs from the plain
 version's); bf16 2e-2 (bf16 output rounding, ulp 2**-8 near 1).
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -48,6 +49,20 @@ def _cuda():
         pytest.skip("needs an NVIDIA GPU (run: python -m pytest -q -m cuda "
                     "tests/test_torch_cuda.py on the card)")
     return torch.device("cuda")
+
+
+def _profiled_kernels(fn, calls):
+    """(kernel name, launches) of ``calls`` calls of ``fn`` under
+    torch.profiler.  The profiler drops a kernel record whose start, on the
+    host clock, falls before the session began, and the card's records can
+    land a few ms before their launch: the first call waits 20 ms."""
+    from torch.autograd import DeviceType
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
 @pytest.mark.parametrize("impl", ["xla_flash", "naive"])
@@ -308,7 +323,6 @@ def test_dense_kernels_launch_once_and_allocate_only_the_output():
     in their cluster, no second launch) and one allocation, the output (no
     scratch)."""
     dev = _cuda()
-    from torch.autograd import DeviceType
     for kq in (0, 4):
         q, k, v = _dense_case(dev, 7, 8, kq, 32, 8, 206, 128, torch.bfloat16)
         lens = torch.full((8,), 189, device=dev, dtype=torch.int32)
@@ -318,12 +332,7 @@ def test_dense_kernels_launch_once_and_allocate_only_the_output():
         before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
         call(q, k, v, lens)
         assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == before + 1
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                call(q, k, v, lens)
-            torch.cuda.synchronize()
-        kernels = [(e.key, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
+        kernels = _profiled_kernels(lambda: call(q, k, v, lens), 3)
         assert len(kernels) == 1 and kernels[0][1] == 3, kernels
         assert "panel_mma_kernel" in kernels[0][0], kernels
 
@@ -531,15 +540,46 @@ def test_cosine_kernel_k_ragged_empty_block_and_cross_block_tie(k):
     assert not bool(((i >= 2 * block_n) & (i < 3 * block_n)).any())
 
 
-@pytest.mark.parametrize("b,n,m,d,k,block_m,p_live", [
-    (8, 65536, 2048, 384, 4, 64, 0.5),      # the IVF probe at the main path's widths
-    (3, 5000, 200, 64, 8, 64, 0.7),         # M not a multiple of the block
-    (5, 1000, 96, 128, 1, 32, 0.02),        # fewer live candidates than k
+@pytest.mark.parametrize("k", [2, 8])
+def test_cosine_kernel_tie_between_lanes_of_one_warp(k):
+    """Exact ties between rows that two lanes of one warp score (a stage is
+    128 rows, one a thread, so row r sits in lane (r % 128) % 32 of warp
+    (r % 128) // 32): the lower index wins whether it is in the lower lane
+    (rows 165, 172: lanes 5, 12) or the higher one (rows 300, 421: lanes 12,
+    5)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(k)
+    b, n, d, block_n = 8, 10_000, 384, 1024
+    q = torch.nn.functional.normalize(torch.randn(b, d, device=dev, generator=g), dim=-1)
+    db = torch.nn.functional.normalize(torch.randn(n, d, device=dev, generator=g), dim=-1)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    db[300] = db[421] = q[0]
+    db[165] = db[172] = q[1]
+    s, i = cos_ops.cosine_topk(q, db, valid, k=k, block_n=block_n)
+    s_ref, i_ref = cosine_topk_ref(q, db, k, valid)
+    torch.testing.assert_close(s, s_ref, rtol=1e-5, atol=1e-5)
+    assert i[0, :2].tolist() == [300, 421] and i[1, :2].tolist() == [165, 172]
+    assert s[0, 0].item() == s[0, 1].item() and s[1, 0].item() == s[1, 1].item()
+    assert torch.equal(i[:2], i_ref[:2])
+
+
+@pytest.mark.parametrize("b,n,m,d,k,block_m,p_live,corners", [
+    (8, 65536, 2048, 384, 4, 64, 0.5, "near"),     # the IVF probe at the main path's widths
+    (3, 5000, 200, 64, 8, 64, 0.7, "near"),        # M not a multiple of the block
+    (5, 1000, 96, 128, 1, 32, 0.02, "near"),       # fewer live candidates than k
+    (8, 65536, 2048, 384, 8, 64, 0.5, "near"),     # k 8 at the main path's widths
+    (4, 3000, 40, 384, 4, 64, 0.8, "near"),        # M smaller than one block
+    (3, 5000, 203, 384, 4, 64, 0.6, "near"),       # M not a multiple of 4: scalar loads
+    (8, 65536, 8192, 384, 4, 64, 0.5, "far"),      # tie and repeat in different blocks
+    (4, 5000, 2048, 384, 4, 64, 0.5, "beyond"),    # indices >= N marked valid
+    (4, 5000, 2048, 384, 4, 64, 0.5, "dead"),      # every candidate dead
 ])
-def test_gather_kernel_matches_plain(b, n, m, d, k, block_m, p_live):
+def test_gather_kernel_matches_plain(b, n, m, d, k, block_m, p_live, corners):
     """The shortlist kernel against its plain version: padding (-1), rows
     listed twice, a tie whose lower position must win, a query with no live
-    candidate."""
+    candidate.  ``corners`` "far" puts the tie and the repeat in different
+    blocks of the query's cluster, "beyond" marks indices past the bank
+    valid (they stay dead), "dead" leaves no live candidate at all."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(m)
     q = torch.nn.functional.normalize(torch.randn(b, d, device=dev, generator=g), dim=-1)
@@ -547,17 +587,29 @@ def test_gather_kernel_matches_plain(b, n, m, d, k, block_m, p_live):
     idx = torch.randint(0, n, (b, m), device=dev, generator=g, dtype=torch.int32)
     idx[torch.rand(b, m, device=dev, generator=g) < 0.1] = -1
     valid = torch.rand(b, m, device=dev, generator=g) < p_live
+    if corners == "beyond":
+        past = torch.rand(b, m, device=dev, generator=g) < 0.2
+        idx[past] = n + torch.arange(m, device=dev, dtype=torch.int32).expand(b, m)[past] % 5
+        valid |= past
+    pos = [0, 1, 2]
+    if corners == "far":
+        blocks = cos_ops.gather_plan(b, m, d, k, block_m).blocks
+        assert len(blocks) >= 3
+        pos = [blocks[0][1] - 1, blocks[1][0], blocks[-1][1] - 1]
     db[7] = q[0]                                      # rows 7 and 3 tie at score 1 ...
     db[3] = q[0]
-    idx[0, :4] = torch.tensor([7, 3, 3, -1], dtype=torch.int32)   # ... 7 first; 3 twice
-    valid[0, :4] = True
+    idx[0, 3] = -1                                    # ... 7 first; 3 twice; padding
+    idx[0, pos] = torch.tensor([7, 3, 3], dtype=torch.int32, device=dev)
+    valid[0, pos + [3]] = True
     valid[-1] = False                                 # no live candidate
+    if corners == "dead":
+        valid[:] = False
     s, i = cos_ops.cosine_topk_gather(q, db, idx, valid, k=k, block_m=block_m)
-    live = valid & (idx >= 0)
-    s_ref, i_ref = cosine_topk_gather_ref(q, db[idx.clamp(min=0).long()], idx, live, k)
-    torch.testing.assert_close(s, s_ref, rtol=1e-5, atol=1e-5)
+    live = valid & (idx >= 0) & (idx < n)
+    s_ref, i_ref = cosine_topk_gather_ref(q, db[idx.clamp(0, n - 1).long()], idx, live, k)
     fin = torch.isfinite(s_ref)
     assert torch.equal(torch.isfinite(s), fin)
+    torch.testing.assert_close(s[fin], s_ref[fin], rtol=1e-5, atol=1e-5)
     gap = torch.full_like(s_ref, float("inf"))
     d_ = torch.diff(torch.where(fin, s_ref, 1e9), dim=1).abs()
     gap[:, 1:] = torch.minimum(gap[:, 1:], d_)
@@ -565,7 +617,35 @@ def test_gather_kernel_matches_plain(b, n, m, d, k, block_m, p_live):
     sure = fin & (gap > 1e-5)
     assert torch.equal(i[sure], i_ref[sure])
     assert bool((i[~fin] == -1).all()) and bool((i[-1] == -1).all())
+    if corners == "dead":
+        assert bool((i == -1).all()) and bool(torch.isneginf(s).all())
+        return
     assert i[0, :min(k, 3)].tolist() == [7, 3, 3][:min(k, 3)]
+    assert len(set(s[0, :min(k, 3)].tolist())) == 1   # the same row scores the same bits
+
+
+def test_gather_kernel_launches_once_and_allocates_only_the_output():
+    """At the main shape: one kernel launch per call (the blocks of a query
+    merge in their cluster, no second launch) and two allocations, the
+    outputs (no scratch)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, n, m, d = 8, 65536, 2048, 384
+    q = torch.nn.functional.normalize(torch.randn(b, d, device=dev, generator=g), dim=-1)
+    db = torch.nn.functional.normalize(torch.randn(n, d, device=dev, generator=g), dim=-1)
+    idx = torch.randint(0, n, (b, m), device=dev, generator=g, dtype=torch.int32)
+    valid = torch.rand(b, m, device=dev, generator=g) < 0.5
+    cos_ops.cosine_topk_gather(q, db, idx, valid, k=4)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    launches = cos_ops.gather_launches
+    cos_ops.cosine_topk_gather(q, db, idx, valid, k=4)
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == before + 2
+    assert cos_ops.gather_launches == launches + 1
+    torch.cuda.synchronize()
+    kernels = _profiled_kernels(lambda: cos_ops.cosine_topk_gather(q, db, idx, valid, k=4), 3)
+    assert len(kernels) == 1 and kernels[0][1] == 3, kernels
+    assert "gather_topk_kernel" in kernels[0][0], kernels
 
 
 def _to(tree, device):

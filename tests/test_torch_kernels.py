@@ -177,6 +177,53 @@ def test_cosine_topk_gather_wrapper_uses_plain_version_on_cpu():
     assert cos_ops.gather_launches == before   # a launch counts only on the card
 
 
+@pytest.mark.parametrize("b,m,d,k,block_m", [
+    (8, 2048, 384, 4, 64),      # ivf-probe: 8 x 256
+    (8, 8192, 384, 4, 64),      # ivf-probe-1m: 8 x 1,024
+    (8, 2048, 384, 8, 64),
+    (3, 200, 64, 8, 64),        # M not a multiple of the block
+    (5, 96, 128, 1, 32),
+    (4, 40, 384, 4, 64),        # M below one block
+    (2, 7, 32, 4, 64),          # ... and not a multiple of 4
+    (1, 1, 16, 1, 64),
+    (3, 20000, 1024, 4, 64),    # three rounds a block, three passes a row
+    (40, 8192, 384, 8, 64),     # more queries than one wave of clusters of 8
+])
+def test_gather_plan_covers_every_position_once(b, m, d, k, block_m):
+    """The blocks of a query tile its positions [0, M) once in ascending
+    order, each block at least min(block_m, M) positions and a multiple of 4
+    (the last one ragged); the blocks of a query are one cluster of at most
+    MAX_CLUSTER, which divides the grid; the shared memory fits a block."""
+    plan = cos_ops.gather_plan(b, m, d, k, block_m)
+    pos = [p for lo, hi in plan.blocks for p in range(lo, hi)]
+    assert pos == list(range(m))
+    assert all(hi > lo for lo, hi in plan.blocks)
+    assert plan.block_m % 4 == 0 and plan.block_m >= min(block_m, m)
+    assert all(hi - lo == plan.block_m for lo, hi in plan.blocks[:-1])
+    assert plan.grid == (len(plan.blocks), b) and plan.cluster == plan.grid[0]
+    assert 1 <= plan.cluster <= min(cos_ops.MAX_CLUSTER, len(cos_ops.GATHER_WAVE_CLUSTERS))
+    assert plan.grid[0] % plan.cluster == 0
+    assert plan.rounds == -(-plan.block_m // cos_ops.GATHER_ROUND)
+    assert plan.row_passes == -(-d // cos_ops.GATHER_ROW_FLOATS)
+    assert plan.smem_bytes <= build.SMEM_PER_BLOCK
+    assert plan.rows_in_flight == cos_ops.GATHER_WARPS * cos_ops.GATHER_ROWS
+    if b <= cos_ops.GATHER_WAVE_CLUSTERS[-1]:     # one wave: every query its own cluster
+        assert b <= cos_ops.GATHER_WAVE_CLUSTERS[plan.cluster - 1]
+
+
+@pytest.mark.parametrize("m,block_m", [(2048, 256), (8192, 1024)])
+def test_gather_plan_at_the_main_shapes(m, block_m):
+    """The IVF probe at B 8, D 384 (ivf-probe and ivf-probe-1m): 8 clusters
+    of 8 blocks, one round of positions a block, one pass over a row, 64
+    rows in flight a block, one wave; 8,872 bytes of static shared memory
+    at k 4."""
+    plan = cos_ops.gather_plan(8, m, 384, 4)
+    assert (plan.grid, plan.cluster, plan.block_m) == ((8, 8), 8, block_m)
+    assert plan.rounds == 1 and plan.row_passes == 1 and plan.rows_in_flight == 64
+    assert plan.smem_bytes == 8_872
+    assert 8 <= cos_ops.GATHER_WAVE_CLUSTERS[7]
+
+
 # ------------------------------------------------------------ decode
 
 @pytest.mark.parametrize("b,h,hk,t,dh", [(1, 4, 4, 128, 64), (2, 8, 2, 300, 32),
