@@ -25,11 +25,20 @@ Prints one JSON object per line:
           card could take (bytes / 3.35 TB/s or operations / peak rate,
           whichever is larger); the flash suffix case also holds the suffix
           over the stored prefix bit for bit against the inline prefill;
-  serve   the full-width stack (``build_engine(model="llama-3.1-8b")``):
-          a restored bank of random unit vectors, a few hundred populated
-          pairs, then batches of 8 through ``TweakLLMEngine.handle_batch``
-          with exact repeats, one-word edits and fresh queries; routing
-          counts, tokens, per-batch latency and kernel launches;
+  train   the embedder (MiniLM at full width over the 128,256-token
+          vocabulary, 60 steps at batch 16) and the cross-encoder reranker
+          (the same width, 120 steps at batch 32) trained on the card as
+          ``build_stack`` trains them: seconds, median ms per step, the first
+          and last 10-step mean loss (the last must be lower), one parity step
+          of the same params and batch on the card and on the CPU, and
+          held-out quality before and after (the embedder's mean cosine to a
+          duplicate minus to a hard negative, the reranker's accuracy);
+  serve   the full-width stack (``build_stack(model="llama-3.1-8b")``, its
+          embedder trained): a restored bank of random unit vectors, a few
+          hundred populated pairs, then batches of 8 through
+          ``TweakLLMEngine.handle_batch`` with exact repeats, one-word edits
+          and fresh queries; routing counts, tokens, per-batch latency and
+          kernel launches;
   paged   the same traffic through an engine whose generators decode over
           a paged KV pool (16-token pages, the tweak prefix pinned), on the
           serve phase's weights, against a dense engine on the same weights:
@@ -50,6 +59,15 @@ Prints one JSON object per line:
           full probe against the flat kernel, recall@1 at the default probe,
           routes, lookup time per batch flat and IVF, the shortlist kernel's
           launches;
+  cascade the serve traffic with the router cascade on (a band around the
+          threshold holding >= 8 of the 48 rows, the trained reranker), on
+          the serve phase's weights and restored bank: routes outside the
+          band as in serve, stage 2 against a CPU re-run of it, routing
+          copies per batch (1, or 2 with UNCERTAIN rows), ``uncertain``,
+          ``recovered``, the stage-2 resolve's time;
+  baseline the GPTCache baseline (embed, top-k, rerank, verbatim) on a bank
+          of 262,144 rows holding the populated pairs: precision and recall
+          of ``get`` over a held-out duplicate and hard negative of each;
   profile where the time goes, after the serve run: one small-model decode
           step timed alone (host enqueue, wall and device time), then one
           more serve batch under ``torch.profiler`` (wall time, device-busy
@@ -109,13 +127,17 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-# torch.profiler drops a kernel record whose start, on the host clock it is
-# converted to, falls before the session began ("Out-of-range" in Kineto's
-# log), and the card's records sometimes land up to ~2 ms before their own
-# launch ("CPU GPU out-of-order"): the first launches wait this long after
-# the session starts
-PROFILER_LEAD_S = 0.02
-PROFILER_ATTEMPTS = 3
+# torch.profiler drops a kernel record whose span, on the host clock it is
+# converted to, falls outside the session ("Out-of-range" in Kineto's log),
+# and the card's records sometimes land up to ~2 ms before their own launch
+# ("CPU GPU out-of-order").  Once the process has run autograd on the card,
+# Kineto counts the first record(s) of every session out of range.  So a
+# session waits before its first launch and after its last, and opens with
+# sentinel kernels (``torch.cuda._sleep``, left out of the rows) and a sync.
+PROFILER_LEAD_S = 0.1
+PROFILER_SENTINELS = 8
+PROFILER_SENTINEL = "spin_kernel"
+PROFILER_ATTEMPTS = 5
 profiler_sessions = {"whole": 0, "short": 0}
 
 
@@ -134,10 +156,14 @@ def device_ms(fn, reps: int = 10, split: bool = False):
     for _ in range(PROFILER_ATTEMPTS):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILER_LEAD_S)
+            for _ in range(PROFILER_SENTINELS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        rows = kernel_rows(prof)
+            time.sleep(PROFILER_LEAD_S)
+        rows = [r for r in kernel_rows(prof) if PROFILER_SENTINEL not in r[0]]
         if rows and all(c % reps == 0 for _, _, c in rows):
             profiler_sessions["whole"] += 1
             break
@@ -657,33 +683,154 @@ def kernel_phase(prefix_len: int, seed: int):
     ]
 
 
+# ------------------------------------------------------------------ train
+
+TRAIN_LR = 1e-3                # both trainers' learning rate (their default)
+
+
+def _timed_batches(make, steps: int, step_ms: list):
+    """``steps`` batches from ``make()``; appends each step's wall ms (from
+    the batch's hand-over to the next request, which the trainer makes after
+    reading the step's loss back) to ``step_ms``."""
+    for _ in range(steps):
+        batch = make()
+        t = time.perf_counter()
+        yield batch
+        step_ms.append((time.perf_counter() - t) * 1e3)
+
+
+def _parity_step(params, opt, loss_fn, cfg, batch):
+    """One more AdamW step from copies of ``params`` and ``opt``, on the
+    device and on the CPU, on the same batch: (max |delta param|, share of
+    elements apart by more than 1e-5, the two losses).  An element whose
+    gradient is rounding noise may step the other way: AdamW moves it by up
+    to 2 * lr."""
+    from repro_torch.training.optimizer import (AdamWConfig, train_loop, tree_leaves,
+                                                tree_map)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, weight_decay=0.0)
+    runs = []
+    for to in (lambda t: t.detach().clone(), lambda t: t.detach().cpu().clone()):
+        p, o = tree_map(to, params), {"m": tree_map(to, opt["m"]), "v": tree_map(to, opt["v"]),
+                                      "step": opt["step"]}
+        loss = train_loop(p, o, opt_cfg, loss_fn, cfg, [tuple(to(t) for t in batch)])[0]
+        runs.append((p, loss))
+    (p_dev, loss_dev), (p_cpu, loss_cpu) = runs
+    worst, apart, n = 0.0, 0, 0
+    for a, b in zip(tree_leaves(p_dev), tree_leaves(p_cpu)):
+        d = (a.float().cpu() - b.float()).abs()
+        worst = max(worst, float(d.max()))
+        apart += int((d > 1e-5).sum())
+        n += d.numel()
+    return {"max_abs_param_diff": worst, "share_apart_1e-5": apart / n,
+            "loss_device": loss_dev, "loss_cpu": loss_cpu,
+            "loss_rel_diff": abs(loss_dev - loss_cpu) / max(abs(loss_cpu), 1e-12)}
+
+
+def _check_training(name, losses, parity):
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    if not last < first:
+        raise AssertionError(f"{name}: the last 10-step mean loss {last} is not below the "
+                             f"first {first}")
+    if not (parity["loss_rel_diff"] <= 1e-4 and parity["share_apart_1e-5"] < 1e-3
+            and parity["max_abs_param_diff"] <= 2 * TRAIN_LR):
+        raise AssertionError(f"{name}: the card's step is not the CPU's: {parity}")
+    return {"first10_loss": first, "last10_loss": last}
+
+
+def train_phase(model: str, device, seed: int, emb_steps: int = 60, emb_batch: int = 16,
+                rr_steps: int = 120, rr_batch: int = 32, held_out: int = 256):
+    """Train the stack's embedder and reranker on the device as ``build_stack``
+    does (same initial weights, same batches: ``QuestionPairGenerator(0)``),
+    timing each step; one parity step against the CPU; held-out quality on
+    ``held_out`` triples / pairs of another seed, before and after.
+    Returns (train line, (reranker params, reranker config))."""
+    import numpy as np
+    import torch
+    from repro_torch.data import QuestionPairGenerator
+    from repro_torch.launch.serve import build_embedder, model_configs
+    from repro_torch.models.embedder import encode
+    from repro_torch.models.reranker import init_reranker, score_pairs
+    from repro_torch.tokenizer import HashWordTokenizer
+    from repro_torch.training import embedder_train, reranker_train
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state, train_loop
+    big, _, ecfg, rr_cfg = model_configs(model)
+    tok = HashWordTokenizer(big.vocab_size)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, weight_decay=0.0)
+    held = QuestionPairGenerator(seed=seed + 1000)
+    triples = embedder_train.triple_batch(held, tok, held_out, 32, device)
+    pairs = reranker_train.pair_batch(held, tok, held_out, 24, 0.5, device)
+
+    def separation(params):
+        with torch.no_grad():
+            za, zb, zn = (encode(params, triples[2 * j], triples[2 * j + 1], ecfg)
+                          for j in range(3))
+        return float(((za * zb).sum(-1).mean() - (za * zn).sum(-1).mean()).item())
+
+    def accuracy(params):
+        with torch.no_grad():
+            logits = score_pairs(params, *pairs[:4], rr_cfg)
+        return float(((logits > 0).float() == pairs[4]).float().mean().item())
+
+    def run(name, params, loss_fn, cfg, make, steps, quality):
+        before = quality(params)
+        opt, step_ms = init_opt_state(params), []
+        _sync(device)
+        t0 = time.perf_counter()
+        losses = train_loop(params, opt, opt_cfg, loss_fn, cfg,
+                            _timed_batches(make, steps, step_ms))
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        parity = _parity_step(params, opt, loss_fn, cfg, make())
+        return {"steps": steps, "seconds": seconds,
+                "median_step_ms": float(np.median(step_ms)),
+                **_check_training(name, losses, parity), "parity": parity,
+                "quality_before": before, "quality_after": quality(params)}
+
+    gen = QuestionPairGenerator(seed=0)
+    eparams, _ = build_embedder(model, device=device, seed=seed)
+    emb = run("embedder", eparams, embedder_train.info_nce_loss, ecfg,
+              lambda: embedder_train.triple_batch(gen, tok, emb_batch, 32, device),
+              emb_steps, separation)
+    emb.update(batch=emb_batch, quality="mean cos(duplicate) - mean cos(hard negative), "
+               f"{held_out} held-out triples")
+    gen = QuestionPairGenerator(seed=0)
+    rr = init_reranker(rr_cfg, torch.Generator(device=device).manual_seed(seed + 3), device)
+    rer = run("reranker", rr, reranker_train.pair_bce_loss, rr_cfg,
+              lambda: reranker_train.pair_batch(gen, tok, rr_batch, 24, 0.5, device),
+              rr_steps, accuracy)
+    rer.update(batch=rr_batch, quality=f"accuracy of logit > 0 on {held_out} held-out pairs "
+               "(half duplicates, half hard negatives)")
+    row = {"phase": "train", "embedder": dict(emb, config=ecfg.name, layers=ecfg.num_layers,
+                                              d_model=ecfg.d_model, vocab=ecfg.vocab_size),
+           "reranker": dict(rer, config=rr_cfg.name, layers=rr_cfg.num_layers,
+                            d_model=rr_cfg.d_model, vocab=rr_cfg.vocab_size),
+           "lr": TRAIN_LR}
+    return row, (rr, rr_cfg)
+
+
 # ------------------------------------------------------------------ serve
 
-def plan_traffic(model: str, device, seed: int, n_pop: int, n_batches: int, bsz: int,
-                 vocab: int):
+def plan_traffic(stack, device, seed: int, n_pop: int, n_batches: int, bsz: int):
     """Populated pairs, serve batches and the router threshold.
 
-    With random weights the embedder cannot tell a paraphrase from a fresh
-    query, so TWEAK traffic is one-word edits of populated queries and the
-    threshold sits in the gap between the edits' similarity to their
-    populated partner and the fresh queries' best similarity to anything
-    populated, both measured with the stack's own embedder.
+    TWEAK traffic is one-word edits of populated queries and the threshold
+    sits in the gap between the edits' similarity to their populated partner
+    and the fresh queries' best similarity to anything populated, both
+    measured with the stack's own (trained) embedder.  Also returns the
+    populated ``Query`` objects (topic and intent) for the baseline phase.
     """
     import numpy as np
     import torch
     from repro_torch.core.tweak import preprocess_query
     from repro_torch.data import QuestionPairGenerator, synthesize_response
-    from repro_torch.launch.serve import build_embedder
     from repro_torch.models.embedder import encode
     from repro_torch.serving.batcher import pad_to_buckets
-    from repro_torch.tokenizer import HashWordTokenizer
 
     g = QuestionPairGenerator(seed=seed)
     pop = [g._random_query() for _ in range(n_pop)]
     fresh = [g._random_query().text for _ in range(4 * n_batches * bsz)]
     edits = [q.text + " please" for q in pop]
-    eparams, ecfg = build_embedder(model, device=device, vocab=vocab, seed=seed)
-    tok = HashWordTokenizer(vocab)
+    eparams, ecfg, tok = stack["embedder_params"], stack["embedder_cfg"], stack["tokenizer"]
 
     def embed(texts):
         t, m = tok.encode_batch([preprocess_query(x) for x in texts], 64)
@@ -716,7 +863,7 @@ def plan_traffic(model: str, device, seed: int, n_pop: int, n_batches: int, bsz:
                                      for q in pop])
     calib = {"threshold": thr, "edit_sim_median": float(hi), "fresh_sim_median": float(lo),
              "edits_above": len(edit_ok), "fresh_below": len(fresh_ok), "planned": planned}
-    return pairs, batches, calib
+    return pairs, batches, calib, pop
 
 
 def fill_bank(eng, n_fill: int, seed: int) -> None:
@@ -773,19 +920,25 @@ def prefix_reuse_check(eng, queries, cached, max_new_tokens: int):
 def serve_phase(model: str, device, seed: int, n_batches: int, max_new_tokens: int,
                 n_pop: int = 256, bsz: int = 8):
     """Serve ``n_batches`` batches through ``handle_batch`` and check them:
-    (serve line, launches, engine, one more planned batch for the profile)."""
+    (serve line, launches, engine, one more planned batch for the profile).
+    The stack is ``build_stack``'s default, so its embedder is trained (60
+    steps, batch 16) before the traffic is planned on it."""
     import torch
+    from repro_torch.core.engine import TweakLLMEngine
+    from repro_torch.core.router import RouterConfig
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.serve import build_engine, model_configs
+    from repro_torch.launch.serve import build_stack, model_configs
 
-    vocab = model_configs(model)[0].vocab_size
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pairs, planned, calib = plan_traffic(model, device, seed, n_pop, n_batches + 1, bsz,
-                                         vocab)
+    stack = build_stack(model=model, device=device, seed=seed)
+    _sync(device)
+    train_s = time.perf_counter() - t0
+    pairs, planned, calib, pop = plan_traffic(stack, device, seed, n_pop, n_batches + 1, bsz)
     batches, spare = planned[:-1], planned[-1]
-    eng = build_engine(model=model, device=device, seed=seed, threshold=calib["threshold"])
+    eng = TweakLLMEngine(**dict(stack, router_cfg=RouterConfig(
+        tweak_threshold=calib["threshold"])))
     n_fill = eng.cache_cfg.capacity - 4 * n_pop - (n_batches + 1) * bsz
     fill_bank(eng, n_fill, seed)
     eng.populate(*pairs)
@@ -818,7 +971,7 @@ def serve_phase(model: str, device, seed: int, n_batches: int, max_new_tokens: i
         pick = list(eng.bank.text_store.items())[:bsz]
         reuse = prefix_reuse_check(
             eng, [q + " please" for _, (q, _) in pick], [c for _, c in pick], max_new_tokens)
-    big, small, _ = model_configs(model)
+    big, small, _, _ = model_configs(model)
     row = {"phase": "serve", "model": model, "big": big.name, "small_attention":
            small.attention_impl, "layers": big.num_layers, "d_model": big.d_model,
            "bank_rows": eng.cache_cfg.capacity, "populated": n_pop, "batches": n_batches,
@@ -829,11 +982,12 @@ def serve_phase(model: str, device, seed: int, n_batches: int, max_new_tokens: i
            "small_prompt_tokens": s.small_prompt_tokens, "cost_ratio": s.cost / s.baseline_cost,
            "batch_ms": lat, "first_batch_ms": lat[0],
            "steady_batch_ms_mean": sum(lat[1:]) / max(len(lat) - 1, 1),
-           "setup_s": setup_s, "launches": launches,
+           "setup_s": setup_s, "build_stack_s": train_s, "embedder_train_steps": 60,
+           "launches": launches,
            "prefix_reuse": reuse}
     if eng.device.type == "cuda":
         row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    plan = (pairs, batches, n_fill, seed, calib["threshold"])
+    plan = (pairs, batches, n_fill, seed, calib["threshold"], pop)
     return row, launches, eng, spare, plan, results
 
 
@@ -1056,7 +1210,7 @@ def paged_phase(eng, plan, serve_out, max_new_tokens: int, noise):
     Returns (paged line, the paged engine)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.continuous import leaked_pages
-    pairs, batches, n_fill, seed, threshold = plan
+    pairs, batches, n_fill, seed, threshold, _ = plan
     sampler = eng.small.cfg.sampler
     ref = {k: _gen_like(getattr(eng, k), MarginModel(getattr(eng, k).model, sampler))
            for k in ("big", "small")}
@@ -1312,7 +1466,7 @@ def ivf_phase(eng, plan, serve_out, max_new_tokens: int):
     from repro_torch.core.router import RouterConfig
     from repro_torch.core.tweak import preprocess_query
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    pairs, batches, n_fill, seed, threshold = plan
+    pairs, batches, n_fill, seed, threshold, _ = plan
     cfg = dataclasses.replace(eng.cache_cfg, index="ivf")
     p = index_lib.resolve(cfg)
     rcfg = RouterConfig(tweak_threshold=threshold)
@@ -1402,6 +1556,178 @@ def ivf_phase(eng, plan, serve_out, max_new_tokens: int):
             "lookup_ms_per_batch_of_8": lookup_ms, "lookup_device": lookup_dev,
             "launches": launches,
             "suppressed_inserts": s.suppressed_inserts}
+
+
+# ------------------------------------------------------------------ slice 4
+
+def cascade_band(serve_out, threshold: float, exact: float, rows: int = 8):
+    """The narrowest band (``RouterConfig.band``) around ``threshold`` that
+    holds at least ``rows`` of the serve phase's non-EXACT top-1s, plus 1e-4
+    so none sits on its edge."""
+    dist = sorted(abs(m["sim"] - threshold) for r in serve_out for m in r.meta
+                  if m["sim"] < exact)
+    if len(dist) < rows:
+        raise AssertionError(f"cascade: only {len(dist)} non-EXACT rows to put in a band")
+    return 2 * dist[rows - 1] + 1e-4
+
+
+def cascade_phase(eng, plan, serve_out, reranker, max_new_tokens: int):
+    """The serve traffic through an engine with the router cascade on (a band
+    around the serve threshold that holds >= 8 of the 48 rows, the trained
+    reranker), on the serve phase's weights and restored bank.  Checks: rows
+    outside the band route as in the serve phase; stage 2 re-run on CPU
+    copies of its inputs gives the same decisions and slots, conf within 1e-4
+    (rows within 1e-3 of the commit threshold excepted and counted); one
+    routing copy per batch, two on a batch with UNCERTAIN rows; one
+    ``cosine_topk`` per batch.  Reports the stage-2 resolve's time."""
+    import torch
+    from repro_torch.core import router as router_lib
+    from repro_torch.core.cache import make_second_stage
+    from repro_torch.core.engine import TweakLLMEngine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training.optimizer import tree_map
+    pairs, batches, n_fill, seed, threshold, _ = plan
+    exact = router_lib.RouterConfig().exact_threshold
+    band = cascade_band(serve_out, threshold, exact)
+    rcfg = router_lib.RouterConfig(tweak_threshold=threshold, band=band)
+    ceng = TweakLLMEngine(tokenizer=eng.tok, embedder_params=eng.embedder_params,
+                          embedder_cfg=eng.embedder_cfg, big=eng.big, small=eng.small,
+                          cache_cfg=eng.cache_cfg, router_cfg=rcfg, reranker=reranker)
+    fill_bank(ceng, n_fill, seed)
+    ceng.populate(*pairs)
+    calls = []
+    resolve = ceng.bank.second_stage
+
+    def recording(*args):            # the inputs are small; kept on the device
+        out = resolve(*args)
+        calls.append(([a.clone() for a in args], [o.clone() for o in out]))
+        return out
+
+    ceng.bank.second_stage = recording
+    _sync(eng.device)
+    reset_launch_counts()          # the cascade path starts here ...
+    lat, res, syncs = [], [], []
+    with torch.no_grad():
+        for batch in batches:
+            t = time.perf_counter()
+            r = ceng.handle_batch_result(batch, max_new_tokens=max_new_tokens)
+            _sync(eng.device)
+            lat.append((time.perf_counter() - t) * 1e3)
+            res.append(r)
+            syncs.append((ceng.last_route_syncs, any(m["stage2"] for m in r.meta)))
+    launches = launch_counts()     # ... and ends here
+    ceng.bank.second_stage = resolve
+    s = ceng.stats
+    in_band = sum(abs(m["sim"] - threshold) < band / 2 and m["sim"] < exact
+                  for r in serve_out for m in r.meta)
+    if s.total != len(batches) * len(batches[0]) or in_band < 8 or s.uncertain == 0:
+        raise AssertionError(f"cascade: {in_band} serve rows in the band {band}, "
+                             f"{s.uncertain} uncertain: {s}")
+    if any(n != 1 + s2 for n, s2 in syncs):
+        raise AssertionError(f"cascade: routing copies per batch (copies, stage 2): {syncs}")
+    if eng.device.type == "cuda" and launches["cosine_topk"] != len(batches):
+        raise AssertionError(f"cascade: cosine_topk launches {launches['cosine_topk']} for "
+                             f"{len(batches)} batches")
+    lo, hi = threshold - band / 2, threshold + band / 2
+    outside = same = diverged = 0
+    for rc, rs in zip(res, serve_out):
+        for mc, ms in zip(rc.meta, rs.meta):
+            if abs(mc["sim"] - ms["sim"]) > 1e-5:       # an earlier stage-2 route moved the bank
+                diverged += 1
+            elif min(abs(ms["sim"] - lo), abs(ms["sim"] - hi)) > 1e-4 and not lo < ms["sim"] < hi:
+                outside += 1
+                same += mc["decision"] == ms["decision"]
+    if same != outside:
+        raise AssertionError(f"cascade: {outside - same} rows outside the band routed "
+                             "otherwise than in the serve phase")
+    # stage 2 on the CPU, on copies of its inputs
+    cpu = lambda t: t.detach().cpu()
+    st = ceng.state
+    cpu_state = {"q_tokens": cpu(st["q_tokens"]), "q_mask": cpu(st["q_mask"]),
+                 "last_used": torch.zeros(st["last_used"].shape, dtype=torch.int32),
+                 "hits": torch.zeros(st["hits"].shape, dtype=torch.int32),
+                 "clock": torch.zeros((), dtype=torch.int32)}
+    rr_params, rr_cfg = reranker
+    cpu_stage = make_second_stage(eng.cache_cfg, rcfg, tree_map(cpu, rr_params), rr_cfg)
+    commit_conf = rcfg.commit_at * (rcfg.w_agree + rcfg.w_rerank)
+    worst, excepted = 0.0, 0
+    for args, (final, slot, conf) in calls:
+        _, f_c, s_c, c_c = cpu_stage(cpu_state, *[cpu(a) for a in args])
+        near = (cpu(conf) - commit_conf).abs() < 1e-3
+        excepted += int(near.sum())
+        keep = ~near
+        if not (torch.equal(f_c[keep], cpu(final)[keep]) and torch.equal(s_c[keep],
+                                                                          cpu(slot)[keep])):
+            raise AssertionError("cascade: stage 2 on the CPU decided otherwise than the card")
+        if keep.any():
+            worst = max(worst, float((c_c - cpu(conf))[keep].abs().max()))
+    check("cascade stage-2 conf, card vs CPU", worst, 1e-4)
+    stage2_ms = stage2_dev = None
+    if eng.device.type == "cuda" and calls:
+        args = calls[-1][0]
+        stage2_ms = time_ms(lambda: ceng.bank.second_stage(*args))
+        # one call profiled: ~300 kernels, the whole-multiple check of
+        # device_ms has nothing to catch at reps 1 (a lost record of a
+        # µs-scale kernel would move the ms-scale sum by ~1e-3 of it)
+        stage2_dev = device_ms(lambda: ceng.bank.second_stage(*args), 1)
+    return {"phase": "cascade", "band": band, "tau": threshold, "commit_conf": commit_conf,
+            "reranker": rr_cfg.name, "serve_rows_in_band": in_band,
+            "uncertain": s.uncertain, "recovered": s.recovered,
+            "routes": {"exact": s.exact, "tweak": s.tweak, "miss": s.miss},
+            "stage2_batches": sum(s2 for _, s2 in syncs), "routing_copies": [n for n, _ in syncs],
+            "rows_outside_band": outside, "rows_bank_diverged": diverged,
+            "stage2_conf_max_abs_err_cpu": worst, "stage2_rows_near_commit": excepted,
+            "stage2_resolve_ms": stage2_ms, "stage2_resolve_device_ms": stage2_dev,
+            "batch_ms": lat, "launches": launches}
+
+
+def baseline_phase(eng, plan, reranker, seed: int):
+    """The GPTCache baseline on a bank of the serve phase's size: the populated
+    pairs put in one at a time, then ``get`` over a held-out duplicate (the
+    same topic and intent, rendered anew) and a hard negative (the same
+    topic, another intent) of each; precision and recall of its hits.  It
+    only reports."""
+    import numpy as np
+    import torch
+    from repro_torch.core.baseline import BaselineConfig, GPTCacheBaseline
+    from repro_torch.data.questions import _INTENTS, _render
+    from repro_torch.eval.metrics import pr_curve, precision_recall
+    pairs, _, _, _, _, pop = plan
+    rr_params, rr_cfg = reranker
+    cfg = BaselineConfig()
+    base = GPTCacheBaseline(tokenizer=eng.tok, embedder_params=eng.embedder_params,
+                            embedder_cfg=eng.embedder_cfg, reranker_params=rr_params,
+                            reranker_cfg=rr_cfg, cache_cfg=eng.cache_cfg, cfg=cfg)
+    rng = np.random.default_rng(seed + 2000)
+    queries, labels, source = [], [], []
+    for q in pop:
+        other = [i for i in _INTENTS if i != q.intent]
+        queries += [_render(rng, q.topic, q.intent),
+                    _render(rng, q.topic, other[int(rng.integers(len(other)))])]
+        labels += [True, False]
+        source += [q.text, None]
+    with torch.no_grad():
+        _sync(eng.device)
+        t = time.perf_counter()
+        for query, response in zip(*pairs):
+            base.put(query, response)
+        _sync(eng.device)
+        put_ms = (time.perf_counter() - t) * 1e3 / len(pairs[0])
+        t = time.perf_counter()
+        got = [base.get(x) for x in queries]
+        get_ms = (time.perf_counter() - t) * 1e3 / len(queries)
+    hits = np.asarray([cq is not None for cq, _, _ in got])
+    labels = np.asarray(labels)
+    precision, recall = precision_recall(hits, labels)
+    scores = np.asarray([sc for _, _, sc in got])
+    to_source = sum(cq == src for (cq, _, _), src in zip(got, source) if src and cq)
+    return {"phase": "baseline", "bank_rows": eng.cache_cfg.capacity, "entries": len(pairs[0]),
+            "threshold": cfg.similarity_threshold, "rerank": cfg.rerank,
+            "queries": len(queries), "duplicates": int(labels.sum()), "hits": int(hits.sum()),
+            "precision": precision, "recall": recall,
+            "duplicate_hits_on_their_source": to_source,
+            "pr_curve_top1": pr_curve(scores, labels, np.linspace(0.5, 0.95, 10)),
+            "put_ms_mean": put_ms, "get_ms_mean": get_ms}
 
 
 def spare_tokens(eng, batch):
@@ -1580,6 +1906,8 @@ def main(argv=None) -> int:
 
     prefix_len = len(tweak_lib.tweak_prefix_ids(HashWordTokenizer(128256)))
     checked = kernel_phase(prefix_len, args.seed)
+    train, reranker = train_phase("llama-3.1-8b", torch.device("cuda"), args.seed)
+    emit(train)
     serve, launches, eng, spare, plan, served = serve_phase(
         "llama-3.1-8b", torch.device("cuda"), args.seed, N_BATCHES, MAX_NEW_TOKENS)
     emit(serve)
@@ -1596,6 +1924,8 @@ def main(argv=None) -> int:
     emit(session)
     ivf = ivf_phase(eng, plan, served, MAX_NEW_TOKENS)
     emit(ivf)
+    emit(cascade_phase(eng, plan, served, reranker, MAX_NEW_TOKENS))
+    emit(baseline_phase(eng, plan, reranker, args.seed))
     phase_launches = {"serve": launches, "paged": paged["launches"], "spec": spec["launches"],
                       "ivf": ivf["launches"]}
     # the profiler only after serving: the serve timings stay free of

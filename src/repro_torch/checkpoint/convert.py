@@ -7,7 +7,8 @@ the JAX package's own ``_flatten``) key them.  Two layouts are understood:
   ``scan/0/...`` (one pattern position, ATTN-only) with ``embed``,
   ``final_norm`` and ``lm_head``;
 * the embedder of ``repro.models.embedder``: layers stacked under
-  ``scan/...``.
+  ``scan/...``; the reranker of ``repro.models.reranker`` is that layout
+  plus an fp32 ``score_head`` (d, 1).
 
 Attention weights come as ``w_q``/``w_k``/``w_v`` (d,h,dh) and ``w_o``
 (h,dh,d) and become ``w_qkv`` (d,(H+2Hk)*dh) and ``w_o`` (H*dh,d); a
@@ -81,6 +82,8 @@ def jax_params_to_torch(flat: Dict[str, np.ndarray], cfg: ModelConfig, device="c
               "layers": layers}
     if "lm_head" in flat:
         params["lm_head"] = _tensor(flat["lm_head"], dt, device)
+    if "score_head" in flat:
+        params["score_head"] = _tensor(flat["score_head"], torch.float32, device)
     return params
 
 

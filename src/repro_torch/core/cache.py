@@ -8,6 +8,8 @@ the FIFO (ring pointer), LRU (``last_used`` against ``clock``) and LFU
 ``core/index.py`` (``kernels.cosine_topk`` shortlist scan), beside which
 the state carries the per-cluster admission statistics (``adm_ema``,
 ``adm_count``).  The kernels run on CUDA; their plain versions on the CPU.
+``make_second_stage`` builds the router cascade's stage 2, which rereads
+the shortlist's cached queries with the cross-encoder reranker.
 
 Updates happen in place: the JAX package donates the state buffers to each
 jitted step, so no caller may hold an older state.  The functions still
@@ -109,7 +111,11 @@ def _write_rows(state, slots, rows, embs, q_tokens, q_mask, r_tokens, r_mask, st
 
 
 def _victim_slot(state, cfg: CacheConfig):
-    """LRU/LFU victim as a 0-d device tensor (no host sync)."""
+    """The slot the next insert takes, a 0-d device tensor (no host sync):
+    the ring pointer for FIFO, and for LRU/LFU once the bank is full the
+    least recently / least often used valid slot (the first on ties)."""
+    if cfg.policy == "fifo":
+        return state["ptr"] % cfg.capacity
     score = state["last_used"] if cfg.policy == "lru" else state["hits"]
     evict = torch.argmin(torch.where(state["valid"], score, INT32_MAX))
     full = state["size"] >= cfg.capacity
@@ -163,6 +169,15 @@ def insert_batch(state, cfg: CacheConfig, embs, q_tokens, q_mask, r_tokens, r_ma
     return state, slots
 
 
+def insert(state, cfg: CacheConfig, emb, q_tokens, q_mask, r_tokens, r_mask):
+    """Insert ONE entry (emb (D,), token rows already padded to the config's
+    lengths) at ``_victim_slot``, in place: ``insert_batch`` of that one row."""
+    one = lambda t: t.reshape(1, *t.shape)
+    state, _ = insert_batch(state, cfg, one(emb), one(q_tokens), one(q_mask), one(r_tokens),
+                            one(r_mask), 1)
+    return state
+
+
 def lookup(state, cfg: CacheConfig, q_embs):
     """q_embs (B,D) unit vectors -> (scores (B,k), indices (B,k)): the flat
     scan, or the IVF probe of the ``nprobe`` nearest clusters (the flat
@@ -206,8 +221,8 @@ def route_touch_core(state, cfg: CacheConfig, router_cfg, q_embs, scores, idx, c
     """Route the top-k at per-row operating points and touch committed hits.
     Returns ``(state, decisions, tau, cluster, admit)``.  An IVF cache reads
     each query's cluster and its admission flag (from the statistics before
-    this batch) and folds the batch's hits into the cluster hit EMA; a flat
-    cache has no clusters (-1) and admits every row."""
+    this batch) and folds the batch's certain outcomes into the cluster hit
+    EMA; a flat cache has no clusters (-1) and admits every row."""
     tau = router_lib.threshold_for(cost, router_cfg)
     decisions = router_lib.route_cascade(scores[:, 0], tau, router_cfg)
     top1 = idx[:, 0]
@@ -220,10 +235,10 @@ def route_touch_core(state, cfg: CacheConfig, router_cfg, q_embs, scores, idx, c
         cluster = index_lib.nearest_clusters(state["ivf_centroids"], q_embs)
         admit = router_lib.admission_admit(state["adm_ema"], state["adm_count"], cluster,
                                            router_cfg)
-        # at band 0 every decision is certain, so every row is observed
+        # UNCERTAIN rows are observed by stage 2
         ema, cnt = router_lib.admission_update(
-            state["adm_ema"], state["adm_count"], cluster, hit, torch.ones_like(hit),
-            router_cfg)
+            state["adm_ema"], state["adm_count"], cluster, hit,
+            decisions != router_lib.UNCERTAIN, router_cfg)
         state["adm_ema"].copy_(ema)
         state["adm_count"].copy_(cnt)
     else:
@@ -239,3 +254,43 @@ def lookup_route_touch(state, cfg: CacheConfig, router_cfg, q_embs, cost):
     state, decisions, tau, cluster, admit = route_touch_core(
         state, cfg, router_cfg, q_embs, scores, idx, cost)
     return state, scores, idx, decisions, tau, cluster, admit
+
+
+def make_second_stage(cfg: CacheConfig, router_cfg, rr_params, rr_cfg):
+    """The stage-2 resolver of UNCERTAIN rows:
+
+    ``(state, q_tokens, q_mask, scores, idx, decisions, tau, cluster) ->
+    (state, final decisions (B,), slot (B,), conf (B,))``
+
+    It gathers the shortlist candidates' cached query tokens (a dead
+    candidate's mask zeroed), scores them against the live query with the
+    reranker, and ``router.stage2_combine`` commits TWEAK or MISS.  A
+    committed row serves the blended-evidence pick, not necessarily the
+    top-1; other rows keep their stage-1 decision and top-1 slot.  Committed
+    rows are touched here (stage 1 skipped them; the clock ticks once more),
+    and an IVF bank folds the uncertain rows' outcomes into the admission
+    EMA.  The state is updated in place.
+    """
+    from repro_torch.models.reranker import score_shortlist
+
+    def second_stage(state, q_tokens, q_mask, scores, idx, decisions, tau, cluster):
+        live = idx >= 0
+        safe = idx.clamp(0, cfg.capacity - 1).long()
+        cand_t = state["q_tokens"][safe]                              # (B,K,S)
+        cand_m = state["q_mask"][safe] * live[..., None].to(state["q_mask"].dtype)
+        rr = score_shortlist(rr_params, q_tokens, q_mask, cand_t, cand_m, rr_cfg)
+        commit, best, conf = router_lib.stage2_combine(scores, rr, live, tau, router_cfg)
+        unc = decisions == router_lib.UNCERTAIN
+        final = torch.where(unc, torch.where(commit, router_lib.TWEAK, router_lib.MISS),
+                            decisions).to(torch.int32)
+        chosen = idx.gather(1, best[:, None].long())[:, 0]
+        slot = torch.where(unc & commit, chosen, idx[:, 0])
+        _touch_rows(state, cfg, slot, unc & commit & (slot >= 0))
+        if cfg.index == "ivf":
+            ema, cnt = router_lib.admission_update(state["adm_ema"], state["adm_count"],
+                                                   cluster, commit, unc, router_cfg)
+            state["adm_ema"].copy_(ema)
+            state["adm_count"].copy_(cnt)
+        return state, final, slot, conf
+
+    return second_stage

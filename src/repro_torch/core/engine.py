@@ -1,13 +1,16 @@
 """TweakLLMEngine — the paper's Figure-1 pipeline on one device (counterpart
 of ``src/repro/core/engine.py``: one engine, one local bank with a flat or
-IVF index and per-cluster admission, FIFO/LRU/LFU, the single-stage router;
-dense or paged decode, greedy or sampled, and speculative TWEAK decode on
-cached-response drafts).
+IVF index and per-cluster admission, FIFO/LRU/LFU, the router with its
+stage-2 cascade; dense or paged decode, greedy or sampled, and speculative
+TWEAK decode on cached-response drafts).
 
 Per batch of text queries:
   1. tokenize + embed (MiniLM-class embedder, unit vectors);
   2. fused lookup + route + touch on the bank (cosine top-k kernels);
   3. ONE device->host copy of scores, slots, decisions and admit flags;
+     with the cascade on (``band > 0`` and a reranker), a batch that holds
+     UNCERTAIN rows runs stage 2 on the device and makes a SECOND copy, of
+     its final decisions and slots;
   4. EXACT -> the cached response verbatim;
      TWEAK -> the small LM prefills the Appendix-A prompt's suffix over the
               shared instruction-prefix KV and decodes; a speculating small
@@ -48,7 +51,8 @@ class EngineStats:
     miss: int = 0
     tweak: int = 0
     exact: int = 0
-    # stage-2 cascade counters of the reference; 0 at band 0
+    # stage-2 cascade: rows that entered the uncertainty band, and those of
+    # them that committed as TWEAK (recovered hits)
     uncertain: int = 0
     recovered: int = 0
     suppressed_inserts: int = 0
@@ -101,14 +105,19 @@ class SharedCacheBank:
     """The semantic cache state on one device plus its host text mirror.
 
     A local bank serves one engine; the state is updated in place by every
-    lookup and commit.
+    lookup and commit.  ``reranker=(params, model_cfg)`` wires the stage-2
+    resolver of the router cascade, which ``band > 0`` needs.
     """
 
     def __init__(self, cache_cfg: cache_lib.CacheConfig,
                  router_cfg: Optional[router_lib.RouterConfig] = None, *,
-                 device="cuda", state=None):
+                 device="cuda", state=None, reranker=None):
+        router_cfg = router_cfg or router_lib.RouterConfig()
+        if router_cfg.band > 0.0 and reranker is None:
+            raise ValueError("router band > 0 enables the stage-2 cascade, which needs "
+                             "reranker=(params, model_cfg) on the bank")
         self.cfg = cache_cfg
-        self.router_cfg = router_cfg or router_lib.RouterConfig()
+        self.router_cfg = router_cfg
         self.device = torch.device(device)
         self.text_store: Dict[int, Tuple[str, str]] = {}
         # cached-response token ids, the speculation drafts: the exact ids
@@ -118,6 +127,15 @@ class SharedCacheBank:
         self.insert_seq = 0
         self._default_costs: Dict[int, torch.Tensor] = {}
         self.state = cache_lib.init_cache(cache_cfg, self.device) if state is None else state
+        self._second_stage = None
+        if reranker is not None:
+            self._second_stage = cache_lib.make_second_stage(cache_cfg, self.router_cfg,
+                                                             *reranker)
+
+    @property
+    def cascading(self) -> bool:
+        """Is the stage-2 cascade on (band > 0 and a reranker wired)?"""
+        return self.router_cfg.band > 0.0 and self._second_stage is not None
 
     def default_cost(self, batch: int):
         """The (batch,) default-cost tensor, built once per batch size."""
@@ -136,6 +154,16 @@ class SharedCacheBank:
         (self.state, scores, idx, dec, tau, cluster, admit) = cache_lib.lookup_route_touch(
             self.state, self.cfg, self.router_cfg, q_embs, cost)
         return scores, idx, dec, tau, cluster, admit
+
+    def second_stage(self, q_tokens, q_mask, scores, idx, decisions, tau, cluster):
+        """Resolve UNCERTAIN rows on the device: returns ``(final decisions,
+        slot, conf)`` (B,) tensors; ``slot`` is the serving slot of each row
+        (the stage-2 pick for committed uncertain rows, the top-1 otherwise)."""
+        if self._second_stage is None:
+            raise ValueError("bank built without a reranker; stage 2 unavailable")
+        self.state, final, slot, conf = self._second_stage(
+            self.state, q_tokens, q_mask, scores, idx, decisions, tau, cluster)
+        return final, slot, conf
 
     def insert_batch(self, embs, q_tokens, q_mask, r_tokens, r_mask, count):
         """One commit; returns the device ``slots`` tensor."""
@@ -172,12 +200,12 @@ class TweakLLMEngine:
                  cache_cfg: Optional[cache_lib.CacheConfig] = None,
                  router_cfg: Optional[router_lib.RouterConfig] = None,
                  max_query_len: int = 64, use_prefix_cache: bool = True,
-                 bank: Optional[SharedCacheBank] = None):
+                 bank: Optional[SharedCacheBank] = None, reranker=None):
         if bank is None:
             if cache_cfg is None:
                 raise ValueError("pass cache_cfg or a SharedCacheBank")
             bank = SharedCacheBank(cache_cfg, router_cfg,
-                                   device=embedder_params["embed"].device)
+                                   device=embedder_params["embed"].device, reranker=reranker)
         self.bank = bank
         self.tok = tokenizer
         self.embedder_params = embedder_params
@@ -198,6 +226,9 @@ class TweakLLMEngine:
         self._static_counts: Optional[Tuple[int, int]] = None
         # per-batch seeds: distinct serve batches sample distinct streams
         self._seed_seq = itertools.count()
+        # device->host copies of routing results in the last batch: 1, or 2
+        # when stage 2 ran
+        self.last_route_syncs = 0
 
     @property
     def state(self):
@@ -212,13 +243,15 @@ class TweakLLMEngine:
         return self._embed_with_lengths(texts)[0]
 
     def _embed_with_lengths(self, texts: List[str]):
-        """(embeddings (n,D) on the device, real query-token lengths)."""
+        """(embeddings (n,D) on the device, real query-token lengths, host
+        query tokens and mask (n, max_query_len); stage 2 copies those to the
+        device only when it runs)."""
         toks, mask = self.tok.encode_batch(texts, self.max_query_len)
         qlens = mask.sum(axis=1).astype(np.int64).tolist()
         ptoks, pmask, b = pad_to_buckets(toks, mask)
         embs = embed_encode(self.embedder_params, to_device(ptoks, self.device).long(),
                             to_device(pmask, self.device), self.embedder_cfg)[:b]
-        return embs, qlens
+        return embs, qlens, toks, mask
 
     # ------------------------------------------------------------- serve
     def handle_batch(self, queries: List[str], *, max_new_tokens: int = 32,
@@ -249,15 +282,29 @@ class TweakLLMEngine:
         # fail fast on an unservable budget before any state changes
         self._tweak_encode_len(max_new_tokens)
         cost_l = self._resolve_costs(n, cost_thresholds)
-        embs, qlens = self._embed_with_lengths(queries)
+        embs, qlens, qtoks, qmask = self._embed_with_lengths(queries)
         self.stats.baseline_prompt_tokens += sum(qlens)
         cost_dev = (None if cost_thresholds is None
                     else to_device(np.asarray(cost_l, np.float32), self.device))
-        d_scores, d_idx, d_dec, _, _, d_admit = self.bank.route_batch(embs, cost_dev)
+        d_scores, d_idx, d_dec, d_tau, d_cluster, d_admit = self.bank.route_batch(embs,
+                                                                                  cost_dev)
         # THE per-serve-batch device->host sync
         scores, idxs, decisions, admit = _fetch_route(d_scores, d_idx, d_dec, d_admit)
+        self.last_route_syncs = 1
         top1 = scores[:, 0]
-        slot_l = idxs[:, 0].tolist()
+        slot_arr = idxs[:, 0]
+        stage2_rows = decisions == router_lib.UNCERTAIN
+        n_unc = int(stage2_rows.sum())
+        if n_unc:
+            final, slot, _ = self.bank.second_stage(
+                to_device(qtoks, self.device).long(), to_device(qmask, self.device),
+                d_scores, d_idx, d_dec, d_tau, d_cluster)
+            # the stage-2 sync, only on batches that hold uncertain rows
+            decisions, slot_arr = torch.stack([final, slot.to(torch.int32)]).cpu().numpy()
+            self.last_route_syncs = 2
+            self.stats.uncertain += n_unc
+            self.stats.recovered += int((decisions[stage2_rows] == router_lib.TWEAK).sum())
+        slot_l = slot_arr.tolist()
         dec_l = decisions.tolist()
 
         responses: List[Optional[str]] = [None] * n
@@ -282,7 +329,8 @@ class TweakLLMEngine:
             bands[(top1 >= lo) & (top1 < hi)] = bi
         top1_l = top1.tolist()
         meta = [{"sim": top1_l[i], "decision": dec_l[i], "band": int(bands[i]),
-                 "gen_tokens": gen_tokens[i], "cost": cost_l[i], "stage2": False}
+                 "gen_tokens": gen_tokens[i], "cost": cost_l[i],
+                 "stage2": bool(stage2_rows[i])}
                 for i in range(n)]
         miss = decisions == router_lib.MISS
         return BatchResult(

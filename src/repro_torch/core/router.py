@@ -6,10 +6,15 @@ TWEAK/MISS boundary ``tau`` (``threshold_for``), and ``route_cascade``
 thresholds the top-1 similarity at it.  At ``cost == default_cost`` tau is
 ``tweak_threshold`` exactly, so ``route`` is that operating point.
 
+With ``band > 0`` the router is a two-stage cascade: rows whose top-1 lies
+within ``band/2`` of tau come back ``UNCERTAIN`` from stage 1, and stage 2
+(``stage2_combine``, run by ``cache.make_second_stage`` only on batches that
+hold such rows) blends multi-probe agreement over the top-k with the
+cross-encoder reranker's evidence to commit TWEAK or MISS, and may re-select
+the serving candidate.
+
 Admission control (IVF caches): a per-cluster hit EMA; a cluster that keeps
-missing stops admitting inserts (``admit_floor`` 0 admits everything).  The
-stage-2 cascade (``band > 0``) and its reranker are not ported: a
-``band > 0`` config raises.
+missing stops admitting inserts (``admit_floor`` 0 admits everything).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 MISS, TWEAK, EXACT = 0, 1, 2
+UNCERTAIN = 3          # provisional stage-1 decision; never leaves the bank
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +35,12 @@ class RouterConfig:
     cal_costs: tuple = ()
     cal_taus: tuple = ()
     cal_span: float = 0.2
+    # stage-2 cascade: width of the |top1 - tau| window (0 = single stage)
     band: float = 0.0
+    probe_temp: float = 0.05       # sharpness of the multi-probe agreement
+    w_agree: float = 0.4           # weight of top-k agreement in stage 2
+    w_rerank: float = 0.6          # weight of the cross-encoder evidence
+    commit_at: float = 0.5         # normalized confidence needed for TWEAK
     # per-cluster admission control (IVF caches; floor 0 disables)
     admit_alpha: float = 0.05      # hit-EMA step per observation
     admit_floor: float = 0.0       # suppress inserts when the cluster EMA < floor
@@ -44,8 +55,6 @@ class RouterConfig:
             raise ValueError("calibration needs >= 2 knots")
         if not 0.0 <= self.default_cost <= 1.0:
             raise ValueError(f"default_cost {self.default_cost} not in [0,1]")
-        if self.band > 0.0:
-            raise NotImplementedError("the stage-2 router cascade (band > 0) is not ported")
 
 
 def calibration(cfg: RouterConfig):
@@ -89,9 +98,40 @@ def route(scores, cfg: RouterConfig):
 
 
 def route_cascade(top1, tau, cfg: RouterConfig):
-    """Stage-1 decisions at per-row operating points ``tau`` (band 0)."""
+    """Stage-1 decisions at per-row operating points ``tau``.  EXACT keeps
+    precedence; with ``band > 0`` the other rows within ``band/2`` of tau
+    are UNCERTAIN."""
     d = torch.where(top1 >= tau, TWEAK, MISS)
-    return torch.where(top1 >= cfg.exact_threshold, EXACT, d).to(torch.int32)
+    d = torch.where(top1 >= cfg.exact_threshold, EXACT, d)
+    if cfg.band > 0.0:
+        unc = ((top1 - tau).abs() < 0.5 * cfg.band) & (top1 < cfg.exact_threshold)
+        d = torch.where(unc, UNCERTAIN, d)
+    return d.to(torch.int32)
+
+
+def stage2_combine(scores, rerank_logits, live, tau, cfg: RouterConfig):
+    """Stage-2 evidence over the (B,K) shortlist: cosine ``scores``, the
+    reranker's ``rerank_logits`` on the same candidates, ``live`` the valid
+    candidates, ``tau`` (B,) the operating points.
+
+    conf = w_agree * (mean over live candidates of sigmoid((s - tau) /
+    probe_temp)) + w_rerank * sigmoid(max live logit); a row commits when
+    conf >= commit_at * (w_agree + w_rerank).  ``best`` is the live
+    candidate of largest blended evidence w_agree * sigmoid((s - tau) /
+    probe_temp) + w_rerank * sigmoid(logit), which may not be position 0.
+    A row with no live candidate has conf 0, best 0 and never commits.
+    Returns ``(commit (B,) bool, best (B,) int32, conf (B,) float32)``."""
+    nlive = torch.clamp(live.sum(dim=1), min=1)
+    probe = torch.sigmoid((scores - tau[:, None]) / cfg.probe_temp)
+    agree = torch.where(live, probe, 0.0).sum(dim=1) / nlive
+    rr = torch.where(live, rerank_logits, float("-inf"))
+    evidence = torch.sigmoid(rr.amax(dim=1))
+    conf = cfg.w_agree * agree + cfg.w_rerank * evidence
+    commit = conf >= cfg.commit_at * (cfg.w_agree + cfg.w_rerank)
+    cand = cfg.w_agree * probe + cfg.w_rerank * torch.sigmoid(rr)
+    # all -inf gives index 0, as jnp.argmax does
+    best = torch.argmax(torch.where(live, cand, float("-inf")), dim=1)
+    return commit, best.to(torch.int32), conf.to(torch.float32)
 
 
 def admission_admit(adm_ema, adm_count, cluster, cfg: RouterConfig):

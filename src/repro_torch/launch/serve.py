@@ -4,28 +4,34 @@
 Two stacks:
 
 * ``"serve-tiny"`` — the reference's 4L/2L pair (big 4L d128 8H/4kv naive
-  attention; small 2L d64 4H/2kv ``xla_flash`` with 32-token blocks) and the
-  tiny embedder, vocab 8192 by default; the CPU tests use it.
+  attention; small 2L d64 4H/2kv ``xla_flash`` with 32-token blocks), the
+  tiny embedder and the tiny reranker, vocab 8192 by default; the CPU tests
+  use it.
 * ``"llama-3.1-8b"`` — the paper's Small LLM at full width for both roles:
   big = ``configs.llama31_8b.CONFIG`` (it stands in for the frontier Big LLM,
   which no single H100 holds); small = the same config with fixed 64-token
   ``xla_flash`` blocks, so the TWEAK path reuses the instruction-prefix KV;
   embedder = MiniLM at full width (6L d384 12H) over the LM's 128,256-token
-  vocabulary; a FIFO bank of 262,144 rows.
+  vocabulary; the reranker at the same width (the shape of the public
+  MiniLM-L6 duplicate-question cross-encoders); a FIFO bank of 262,144 rows.
 
 The bank's index is flat by default; ``index="ivf"`` clusters it
 (``core/index.py``: 2,048 clusters of 256 member slots, 8 probed, at the
 llama bank size), and ``admit_floor > 0`` turns on per-cluster admission.
-All weights are random, drawn on the device from ``torch.Generator``s seeded
-from ``seed`` (the repo has no public weights).  Off the ported slice —
-embedder training, the router cascade (``band > 0``), replica groups —
-raises.
+As in the reference, the embedder is trained contrastively
+(``train_embedder_steps``, 60 by default), and ``band > 0`` turns on the
+router cascade: the stack then also builds and trains the cross-encoder
+reranker (``train_reranker_steps``, 120) and returns it under ``reranker``.
+Weights start random, drawn on the device from ``torch.Generator``s seeded
+from ``seed`` (the repo has no public weights).  Replica groups and a
+sharded bank are not ported and raise.
 
 ``main`` is the serving CLI of ``src/repro/launch/serve.py``: it replays a
 Zipfian arrival trace through the scheduler and prints the same report.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 200 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --index ivf --admit-floor 0.2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --band 0.12 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --model llama-3.1-8b   # on the card
 """
 from __future__ import annotations
@@ -43,11 +49,14 @@ from repro_torch.data import WorkloadGenerator
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelConfig, build_model
 from repro_torch.models.embedder import MINILM_CONFIG, init_embedder, tiny_embedder_config
+from repro_torch.models.reranker import init_reranker, tiny_reranker_config
 from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig, SimClock,
                                            poisson_trace, replay_trace)
 from repro_torch.tokenizer import HashWordTokenizer
+from repro_torch.training.embedder_train import train_embedder
+from repro_torch.training.reranker_train import train_reranker
 
 MODELS = ("serve-tiny", "llama-3.1-8b")
 LLAMA_FLASH_BLOCK = 64
@@ -55,7 +64,7 @@ LLAMA_CAPACITY = 262_144
 
 
 def model_configs(model: str, vocab: int = 8192):
-    """(big, small, embedder) configs of a named stack."""
+    """(big, small, embedder, reranker) configs of a named stack."""
     if model == "serve-tiny":
         big = ModelConfig(name="big", num_layers=4, d_model=128, num_heads=8,
                           num_kv_heads=4, d_ff=256, vocab_size=vocab,
@@ -63,12 +72,13 @@ def model_configs(model: str, vocab: int = 8192):
         small = big.replace(name="small", num_layers=2, d_model=64, num_heads=4,
                             num_kv_heads=2, d_ff=128, attention_impl="xla_flash",
                             flash_block_q=32, flash_block_k=32)
-        return big, small, tiny_embedder_config(vocab)
+        return big, small, tiny_embedder_config(vocab), tiny_reranker_config(vocab)
     if model == "llama-3.1-8b":
         big = llama31_8b.CONFIG
         small = big.replace(attention_impl="xla_flash", flash_block_q=LLAMA_FLASH_BLOCK,
                             flash_block_k=LLAMA_FLASH_BLOCK)
-        return big, small, MINILM_CONFIG.replace(vocab_size=big.vocab_size)
+        return (big, small, MINILM_CONFIG.replace(vocab_size=big.vocab_size),
+                MINILM_CONFIG.replace(name="reranker", vocab_size=big.vocab_size))
     raise ValueError(f"unknown model {model!r}; known: {MODELS}")
 
 
@@ -81,28 +91,34 @@ def _generator(device, seed: int) -> torch.Generator:
 def build_embedder(model: str = "serve-tiny", *, device="cuda", vocab: int = 8192,
                    seed: int = 0):
     """(embedder params, embedder config): the stack's embedder alone, the
-    same weights ``build_stack`` draws for the same arguments."""
+    initial weights ``build_stack`` draws (and then trains) for the same
+    arguments."""
     dev = resolve_device(device)
     ecfg = model_configs(model, vocab)[2]
     return init_embedder(ecfg, _generator(dev, seed), dev), ecfg
 
 
 def build_stack(*, model: str = "serve-tiny", device="cuda", vocab: int = 8192,
-                capacity: int = 0, train_embedder_steps: int = 0, policy: str = "fifo",
+                capacity: int = 0, train_embedder_steps: int = 60, policy: str = "fifo",
                 index: str = "flat", nclusters: int = 0, nprobe: int = 8,
-                threshold: float = 0.7, band: float = 0.0, admit_floor: float = 0.0,
-                max_new_tokens: int = 16, seed: int = 0):
+                threshold: float = 0.7, band: float = 0.0, train_reranker_steps: int = 120,
+                admit_floor: float = 0.0, max_new_tokens: int = 16, seed: int = 0):
     """Model stack + configs for one engine (``TweakLLMEngine(**stack)``).
 
     ``capacity`` 0 picks the stack's bank size (4096 tiny, 262,144 llama);
-    ``nclusters`` 0 resolves from it (``core.index.resolve``).
+    ``nclusters`` 0 resolves from it (``core.index.resolve``).  The
+    embedder trains for ``train_embedder_steps`` at batch 16; with ``band >
+    0`` the reranker (init seed ``seed + 3``) trains for
+    ``train_reranker_steps`` at batch 32 and is returned under ``reranker``.
+    Training batches are drawn with seed 0, as the reference draws them.
     """
-    if train_embedder_steps:
-        raise NotImplementedError("embedder training is not ported")
     dev = resolve_device(device)
-    big_cfg, small_cfg, ecfg = model_configs(model, vocab)
+    big_cfg, small_cfg, ecfg, rr_cfg = model_configs(model, vocab)
     vocab = big_cfg.vocab_size
+    tok = HashWordTokenizer(vocab)
     eparams, ecfg = build_embedder(model, device=dev, vocab=vocab, seed=seed)
+    if train_embedder_steps:
+        eparams, _ = train_embedder(eparams, ecfg, tok, steps=train_embedder_steps, batch=16)
     gen_cfg = GenerateConfig(max_new_tokens=max_new_tokens,
                              sampler=SamplerConfig(vocab_size=vocab))
     big_m, small_m = build_model(big_cfg), build_model(small_cfg)
@@ -112,10 +128,16 @@ def build_stack(*, model: str = "serve-tiny", device="cuda", vocab: int = 8192,
         capacity = LLAMA_CAPACITY if model == "llama-3.1-8b" else 4096
     cache_cfg = CacheConfig(capacity=capacity, dim=ecfg.d_model, policy=policy, index=index,
                             nclusters=nclusters, nprobe=nprobe)
-    return dict(tokenizer=HashWordTokenizer(vocab), embedder_params=eparams,
-                embedder_cfg=ecfg, big=big, small=small, cache_cfg=cache_cfg,
-                router_cfg=RouterConfig(tweak_threshold=threshold, band=band,
-                                        admit_floor=admit_floor))
+    stack = dict(tokenizer=tok, embedder_params=eparams, embedder_cfg=ecfg, big=big,
+                 small=small, cache_cfg=cache_cfg,
+                 router_cfg=RouterConfig(tweak_threshold=threshold, band=band,
+                                         admit_floor=admit_floor))
+    if band > 0.0:
+        rr_params = init_reranker(rr_cfg, _generator(dev, seed + 3), dev)
+        if train_reranker_steps:
+            rr_params, _ = train_reranker(rr_params, rr_cfg, tok, steps=train_reranker_steps)
+        stack["reranker"] = (rr_params, rr_cfg)
+    return stack
 
 
 def build_engine(**kw) -> TweakLLMEngine:
@@ -130,10 +152,7 @@ def _off_slice(args) -> None:
     """Flags whose paths are not ported raise before anything is built."""
     off = [(args.replicas > 1, "--replicas > 1 (replica groups, ROADMAP queue 1)"),
            (args.cache_shards > 0, "--cache-shards (a sharded bank, ROADMAP queue 1)"),
-           (args.private_caches, "--private-caches (replica groups, ROADMAP queue 1)"),
-           (args.band > 0, "--band > 0 (the router cascade, ROADMAP queue 1)"),
-           (args.embedder_steps > 0, "--embedder-steps > 0 (embedder training, "
-                                     "ROADMAP queue 1)")]
+           (args.private_caches, "--private-caches (replica groups, ROADMAP queue 1)")]
     for bad, what in off:
         if bad:
             raise NotImplementedError(f"{what} is not ported")
@@ -154,7 +173,8 @@ def main(argv=None) -> int:
                     help="routing operating point in [0,1] applied to every request; "
                          "default: the router's calibrated default cost")
     ap.add_argument("--band", type=float, default=0.0,
-                    help="uncertainty band of the router cascade (not ported: > 0 raises)")
+                    help="uncertainty band width around the TWEAK/MISS boundary; > 0 "
+                         "enables the reranker second stage")
     ap.add_argument("--reranker-steps", type=int, default=120,
                     help="training steps for the cascade reranker (only with --band > 0)")
     ap.add_argument("--admit-floor", type=float, default=0.0,
@@ -163,9 +183,8 @@ def main(argv=None) -> int:
     ap.add_argument("--policy", default="fifo", choices=["fifo", "lru", "lfu"])
     ap.add_argument("--index", default="flat", choices=["flat", "ivf"],
                     help="cache lookup index (ivf = clustered, DESIGN.md §7)")
-    ap.add_argument("--embedder-steps", type=int, default=0,
-                    help="embedder training steps (not ported: > 0 raises; the "
-                         "embedder keeps its seeded random weights)")
+    ap.add_argument("--embedder-steps", type=int, default=60,
+                    help="contrastive training steps of the embedder")
     ap.add_argument("--replicas", type=int, default=1,
                     help="engine replicas over one bank (not ported: > 1 raises)")
     ap.add_argument("--cache-shards", type=int, default=0,
@@ -178,11 +197,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     _off_slice(args)
 
-    print(f"building TweakLLM stack ({args.model} on {args.device})...")
+    print(f"building TweakLLM stack ({args.model} on {args.device}, training the "
+          f"embedder contrastively)...")
     eng = build_engine(model=args.model, device=args.device, threshold=args.threshold,
                        policy=args.policy, index=args.index,
                        train_embedder_steps=args.embedder_steps, band=args.band,
-                       admit_floor=args.admit_floor)
+                       train_reranker_steps=args.reranker_steps, admit_floor=args.admit_floor)
     scfg = SchedulerConfig(max_wait=args.max_wait, max_batch=args.batch, max_new_tokens=8,
                            cost_threshold=args.cost_threshold)
     sched = Scheduler(eng, scfg, clock=SimClock())
@@ -206,7 +226,7 @@ def main(argv=None) -> int:
           f"dedup_joined={ss.joined} rejected={ss.rejected}")
     print(f"routing: miss={s.miss} tweak={s.tweak} exact={s.exact} "
           f"hit_rate={s.hit_rate:.2%} (+{ss.joined} joined in flight)")
-    if args.admit_floor > 0:
+    if args.band > 0 or args.admit_floor > 0:
         cost = args.cost_threshold if args.cost_threshold is not None else "default"
         print(f"cascade: uncertain={s.uncertain} recovered={s.recovered} "
               f"suppressed_inserts={s.suppressed_inserts} (band={args.band} cost={cost})")

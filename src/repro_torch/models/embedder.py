@@ -48,10 +48,10 @@ def init_embedder(cfg: ModelConfig, generator: torch.Generator, device):
             "final_norm": init_norm(d, cfg.norm_type, device)}
 
 
-def encode(params, tokens, mask, cfg: ModelConfig):
-    """tokens (B,S) int, mask (B,S) {0,1} -> unit embeddings (B,d) fp32."""
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+def pooled_states(params, tokens, positions, mask, cfg: ModelConfig):
+    """The encoder over tokens (B,S) at ``positions`` (B,S), attention over
+    the valid tokens of ``mask`` (B,S) {0,1}, final norm, then the fp32 mean
+    over the valid tokens: (B,d).  The reranker shares it."""
     valid = mask.bool()
     x = params["embed"][tokens]
     for p in params["layers"]:
@@ -60,5 +60,12 @@ def encode(params, tokens, mask, cfg: ModelConfig):
         x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm_type), cfg.mlp_type)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     m = mask.float()[..., None]
-    pooled = (x.float() * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+    return (x.float() * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+
+
+def encode(params, tokens, mask, cfg: ModelConfig):
+    """tokens (B,S) int, mask (B,S) {0,1} -> unit embeddings (B,d) fp32."""
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    pooled = pooled_states(params, tokens, positions, mask, cfg)
     return pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-8)

@@ -10,6 +10,7 @@ from repro.core import cache as jax_cache
 from repro.core import router as jax_router
 from repro_torch.core import cache as port_cache
 from repro_torch.core import router as port_router
+from repro_torch.core.engine import SharedCacheBank
 
 DIM, QT, RT = 32, 8, 12
 
@@ -121,8 +122,10 @@ def test_touch_minus_one_is_a_noop():
 def test_off_slice_cache_configs_raise():
     with pytest.raises(ValueError, match="index"):
         port_cache.CacheConfig(index="hnsw")
-    with pytest.raises(NotImplementedError):
-        port_router.RouterConfig(band=0.1)
+    # a band without a reranker has no stage 2 to resolve its rows
+    with pytest.raises(ValueError, match="reranker"):
+        SharedCacheBank(port_cache.CacheConfig(capacity=8, dim=4),
+                        port_router.RouterConfig(band=0.1), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [{}, {"tweak_threshold": 0.8, "default_cost": 0.3},

@@ -659,7 +659,7 @@ def _to(tree, device):
 def _small_engine(device, vocab=2048, **cache_kw):
     """serve-tiny widened to head dim 64 (the kernels take 64 or 128), with
     weights drawn on the CPU and moved to ``device``."""
-    big_cfg, small_cfg, ecfg = model_configs("serve-tiny", vocab)
+    big_cfg, small_cfg, ecfg, _ = model_configs("serve-tiny", vocab)
     gen_cfg = GenerateConfig(sampler=SamplerConfig(vocab_size=vocab))
     gens = []
     for seed, cfg in enumerate((big_cfg, small_cfg), start=1):

@@ -21,7 +21,7 @@ from repro_torch.core.cache import CacheConfig
 from repro_torch.core.engine import TweakLLMEngine
 from repro_torch.core.router import RouterConfig
 from repro_torch.data import QuestionPairGenerator, synthesize_response
-from repro_torch.launch.serve import build_engine, model_configs
+from repro_torch.launch.serve import build_engine, build_replica_group, model_configs
 from repro_torch.models import build_model
 from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.sampler import SamplerConfig
@@ -38,7 +38,7 @@ def _port_configs(jstack):
 
 
 def _port_engine(jstack):
-    big_cfg, small_cfg, ecfg = model_configs("serve-tiny", VOCAB)
+    big_cfg, small_cfg, ecfg, _ = model_configs("serve-tiny", VOCAB)
     cache_cfg, router_cfg = _port_configs(jstack)
     gen_cfg = GenerateConfig(max_new_tokens=16, sampler=SamplerConfig(vocab_size=VOCAB))
     gens = [Generator(build_model(c),
@@ -111,14 +111,20 @@ def test_unservable_budget_fails_before_any_state_change(engines):
 
 
 def test_build_engine_serves_on_cpu_and_refuses_off_slice():
-    eng = build_engine(model="serve-tiny", device="cpu", capacity=32)
+    eng = build_engine(model="serve-tiny", device="cpu", capacity=32, train_embedder_steps=0)
     eng.populate(["how do i learn rust"], ["practice"])
     out, meta = eng.handle_batch(["how do i learn rust", "what is origami"],
                                  max_new_tokens=3, collect_meta=True)
     assert meta[0]["decision"] == router.EXACT and out[0] == "practice"
     assert eng.stats.total == 2 and eng.big.device == torch.device("cpu")
-    for kw in ({"train_embedder_steps": 5}, {"band": 0.1}):
-        with pytest.raises(NotImplementedError):
-            build_engine(model="serve-tiny", device="cpu", **kw)
+    # embedder training and the cascade run; the trained embedder moved
+    trained = build_engine(model="serve-tiny", device="cpu", capacity=32,
+                           train_embedder_steps=5)
+    assert not torch.equal(trained.embedder_params["embed"], eng.embedder_params["embed"])
+    cascade = build_engine(model="serve-tiny", device="cpu", capacity=32, band=0.1,
+                           train_embedder_steps=0, train_reranker_steps=2)
+    assert cascade.bank.cascading and not eng.bank.cascading
+    with pytest.raises(NotImplementedError, match="replica"):
+        build_replica_group(2, model="serve-tiny", device="cpu")
     with pytest.raises(ValueError):
         build_engine(model="gpt-9", device="cpu")

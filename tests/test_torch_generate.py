@@ -27,7 +27,7 @@ VOCAB, EOS = 512, 2
 
 
 def _generators(which: str, mnt=8, temperature=0.0):
-    big, small, _ = model_configs("serve-tiny", vocab=VOCAB)
+    big, small, _, _ = model_configs("serve-tiny", vocab=VOCAB)
     cfg = small if which == "small" else big
     jm = jax_build_model(JaxModelConfig(**cfg.__dict__))
     jp = jm.init(jax.random.PRNGKey(7))

@@ -50,6 +50,8 @@ def test_default_device_needs_a_card():
         build_engine(model="serve-tiny")
     with pytest.raises(RuntimeError):
         build_embedder()
+    with pytest.raises(RuntimeError):
+        build_engine(model="serve-tiny", band=0.1)
     params, _ = build_embedder(device="cpu")
     assert params["embed"].device.type == "cpu"
 
@@ -131,3 +133,19 @@ def test_new_kernel_sources_and_signatures():
                  "paged_decode_attention_block_launch"):
         assert name in build.SIGNATURES
         assert any(f"int {name}(" in f.read_text() for f in csrc.glob("*.cu"))
+
+
+SLICE_4 = ("training/__init__.py", "training/optimizer.py", "training/embedder_train.py",
+           "training/reranker_train.py", "models/reranker.py", "core/baseline.py",
+           "eval/__init__.py", "eval/metrics.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_4)
+def test_slice_4_modules_stand_alone(rel):
+    """The training, cascade and baseline slice imports without JAX or the
+    JAX package (its metrics are a copy, not an import)."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in _port_files()
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    name = rel[:-3].replace("/", ".").removesuffix(".__init__")
+    importlib.import_module("repro_torch." + name)

@@ -76,9 +76,9 @@ def test_port_full_probe_ivf_engine_matches_flat_engine():
     """Within the port: at nprobe == nclusters the IVF engine serves the flat
     engine's responses and stats (the JAX package's own engine check)."""
     from repro_torch.launch.serve import build_engine
-    flat = build_engine(device="cpu", capacity=64, threshold=0.7)
+    flat = build_engine(device="cpu", capacity=64, threshold=0.7, train_embedder_steps=0)
     ivf = build_engine(device="cpu", capacity=64, threshold=0.7, index="ivf", nclusters=4,
-                       nprobe=4)
+                       nprobe=4, train_embedder_steps=0)
     batches = [["how do i sort a list in python", "what is the capital of france"],
                ["how do i sort a list in python", "explain http caching briefly"],
                ["what is the capital of france", "how do i sort a python list"]]

@@ -37,7 +37,7 @@ def _pair(cfg: ModelConfig, seed: int = 0):
 
 
 def _configs():
-    big, small, _ = model_configs("serve-tiny", vocab=512)
+    big, small, _, _ = model_configs("serve-tiny", vocab=512)
     smoke = llama31_8b.SMOKE_CONFIG
     return {"tiny-big": big, "tiny-small": small, "llama-smoke": smoke,
             "llama-smoke-flash": smoke.replace(attention_impl="xla_flash",

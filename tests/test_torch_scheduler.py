@@ -4,6 +4,7 @@ same deterministic engine; the port's engine served through either mode
 gives the same responses and ``EngineStats``; the CLI runs on the CPU at
 serve-tiny and refuses the flags of unported paths."""
 import dataclasses
+import inspect
 
 import pytest
 
@@ -96,7 +97,8 @@ def test_engine_continuous_equals_barrier():
     trace = [(0.01 * i, t) for i, t in enumerate(texts)]
     out = {}
     for mode in ("barrier", "continuous"):
-        eng = serve.build_engine(model="serve-tiny", device="cpu", vocab=2048, capacity=64)
+        eng = serve.build_engine(model="serve-tiny", device="cpu", vocab=2048, capacity=64,
+                                 train_embedder_steps=0)
         eng.router_cfg = RouterConfig(tweak_threshold=0.9999)
         eng.bank.router_cfg = eng.router_cfg
         cfg = port_sched.SchedulerConfig(max_batch=4, max_wait=0.02, max_new_tokens=4,
@@ -113,7 +115,8 @@ def test_engine_continuous_equals_barrier():
 
 
 def test_cli_runs_on_cpu(capsys):
-    assert serve.main(["--queries", "12", "--device", "cpu", "--batch", "4"]) == 0
+    assert serve.main(["--queries", "12", "--device", "cpu", "--batch", "4",
+                       "--embedder-steps", "0"]) == 0
     report = capsys.readouterr().out
     assert "serving report" in report and "requests: 12" in report
     assert "routing: miss=" in report and "cost:" in report
@@ -122,15 +125,46 @@ def test_cli_runs_on_cpu(capsys):
 @pytest.mark.parametrize("flags", [["--index", "ivf"],
                                    ["--index", "ivf", "--admit-floor", "0.9"]])
 def test_cli_serves_ivf_on_cpu(flags, capsys):
-    assert serve.main(["--queries", "24", "--device", "cpu", "--batch", "4", *flags]) == 0
+    assert serve.main(["--queries", "24", "--device", "cpu", "--batch", "4",
+                       "--embedder-steps", "0", *flags]) == 0
     report = capsys.readouterr().out
     assert "requests: 24" in report and "routing: miss=" in report
     assert ("suppressed_inserts=" in report) == ("--admit-floor" in flags)
 
 
+@pytest.mark.parametrize("flags", [["--band", "0.12", "--reranker-steps", "3",
+                                    "--embedder-steps", "2"], ["--embedder-steps", "5"]])
+def test_cli_runs_cascade_and_embedder_training_on_cpu(flags, capsys):
+    assert serve.main(["--queries", "24", "--device", "cpu", "--batch", "4", *flags]) == 0
+    report = capsys.readouterr().out
+    assert "requests: 24" in report and "routing: miss=" in report
+    assert ("cascade: uncertain=" in report) == ("--band" in flags)
+
+
+def test_cli_defaults_are_the_reference_stack(monkeypatch):
+    """The CLI and ``build_stack`` default to the reference's training: 60
+    embedder steps, 120 reranker steps (used when --band > 0)."""
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def fake_build(**kw):
+        seen.update(kw)
+        raise Built
+
+    monkeypatch.setattr(serve, "build_engine", fake_build)
+    with pytest.raises(Built):
+        serve.main(["--device", "cpu"])
+    assert (seen["train_embedder_steps"], seen["train_reranker_steps"], seen["band"]) == (
+        60, 120, 0.0)
+    sig = inspect.signature(serve.build_stack).parameters
+    assert (sig["train_embedder_steps"].default, sig["train_reranker_steps"].default,
+            sig["band"].default) == (60, 120, 0.0)
+
+
 @pytest.mark.parametrize("flag", [["--replicas", "2"], ["--cache-shards", "2"],
-                                  ["--private-caches"], ["--band", "0.1"],
-                                  ["--embedder-steps", "5"]])
+                                  ["--private-caches"]])
 def test_cli_refuses_unported_paths(flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         serve.main(["--device", "cpu", *flag])

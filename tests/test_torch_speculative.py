@@ -254,7 +254,7 @@ def _engines():
                                                  spec_k=4 if k == "small" else 1))
              for k in ("big", "small")}
     jeng = JaxEngine(**{**jstack, **jgens})
-    big_cfg, small_cfg, ecfg = model_configs("serve-tiny", ENG_VOCAB)
+    big_cfg, small_cfg, ecfg, _ = model_configs("serve-tiny", ENG_VOCAB)
     pgens = {}
     for k, c in (("big", big_cfg), ("small", small_cfg)):
         gcfg = GenerateConfig(max_new_tokens=16, sampler=SamplerConfig(vocab_size=ENG_VOCAB),
