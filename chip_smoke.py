@@ -51,7 +51,11 @@ Prints one JSON object per line:
           with drafts from its ``draft_store``;
   session ``DecodeSession(slots=8)`` on the big model, paged: the inaugural
           cohort against dense greedy decode, join and leave mid-flight,
-          zero leaked pages;
+          zero leaked pages; then ``DecodeSession(slots=8, spec_k=4)``
+          (``spec``) with drafts cut from the plain session's own tokens at
+          overlap 1.0 / 0.5 / 0.0 (ms, ``spec_stats``, tokens under the
+          margin rule, fewer speculating verify blocks than plain steps at
+          1.0) and a cohort with drafts joining mid-flight;
   ivf     the serve traffic through an engine whose bank has the IVF index
           (2,048 clusters, 8 probed), on the serve phase's weights and
           restored bank: one k-means rebuild (seconds, spilled rows, largest
@@ -59,6 +63,20 @@ Prints one JSON object per line:
           full probe against the flat kernel, recall@1 at the default probe,
           routes, lookup time per batch flat and IVF, the shortlist kernel's
           launches;
+  replicas ``ReplicaGroup.build(2, shared=True)`` on the serve phase's
+          generators and restored bank, batch i to replica i % 2: routes as
+          in serve, tokens against the dense re-run under the margin rule, a
+          MISS of replica 0 an EXACT on replica 1; a ``ReplicaScheduler`` on
+          a ``SimClock`` replaying the 48 queries as a Poisson trace over a
+          shared bank and over private banks (completions, per-lane
+          dispatches and steals, hit rates); zero leaked KV pages;
+  sharded the serve phase's restored bank split into 4 shards of 65,536 rows,
+          all on cuda:0: top-k within 1e-5 of the local bank's and the same
+          indices, routes as local away from the thresholds, ``cosine_topk``
+          4 times a batch, one routing copy a batch, the gathered state equal
+          to the local one bit for bit; the ``ivf`` phase's index resharded,
+          at a full probe equal to the flat kernel, ``cosine_topk_gather``
+          once per shard; ``route_batch`` ms local and sharded;
   cascade the serve traffic with the router cascade on (a band around the
           threshold holding >= 8 of the 48 rows, the trained reranker), on
           the serve phase's weights and restored bank: routes outside the
@@ -99,6 +117,7 @@ MAX_NEW_TOKENS = 32
 PAGE = 16                      # KV page size of the paged phases
 POOL_PAGES = 256               # pages per paged generator (2 MiB each at full width)
 SPEC_K = 4                     # verify block of the speculating phases
+CACHE_SHARDS = 4               # shards of the sharded-bank phase, all on cuda:0
 
 
 def emit(obj) -> None:
@@ -131,14 +150,17 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 # converted to, falls outside the session ("Out-of-range" in Kineto's log),
 # and the card's records sometimes land up to ~2 ms before their own launch
 # ("CPU GPU out-of-order").  Once the process has run autograd on the card,
-# Kineto counts the first record(s) of every session out of range.  So a
-# session waits before its first launch and after its last, and opens with
-# sentinel kernels (``torch.cuda._sleep``, left out of the rows) and a sync.
+# Kineto counts the first records of every session out of range: 2-3 of them
+# after training, up to 11 after the replica and sharded phases (an H100,
+# torch 2.11).  So a session waits before its first launch and after its
+# last, and opens with 32 sentinel kernels (``torch.cuda._sleep``, left out of
+# the rows; ``sentinels_seen_min`` on the wall line) and a sync.
 PROFILER_LEAD_S = 0.1
-PROFILER_SENTINELS = 8
+PROFILER_SENTINELS = 32
+PROFILER_SENTINEL_CYCLES = 20_000  # ~10 us each: the sentinels span a few hundred us
 PROFILER_SENTINEL = "spin_kernel"
 PROFILER_ATTEMPTS = 5
-profiler_sessions = {"whole": 0, "short": 0}
+profiler_sessions = {"whole": 0, "short": 0, "sentinels_seen_min": PROFILER_SENTINELS}
 
 
 def device_ms(fn, reps: int = 10, split: bool = False):
@@ -157,20 +179,25 @@ def device_ms(fn, reps: int = 10, split: bool = False):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILER_LEAD_S)
             for _ in range(PROFILER_SENTINELS):
-                torch.cuda._sleep(1000)
+                torch.cuda._sleep(PROFILER_SENTINEL_CYCLES)
             torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILER_LEAD_S)
-        rows = [r for r in kernel_rows(prof) if PROFILER_SENTINEL not in r[0]]
+        rows = kernel_rows(prof)
+        seen = sum(c for k, _, c in rows if PROFILER_SENTINEL in k)
+        profiler_sessions["sentinels_seen_min"] = min(profiler_sessions["sentinels_seen_min"],
+                                                      seen)
+        rows = [r for r in rows if PROFILER_SENTINEL not in r[0]]
         if rows and all(c % reps == 0 for _, _, c in rows):
             profiler_sessions["whole"] += 1
             break
         profiler_sessions["short"] += 1
     else:
         raise AssertionError(f"the profiler lost kernel records in {PROFILER_ATTEMPTS} "
-                             f"sessions: {rows}")
+                             f"sessions (sentinels seen: {seen} of {PROFILER_SENTINELS}): "
+                             f"{rows}")
     us = sum(r[1] for r in rows)
     if us <= 0:
         raise AssertionError("the profiler recorded no device time")
@@ -668,6 +695,7 @@ def kernel_phase(prefix_len: int, seed: int):
         decode_case("big-miss-decode", 8, h, hk, dh, 64 + 33, 64 + 16, cfg.num_layers, gen),
         cosine_case("serve-bank", 8, LLAMA_CAPACITY, 384, 4, 1024, gen),
         cosine_case("serve-bank-1m", 8, 1 << 20, 384, 4, 1024, gen),
+        cosine_case("shard-bank", 8, LLAMA_CAPACITY // CACHE_SHARDS, 384, 4, 1024, gen),
         gather_case("ivf-probe", 8, LLAMA_CAPACITY, 8, 256, 384, 4, 8, gen),
         gather_case("ivf-probe-1m", 8, 1 << 20, 8, 1024, 384, 4, 8, gen),
         block_case("small-tweak-verify-k4", 8, 4, h, hk, dh, tweak_cap, tweak_len,
@@ -1207,7 +1235,8 @@ def paged_phase(eng, plan, serve_out, max_new_tokens: int, noise):
     """The serve traffic through an engine whose generators are paged, on the
     serve phase's weights, against a dense engine on the same weights whose
     generators record their margins; both start from the serve phase's bank.
-    Returns (paged line, the paged engine)."""
+    Returns (paged line, the paged engine, the dense engine's recorded
+    generate calls: (tokens, margins) per call, big and small)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.continuous import leaked_pages
     pairs, batches, n_fill, seed, threshold, _ = plan
@@ -1254,7 +1283,7 @@ def paged_phase(eng, plan, serve_out, max_new_tokens: int, noise):
            "dense_rerun_equals_serve_batches": same_as_serve, "leaked_pages": leaked,
            "pinned_pages": peng.small.pool.pinned_pages,
            "pool_live_pages_after": peng.small.pool.live_pages}
-    return row, peng
+    return row, peng, calls["dense"]
 
 
 def _overlap_drafts(ref, overlap: float, vocab: int):
@@ -1442,10 +1471,71 @@ def session_phase(eng, texts, max_new_tokens: int, seed: int, noise):
     leaked = leaked_pages(sess)
     if leaked or sess.pool.live_pages:
         raise AssertionError(f"the session leaked {leaked} pages")
+    del sess
+    spec = spec_session(gen, toks, cap, got, ref, margins, max_new_tokens, seed, noise)
     return {"phase": "session", "slots": 8, "capacity": cap, "model": big.model.cfg.name,
             "max_new_tokens": max_new_tokens, "inaugural": rule, "inaugural_ms": inaugural_ms,
             "mid_flight": joined, "churn_rows": len(done), "churn_ms": churn_ms,
-            "launches": launches, "leaked_pages": leaked, "path_noise": noise}
+            "launches": launches, "leaked_pages": leaked, "path_noise": noise, "spec": spec}
+
+
+def spec_session(gen, toks, cap, plain, ref, margins, max_new_tokens: int, seed: int, noise):
+    """``DecodeSession(slots=8, spec_k=SPEC_K)`` on the big model, paged:
+    drafts cut from the plain session's own inaugural tokens ``plain`` at
+    overlap 1.0 / 0.5 / 0.0, each cohort drained in chunks of SPEC_K verify
+    blocks (one harvest a chunk); then a cohort of 4 with drafts joins two
+    blocks after another.  Tokens are held to the dense greedy reference
+    ``ref`` under the margin rule (verify blocks round as the paged verify
+    kernel does); at overlap 1.0 the session runs fewer verify blocks with
+    a speculating row than the plain session's decode steps; the paged
+    verify kernel launches; no page leaks."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.continuous import DecodeSession, leaked_pages
+    vocab = gen.model.cfg.vocab_size
+    runs = {}
+    reset_launch_counts()          # the spec-session path starts here ...
+    with torch.no_grad():
+        for overlap in (1.0, 0.5, 0.0):
+            drafts = _overlap_drafts(plain, overlap, vocab)
+            sess = DecodeSession(gen, slots=8, capacity=cap, seed=seed, spec_k=SPEC_K)
+            _sync(gen.device)
+            t = time.perf_counter()
+            sess.admit(toks[:8], tags=list(range(8)), drafts=drafts)
+            out = sorted(sess.drain(chunk=SPEC_K), key=lambda f: f["tag"])
+            ms = (time.perf_counter() - t) * 1e3
+            got = np.stack([f["tokens"] for f in out])
+            runs[str(overlap)] = dict(
+                ms=ms, **sess.spec_stats, equal_to_plain_session=float((got == plain).mean()),
+                margin_rule=margin_rule(f"spec session overlap {overlap}",
+                                        [(ref, margins, got)], noise["tol"]))
+            if leaked_pages(sess) or sess.pool.live_pages:
+                raise AssertionError(f"spec session leaked pages at overlap {overlap}")
+            del sess
+        ids, lens = _overlap_drafts(plain, 1.0, vocab)
+        sess = DecodeSession(gen, slots=8, capacity=cap, seed=seed, spec_k=SPEC_K)
+        sess.admit(toks[:4], tags=[0, 1, 2, 3], drafts=(ids[:4], lens[:4]))
+        sess.run_chunk(2)
+        sess.admit(toks[4:8], tags=[4, 5, 6, 7], drafts=(ids[4:], lens[4:]))
+        out = sorted(sess.drain(chunk=SPEC_K), key=lambda f: f["tag"])
+        joined = margin_rule("spec session mid-flight join",
+                             [(ref, margins, np.stack([f["tokens"] for f in out]))],
+                             noise["tol"])
+        joined_stats = sess.spec_stats
+        leaked = leaked_pages(sess) + sess.pool.live_pages
+    launches = launch_counts()     # ... and ends here
+    if gen.device.type == "cuda" and launches["paged_decode_attention_block"] == 0:
+        raise AssertionError(f"the spec session never launched the paged verify kernel: "
+                             f"{launches}")
+    if leaked:
+        raise AssertionError(f"the mid-flight spec session leaked {leaked} pages")
+    if not runs["1.0"]["spec_steps"] < max_new_tokens - 1:
+        raise AssertionError(f"spec session at overlap 1.0: {runs['1.0']['spec_steps']} "
+                             f"speculating verify blocks, not below the plain session's "
+                             f"{max_new_tokens - 1} decode steps")
+    return {"spec_k": SPEC_K, "chunk": SPEC_K, "overlap": runs, "mid_flight_join": joined,
+            "mid_flight_spec_stats": joined_stats, "launches": launches, "leaked_pages": 0}
 
 
 # ------------------------------------------------------------------ slice 3
@@ -1457,7 +1547,8 @@ def ivf_phase(eng, plan, serve_out, max_new_tokens: int):
     restored bank: one k-means rebuild, the member invariant, a full probe
     against the flat kernel, the 6 batches at the default nprobe (routes,
     recall@1 against the flat lookup, the shortlist kernel's launches), and
-    the lookup time per batch of 8, flat and IVF, on the same bank."""
+    the lookup time per batch of 8, flat and IVF, on the same bank.
+    Returns (ivf line, the IVF engine)."""
     import dataclasses
     import torch
     from repro_torch.core import cache as cache_lib
@@ -1555,7 +1646,257 @@ def ivf_phase(eng, plan, serve_out, max_new_tokens: int):
             "steady_batch_ms_mean": sum(lat[1:]) / max(len(lat) - 1, 1),
             "lookup_ms_per_batch_of_8": lookup_ms, "lookup_device": lookup_dev,
             "launches": launches,
-            "suppressed_inserts": s.suppressed_inserts}
+            "suppressed_inserts": s.suppressed_inserts}, ieng
+
+
+# ------------------------------------------------------------------ slice 5
+
+def replicas_phase(eng, plan, serve_out, dense_calls, spare, max_new_tokens: int, noise,
+                   batch_s: float):
+    """``ReplicaGroup.build(2, shared=True)`` over the serve phase's
+    generators (shared handles, calls recorded) and restored bank, batch i
+    to replica i % 2: routes equal the serve phase's, and every generate
+    call's tokens equal the dense reference's (``paged_phase``'s re-run of
+    the serve batches, margins recorded) under the margin rule; a MISS
+    committed by one replica is an EXACT on the other.  Then a
+    ``ReplicaScheduler`` on a ``SimClock`` replays the 48 queries as a
+    Poisson trace (each dispatch modelled at ``batch_s``, the serve phase's
+    steady batch), once over a fresh shared bank and once over private
+    banks: completions, per-lane dispatches and steals, hit rates (reported
+    only).  Every replica leaks 0 KV pages."""
+    import torch
+    from repro_torch.core import router
+    from repro_torch.core.engine import ReplicaGroup
+    from repro_torch.core.router import RouterConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.scheduler import (ReplicaScheduler, SchedulerConfig, SimClock,
+                                               poisson_trace, replay_trace)
+    pairs, batches, n_fill, seed, threshold, _ = plan
+    gens = {k: _gen_like(getattr(eng, k)) for k in ("big", "small")}
+    calls = {k: record_calls(g) for k, g in gens.items()}
+
+    def group(shared):
+        g = ReplicaGroup.build(2, shared=shared, tokenizer=eng.tok,
+                               embedder_params=eng.embedder_params,
+                               embedder_cfg=eng.embedder_cfg, big=gens["big"],
+                               small=gens["small"], cache_cfg=eng.cache_cfg,
+                               router_cfg=RouterConfig(tweak_threshold=threshold))
+        for e in g.engines[:1] if shared else g.engines:
+            fill_bank(e, n_fill, seed)
+            e.populate(*pairs)
+        return g
+
+    grp = group(True)
+    _sync(eng.device)
+    reset_launch_counts()          # the replica path starts here ...
+    lat, res = [], []
+    with torch.no_grad():
+        for i, batch in enumerate(batches):
+            t = time.perf_counter()
+            res.append(grp[i % 2].handle_batch_result(batch, max_new_tokens=max_new_tokens))
+            _sync(eng.device)
+            lat.append((time.perf_counter() - t) * 1e3)
+    launches = launch_counts()     # ... and ends here
+    n = len(batches) * len(batches[0])
+    _check_stats("replicas", grp.stats, n, max_new_tokens)
+    if eng.device.type == "cuda" and min(launches[k] for k in SERVE_KERNELS) == 0:
+        raise AssertionError(f"a kernel was not launched by the replica path: {launches}")
+    decisions = lambda rs: [[m["decision"] for m in r.meta] for r in rs]
+    if decisions(res) != decisions(serve_out):
+        raise AssertionError("replicas: routes differ from the serve phase's on the same batches")
+    if any(len(calls[k]) != len(dense_calls[k]) for k in calls):
+        raise AssertionError("replicas: other generate calls than the single engine's")
+    rule = {k: margin_rule(f"replicas {k}", [(r[0], r[1], p[0]) for r, p in
+                                             zip(dense_calls[k], calls[k])],
+                           noise[k]["tol"]) for k in calls}
+    same = sum(a.responses == b.responses for a, b in zip(res, serve_out))
+    per_replica = [e.stats.total for e in grp.engines]
+    with torch.no_grad():
+        _, meta = grp[0].handle_batch(spare, max_new_tokens=8, collect_meta=True)
+        miss = [q for q, m in zip(spare, meta) if m["decision"] == router.MISS]
+        if not miss:
+            raise AssertionError("replicas: the spare batch has no MISS row to commit")
+        _, other = grp[1].handle_batch(miss[:1], max_new_tokens=8, collect_meta=True)
+    if other[0]["decision"] != router.EXACT:
+        raise AssertionError(f"replicas: replica 0's MISS commit is not an EXACT hit on "
+                             f"replica 1: {other[0]}")
+    leaked = grp.leaked_kv_pages()
+    del grp
+
+    texts = [q for b in batches for q in b]
+    trace = poisson_trace(texts, rate=12.0 / batch_s, seed=seed)
+    sched_rows = {}
+    for shared in (True, False):
+        g = group(shared)
+        sched = ReplicaScheduler(g.engines, SchedulerConfig(max_batch=8, max_wait=batch_s / 4,
+                                                            max_new_tokens=max_new_tokens),
+                                 clock=SimClock(), service_model=lambda b: batch_s)
+        t = time.perf_counter()
+        with torch.no_grad():
+            done = replay_trace(sched, trace)
+        wall = time.perf_counter() - t
+        st = sched.stats
+        if len(done) != len(texts) - st.rejected or st.completed != len(done):
+            raise AssertionError(f"replica scheduler: {len(done)} completions of "
+                                 f"{len(texts)} ({st.rejected} rejected)")
+        leaked = [a + b for a, b in zip(leaked, g.leaked_kv_pages())]
+        s = g.stats
+        sched_rows["shared" if shared else "private"] = {
+            "completed": st.completed, "rejected": st.rejected, "joined": st.joined,
+            "batches": st.batches, "stolen": st.stolen, "sim_mean_latency_s": st.mean_latency,
+            "lanes": [{"dispatched": ln.dispatched, "batches": ln.batches,
+                       "stolen_in": ln.stolen_in} for ln in sched.lanes],
+            "routes": {"exact": s.exact, "tweak": s.tweak, "miss": s.miss},
+            "hit_rate": s.hit_rate, "wall_s": wall}
+        del g, sched
+    if any(leaked):
+        raise AssertionError(f"replicas leaked KV pages: {leaked}")
+    return {"phase": "replicas", "replicas": 2, "bank": "shared", "batch_ms": lat,
+            "steady_batch_ms_mean": sum(lat[1:]) / max(len(lat) - 1, 1),
+            "rows_per_replica": per_replica, "batches_with_serve_responses": same,
+            "margin_rule": rule, "cross_replica_exact": True, "launches": launches,
+            "scheduler": {"trace_queries": len(texts), "rate_per_s": 12.0 / batch_s,
+                          "service_s": batch_s, **sched_rows},
+            "leaked_kv_pages": leaked}
+
+
+def sharded_phase(eng, ieng, plan, serve_out, max_new_tokens: int):
+    """The serve phase's restored bank split into CACHE_SHARDS shards of
+    65,536 rows, all on cuda:0 (``make_cache_mesh`` with the devices named),
+    behind an engine on the serve phase's generators, against a local bank
+    on the same weights and commits: per batch the merged top-k scores
+    within 1e-5 of the local bank's and the same indices (away from ties),
+    routes equal on rows away from the thresholds, ``cosine_topk`` launched
+    once per shard per batch and one routing copy a batch; after the run
+    the gathered state equals the local one bit for bit.  Then the ``ivf``
+    phase's index, resharded, at a full probe gives the flat kernel's
+    result, ``cosine_topk_gather`` once per shard.  ``route_batch`` ms,
+    local against sharded, is reported only."""
+    import dataclasses
+    import torch
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import index as index_lib
+    from repro_torch.core.engine import SharedCacheBank, TweakLLMEngine
+    from repro_torch.core.router import RouterConfig
+    from repro_torch.core.tweak import preprocess_query
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_cache_mesh
+    pairs, batches, n_fill, seed, threshold, _ = plan
+    cfg = eng.cache_cfg
+    devices = [eng.device] * CACHE_SHARDS
+    mesh = make_cache_mesh(CACHE_SHARDS, devices=devices)
+    leng = _engine_like(eng, eng.big, eng.small, threshold)
+    fill_bank(leng, n_fill, seed)
+    leng.populate(*pairs)
+    sbank = SharedCacheBank(cfg, leng.router_cfg, mesh=mesh, state=leng.state)
+    sbank.text_store.update(leng.bank.text_store)
+    sbank.draft_store.update(leng.bank.draft_store)
+    sbank.insert_seq = leng.bank.insert_seq
+    seng = TweakLLMEngine(tokenizer=eng.tok, embedder_params=eng.embedder_params,
+                          embedder_cfg=eng.embedder_cfg, big=eng.big, small=eng.small,
+                          bank=sbank)
+    routes = {"local": [], "sharded": []}
+    for name, bank in (("local", leng.bank), ("sharded", sbank)):
+        def wrapped(q, cost=None, inner=bank.route_batch, out=routes[name]):
+            r = inner(q, cost)
+            out.append((r[0].clone(), r[1].clone()))       # kept on the device
+            return r
+        bank.route_batch = wrapped
+    _, lres = _serve(leng, batches, max_new_tokens)
+    reset_launch_counts()          # the sharded path starts here ...
+    lat, res, copies = [], [], []
+    with torch.no_grad():
+        for batch in batches:
+            t = time.perf_counter()
+            res.append(seng.handle_batch_result(batch, max_new_tokens=max_new_tokens))
+            _sync(eng.device)
+            lat.append((time.perf_counter() - t) * 1e3)
+            copies.append(seng.last_route_syncs)
+    launches = launch_counts()     # ... and ends here
+    for bank in (leng.bank, sbank):
+        del bank.route_batch
+    n = len(batches) * len(batches[0])
+    _check_stats("sharded", seng.stats, n, max_new_tokens)
+    if eng.device.type == "cuda" and launches["cosine_topk"] != CACHE_SHARDS * len(batches):
+        raise AssertionError(f"sharded: cosine_topk launched {launches['cosine_topk']} times, "
+                             f"not {CACHE_SHARDS} a batch")
+    if copies != [1] * len(batches):
+        raise AssertionError(f"sharded: routing copies per batch {copies}, not 1")
+    worst, near = 0.0, 0
+    for (ls, li), (ss_, si) in zip(routes["local"], routes["sharded"]):
+        worst = max(worst, (ss_ - ls).abs().max().item())
+        gap = torch.full_like(ls, float("inf"))
+        d_ = torch.diff(ls, dim=1).abs()
+        gap[:, 1:] = torch.minimum(gap[:, 1:], d_)
+        gap[:, :-1] = torch.minimum(gap[:, :-1], d_)
+        sure = gap > 1e-5
+        if not torch.equal(si[sure], li[sure]):
+            raise AssertionError("sharded: merged indices differ from the local bank's")
+    check("sharded top-k scores vs local bank", worst, 1e-5)
+    exact = leng.router_cfg.exact_threshold
+    for a, b in zip(res, lres):
+        for ma, mb in zip(a.meta, b.meta):
+            if min(abs(mb["sim"] - threshold), abs(mb["sim"] - exact)) < 5e-5:
+                near += 1
+            elif ma["decision"] != mb["decision"]:
+                raise AssertionError(f"sharded: a route differs away from the thresholds: "
+                                     f"{ma} vs {mb}")
+    same_routes = [[m["decision"] for m in r.meta] for r in res] == [
+        [m["decision"] for m in r.meta] for r in lres]
+    gathered = dist.gather_cache_state(sbank.state, cfg)
+    state_equal = {k: bool(torch.equal(gathered[k], v)) for k, v in leng.state.items()}
+    if same_routes and not all(state_equal.values()):
+        raise AssertionError(f"sharded: the gathered state differs from the local bank's: "
+                             f"{state_equal}")
+    responses_equal = sum(a.responses == b.responses for a, b in zip(res, lres))
+    with torch.no_grad():
+        q = seng.embed_texts([preprocess_query(x) for x in batches[0]])
+    lookup_ms = None
+    if eng.device.type == "cuda":
+        lookup_ms = {"local": time_ms(lambda: leng.bank.route_batch(q)),
+                     "sharded": time_ms(lambda: sbank.route_batch(q))}
+    del leng, seng, sbank, gathered
+
+    # the ivf phase's index, resharded, at a full probe
+    icfg = ieng.cache_cfg
+    p = index_lib.resolve(icfg)
+    full = dataclasses.replace(icfg, nprobe=p.nclusters)
+    ist = ieng.state
+    rebuilt = bool(ist["ivf_overflow"])
+    if rebuilt:
+        index_lib.build_index(ist, icfg, seed=seed)
+    sivf = dist.shard_ivf_cache_state(ist, mesh, full)
+    with torch.no_grad():
+        qi = ieng.embed_texts([preprocess_query(x) for x in batches[0]])
+        reset_launch_counts()      # one sharded IVF lookup starts here ...
+        vs, vi = dist.lookup(sivf, full, qi)
+        gl = launch_counts()       # ... and ends here
+        fs, fi = cache_lib.lookup(ist, dataclasses.replace(icfg, index="flat"), qi)
+    if eng.device.type == "cuda" and (gl["cosine_topk_gather"] != CACHE_SHARDS
+                                      or gl["cosine_topk"]):
+        raise AssertionError(f"sharded ivf: launches {gl}, not the shortlist kernel once "
+                             f"per shard")
+    ivf_err = (vs - fs).abs().max().item()
+    check("sharded ivf full probe vs flat kernel", ivf_err, 1e-5)
+    gap = torch.full_like(fs, float("inf"))
+    d_ = torch.diff(fs, dim=1).abs()
+    gap[:, 1:] = torch.minimum(gap[:, 1:], d_)
+    gap[:, :-1] = torch.minimum(gap[:, :-1], d_)
+    if not torch.equal(vi[gap > 1e-5], fi[gap > 1e-5]):
+        raise AssertionError("sharded ivf: full-probe indices differ from the flat kernel's")
+    sharded_ivf_ms = (time_ms(lambda: dist.lookup(sivf, full, qi), reps=5)
+                      if eng.device.type == "cuda" else None)
+    return {"phase": "sharded", "shards": CACHE_SHARDS,
+            "devices": [str(d) for d in devices], "rows_per_shard": cfg.capacity // CACHE_SHARDS,
+            "topk_max_abs_err": worst, "rows_near_threshold": near,
+            "routes_equal": same_routes, "state_equal": all(state_equal.values()),
+            "batches_with_local_responses": responses_equal, "route_copies": copies,
+            "batch_ms": lat, "steady_batch_ms_mean": sum(lat[1:]) / max(len(lat) - 1, 1),
+            "route_batch_ms": lookup_ms, "launches": launches,
+            "ivf": {"nclusters": p.nclusters, "nprobe": p.nclusters, "rebuilt_first": rebuilt,
+                    "full_probe_max_abs_err": ivf_err, "launches": gl,
+                    "lookup_ms": sharded_ivf_ms}}
 
 
 # ------------------------------------------------------------------ slice 4
@@ -1915,15 +2256,22 @@ def main(argv=None) -> int:
         probe = torch.as_tensor(spare_tokens(eng, spare), device=eng.device).long()
         noise = {k: path_noise(getattr(eng, k).model, getattr(eng, k).params,
                                getattr(eng, k).cfg.sampler, probe) for k in ("big", "small")}
-    paged, peng = paged_phase(eng, plan, served, MAX_NEW_TOKENS, noise)
+    paged, peng, dense_calls = paged_phase(eng, plan, served, MAX_NEW_TOKENS, noise)
     emit(paged)
     spec = spec_phase(eng, peng, plan[1][0], MAX_NEW_TOKENS, noise["small"])
     emit(spec)
     del peng
     session = session_phase(eng, spare + plan[1][1], MAX_NEW_TOKENS, args.seed, noise["big"])
     emit(session)
-    ivf = ivf_phase(eng, plan, served, MAX_NEW_TOKENS)
+    ivf, ieng = ivf_phase(eng, plan, served, MAX_NEW_TOKENS)
     emit(ivf)
+    replicas = replicas_phase(eng, plan, served, dense_calls, spare, MAX_NEW_TOKENS, noise,
+                              serve["steady_batch_ms_mean"] / 1e3)
+    emit(replicas)
+    del dense_calls
+    sharded = sharded_phase(eng, ieng, plan, served, MAX_NEW_TOKENS)
+    emit(sharded)
+    del ieng
     emit(cascade_phase(eng, plan, served, reranker, MAX_NEW_TOKENS))
     emit(baseline_phase(eng, plan, reranker, args.seed))
     phase_launches = {"serve": launches, "paged": paged["launches"], "spec": spec["launches"],

@@ -91,7 +91,9 @@ def jax_cache_state_to_torch(state_np: Dict[str, np.ndarray], cfg, device="cuda"
     """The port's cache state from a JAX cache state of numpy arrays (IVF and
     admission keys included), on ``device`` (the card unless the caller asks
     for ``"cpu"``).  Keys, shapes and dtypes must be those of
-    ``core.cache.init_cache(cfg)``."""
+    ``core.cache.init_cache(cfg)``.  The result is a local-layout state:
+    ``core.distributed.shard_cache_state`` / ``shard_ivf_cache_state`` split
+    it over a cache mesh."""
     from repro_torch.core.cache import init_cache
     device = resolve_device(device)
     want = init_cache(cfg, torch.device("meta"))

@@ -189,14 +189,48 @@ def lookup(state, cfg: CacheConfig, q_embs):
                                   k=k, block_n=min(cfg.block_n, cfg.capacity))
 
 
+def _parts(state):
+    """``(part, its first global slot)`` of a state's rows: the state itself
+    at 0, or each shard of a row-sharded state (``core/distributed.py``)."""
+    shards = state.get("shards")
+    if shards is None:
+        return [(state, 0)]
+    local_c = shards[0]["valid"].shape[0]
+    return [(sh, j * local_c) for j, sh in enumerate(shards)]
+
+
+def gather_rows(state, key: str, idx):
+    """``state[key][idx]`` of a local or row-sharded state, on ``idx``'s
+    device; ``idx`` (...) int64 global slots in [0, capacity).  A sharded
+    state reads each slot from the shard that owns it."""
+    if "shards" not in state:
+        return state[key][idx]
+    out = None
+    for part, base in _parts(state):
+        t = part[key]
+        mine = (idx >= base) & (idx < base + t.shape[0])
+        v = t[torch.where(mine, idx - base, 0).to(t.device)].to(idx.device)
+        if out is None:
+            out = v
+        else:
+            out = torch.where(mine.reshape(mine.shape + (1,) * (v.dim() - mine.dim())), v, out)
+    return out
+
+
 def _touch_rows(state, cfg: CacheConfig, indices, hit):
     """Record a hit on ``indices[hit]``: last_used <- clock, hits += 1;
-    rows with ``hit`` False (or index -1) touch nothing.  The clock ticks."""
-    w = torch.where(hit, indices, 0).long()
-    n = torch.zeros(cfg.capacity, dtype=torch.int32, device=indices.device)
-    n.index_add_(0, w, hit.to(torch.int32))
-    state["hits"] += n
-    state["last_used"].copy_(torch.where(n > 0, state["clock"], state["last_used"]))
+    rows with ``hit`` False (or index -1) touch nothing.  The clock ticks.
+    On a row-sharded state each touch lands on the shard owning its slot."""
+    for part, base in _parts(state):
+        local_c = part["hits"].shape[0]
+        mine = hit & (indices >= base) & (indices < base + local_c)
+        w = torch.where(mine, indices - base, 0).long()
+        n = torch.zeros(local_c, dtype=torch.int32, device=indices.device)
+        n.index_add_(0, w, mine.to(torch.int32))
+        n = n.to(part["hits"].device)
+        part["hits"] += n
+        part["last_used"].copy_(torch.where(n > 0, state["clock"].to(n.device),
+                                            part["last_used"]))
     state["clock"] += 1
     return state
 
@@ -269,15 +303,16 @@ def make_second_stage(cfg: CacheConfig, router_cfg, rr_params, rr_cfg):
     top-1; other rows keep their stage-1 decision and top-1 slot.  Committed
     rows are touched here (stage 1 skipped them; the clock ticks once more),
     and an IVF bank folds the uncertain rows' outcomes into the admission
-    EMA.  The state is updated in place.
+    EMA.  The state is updated in place.  A row-sharded state works the
+    same: the token gather and the touch go to the shards owning the slots.
     """
     from repro_torch.models.reranker import score_shortlist
 
     def second_stage(state, q_tokens, q_mask, scores, idx, decisions, tau, cluster):
         live = idx >= 0
         safe = idx.clamp(0, cfg.capacity - 1).long()
-        cand_t = state["q_tokens"][safe]                              # (B,K,S)
-        cand_m = state["q_mask"][safe] * live[..., None].to(state["q_mask"].dtype)
+        cand_t = gather_rows(state, "q_tokens", safe)                 # (B,K,S)
+        cand_m = gather_rows(state, "q_mask", safe) * live[..., None].to(torch.float32)
         rr = score_shortlist(rr_params, q_tokens, q_mask, cand_t, cand_m, rr_cfg)
         commit, best, conf = router_lib.stage2_combine(scores, rr, live, tau, router_cfg)
         unc = decisions == router_lib.UNCERTAIN

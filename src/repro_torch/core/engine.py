@@ -1,8 +1,9 @@
-"""TweakLLMEngine — the paper's Figure-1 pipeline on one device (counterpart
-of ``src/repro/core/engine.py``: one engine, one local bank with a flat or
-IVF index and per-cluster admission, FIFO/LRU/LFU, the router with its
-stage-2 cascade; dense or paged decode, greedy or sampled, and speculative
-TWEAK decode on cached-response drafts).
+"""TweakLLMEngine — the paper's Figure-1 pipeline (counterpart of
+``src/repro/core/engine.py``: engines over a local or row-sharded bank with a
+flat or IVF index and per-cluster admission, FIFO/LRU/LFU, the router with
+its stage-2 cascade; dense or paged decode, greedy or sampled, speculative
+TWEAK decode on cached-response drafts; and ``ReplicaGroup``, N engines over
+one shared bank or private ones).
 
 Per batch of text queries:
   1. tokenize + embed (MiniLM-class embedder, unit vectors);
@@ -36,10 +37,12 @@ from repro_torch.device import to_device
 from repro_torch.models.embedder import encode as embed_encode
 from repro_torch.serving.batcher import (bucket_batch, bucket_len, floor_len_bucket,
                                          pad_to_buckets)
+from repro_torch.serving.continuous import leaked_pages
 from repro_torch.serving.generate import Generator
 from repro_torch.tokenizer import HashWordTokenizer
 
 from . import cache as cache_lib
+from . import distributed as dist_lib
 from . import index as index_lib
 from . import router as router_lib
 from . import tweak as tweak_lib
@@ -88,6 +91,25 @@ class EngineStats:
         """Fraction of drafted tokens the verify loop accepted."""
         return self.accepted / max(self.proposed, 1)
 
+    @classmethod
+    def aggregate(cls, parts) -> "EngineStats":
+        """Counters summed across replicas; their cost rates must agree (an
+        average would make ``cost`` meaningless)."""
+        parts = list(parts)
+        if not parts:
+            return cls()
+        rates = {(p.big_cost_per_token, p.small_cost_per_token) for p in parts}
+        if len(rates) != 1:
+            raise ValueError(f"replicas disagree on cost rates: {sorted(rates)}")
+        big_rate, small_rate = rates.pop()
+        out = cls(big_cost_per_token=big_rate, small_cost_per_token=small_rate)
+        for f in ("total", "miss", "tweak", "exact", "uncertain", "recovered",
+                  "suppressed_inserts", "big_tokens", "small_tokens", "big_prompt_tokens",
+                  "small_prompt_tokens", "baseline_prompt_tokens", "proposed", "accepted",
+                  "spec_steps"):
+            setattr(out, f, sum(getattr(p, f) for p in parts))
+        return out
+
 
 @dataclasses.dataclass
 class BatchResult:
@@ -102,23 +124,33 @@ class BatchResult:
 
 
 class SharedCacheBank:
-    """The semantic cache state on one device plus its host text mirror.
+    """The semantic cache state plus its host text mirror, shareable.
 
-    A local bank serves one engine; the state is updated in place by every
-    lookup and commit.  ``reranker=(params, model_cfg)`` wires the stage-2
-    resolver of the router cascade, which ``band > 0`` needs.
+    One bank serves one engine, or every replica of a ``ReplicaGroup``: a
+    response one replica commits is an EXACT or TWEAK hit for the others on
+    their next lookup.  The state is updated in place by every lookup and
+    commit.  ``reranker=(params, model_cfg)`` wires the stage-2 resolver of
+    the router cascade, which ``band > 0`` needs.
+
+    With a ``mesh`` (``launch/mesh.py::make_cache_mesh``) the rows, and an
+    IVF bank's member tables, are row-sharded over its devices and the entry
+    points come from ``core/distributed.py``: lookups merge per-shard
+    winners, inserts (FIFO only) land on the shard owning each slot, and
+    stage 2 gathers tokens and touches on the owning shards.  ``state`` is a
+    local-layout state either way; a sharded bank splits it.
     """
 
     def __init__(self, cache_cfg: cache_lib.CacheConfig,
                  router_cfg: Optional[router_lib.RouterConfig] = None, *,
-                 device="cuda", state=None, reranker=None):
+                 device="cuda", mesh=None, state=None, reranker=None):
         router_cfg = router_cfg or router_lib.RouterConfig()
         if router_cfg.band > 0.0 and reranker is None:
             raise ValueError("router band > 0 enables the stage-2 cascade, which needs "
                              "reranker=(params, model_cfg) on the bank")
         self.cfg = cache_cfg
         self.router_cfg = router_cfg
-        self.device = torch.device(device)
+        self.mesh = None if mesh is None else tuple(torch.device(d) for d in mesh)
+        self.device = torch.device(device) if mesh is None else self.mesh[0]
         self.text_store: Dict[int, Tuple[str, str]] = {}
         # cached-response token ids, the speculation drafts: the exact ids
         # generation produced (a text round trip need not be identity)
@@ -126,11 +158,29 @@ class SharedCacheBank:
         # commits so far: the seed stream of the IVF rebuilds
         self.insert_seq = 0
         self._default_costs: Dict[int, torch.Tensor] = {}
-        self.state = cache_lib.init_cache(cache_cfg, self.device) if state is None else state
+        if state is None:
+            state = cache_lib.init_cache(cache_cfg, self.device)
+        if mesh is None:
+            self.state = state
+            self._lookup_touch = lambda st, q, c: cache_lib.lookup_route_touch(
+                st, cache_cfg, router_cfg, q, c)
+            self._insert = lambda st, *args: cache_lib.insert_batch(st, cache_cfg, *args)
+        else:
+            if cache_cfg.index == "ivf":
+                self.state = dist_lib.shard_ivf_cache_state(state, self.mesh, cache_cfg)
+            else:
+                self.state = dist_lib.shard_cache_state(state, self.mesh)
+            self._lookup_touch = dist_lib.make_distributed_lookup_and_touch(
+                self.mesh, cache_cfg, router_cfg)
+            self._insert = dist_lib.make_distributed_insert_batch(self.mesh, cache_cfg)
         self._second_stage = None
         if reranker is not None:
             self._second_stage = cache_lib.make_second_stage(cache_cfg, self.router_cfg,
                                                              *reranker)
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
 
     @property
     def cascading(self) -> bool:
@@ -151,8 +201,8 @@ class SharedCacheBank:
         ``(scores, idx, decisions, tau, cluster, admit)``."""
         if cost is None:
             cost = self.default_cost(q_embs.shape[0])
-        (self.state, scores, idx, dec, tau, cluster, admit) = cache_lib.lookup_route_touch(
-            self.state, self.cfg, self.router_cfg, q_embs, cost)
+        (self.state, scores, idx, dec, tau, cluster, admit) = self._lookup_touch(
+            self.state, q_embs, cost)
         return scores, idx, dec, tau, cluster, admit
 
     def second_stage(self, q_tokens, q_mask, scores, idx, decisions, tau, cluster):
@@ -167,8 +217,8 @@ class SharedCacheBank:
 
     def insert_batch(self, embs, q_tokens, q_mask, r_tokens, r_mask, count):
         """One commit; returns the device ``slots`` tensor."""
-        self.state, slots = cache_lib.insert_batch(self.state, self.cfg, embs, q_tokens,
-                                                   q_mask, r_tokens, r_mask, count)
+        self.state, slots = self._insert(self.state, embs, q_tokens, q_mask, r_tokens, r_mask,
+                                         count)
         return slots
 
     def maybe_reindex(self) -> bool:
@@ -176,10 +226,27 @@ class SharedCacheBank:
         ``insert_seq``, the rebuilds' seed stream, either way."""
         rebuilt = False
         if self.cfg.index == "ivf":
-            self.state, rebuilt = index_lib.maybe_reindex(self.state, self.cfg,
-                                                          seed=self.insert_seq)
+            if self.mesh is None:
+                self.state, rebuilt = index_lib.maybe_reindex(self.state, self.cfg,
+                                                              seed=self.insert_seq)
+            else:
+                rebuilt = self._maybe_reindex_sharded()
         self.insert_seq += 1
         return rebuilt
+
+    def _maybe_reindex_sharded(self) -> bool:
+        """The sharded recluster: gather, ``build_index``, reshard, on the
+        same rule and seed as a local bank, so both hold the same index
+        after it.  One host read of the two replicated scalars."""
+        st = self.state
+        flags = torch.stack([st["ivf_overflow"].to(torch.int32), st["ivf_pending"]])
+        overflow, pending = flags.cpu().tolist()
+        if not (overflow or pending >= index_lib.resolve(self.cfg).reindex_every):
+            return False
+        local = index_lib.build_index(dist_lib.gather_cache_state(st, self.cfg), self.cfg,
+                                      seed=self.insert_seq)
+        self.state = dist_lib.shard_ivf_cache_state(local, self.mesh, self.cfg)
+        return True
 
 
 def _fetch_route(scores, idx, dec, admit):
@@ -200,13 +267,19 @@ class TweakLLMEngine:
                  cache_cfg: Optional[cache_lib.CacheConfig] = None,
                  router_cfg: Optional[router_lib.RouterConfig] = None,
                  max_query_len: int = 64, use_prefix_cache: bool = True,
-                 bank: Optional[SharedCacheBank] = None, reranker=None):
+                 bank: Optional[SharedCacheBank] = None, replica_id: int = 0, reranker=None):
         if bank is None:
             if cache_cfg is None:
                 raise ValueError("pass cache_cfg or a SharedCacheBank")
             bank = SharedCacheBank(cache_cfg, router_cfg,
                                    device=embedder_params["embed"].device, reranker=reranker)
+        else:
+            if cache_cfg is not None and cache_cfg != bank.cfg:
+                raise ValueError("cache_cfg disagrees with the shared bank")
+            if router_cfg is not None and router_cfg != bank.router_cfg:
+                raise ValueError("router_cfg disagrees with the shared bank")
         self.bank = bank
+        self.replica_id = replica_id
         self.tok = tokenizer
         self.embedder_params = embedder_params
         self.embedder_cfg = embedder_cfg
@@ -347,8 +420,9 @@ class TweakLLMEngine:
     def _decode_slot(self, slot: int, which: str) -> List[int]:
         """A slot's cached ``q`` or ``r`` tokens from the device (a cold
         fallback, and a host sync, when the text mirror lacks the slot)."""
-        toks = self.state[f"{which}_tokens"][slot].cpu().numpy().tolist()
-        mask = self.state[f"{which}_mask"][slot].cpu().numpy().tolist()
+        at = torch.tensor([slot], device=self.device)
+        toks = cache_lib.gather_rows(self.state, f"{which}_tokens", at)[0].tolist()
+        mask = cache_lib.gather_rows(self.state, f"{which}_mask", at)[0].tolist()
         return [t for t, m in zip(toks, mask) if m > 0]
 
     def _decode_cached(self, slot: int) -> str:
@@ -641,3 +715,67 @@ class TweakLLMEngine:
         resp_tokens = [[t for t, m in zip(rt_l[i], rm_l[i]) if m > 0]
                        for i in range(len(queries))]
         self._insert_entries(queries, resp_tokens, responses, embs)
+
+
+class ReplicaGroup:
+    """N engine replicas over one shared cache bank, or private ones.
+
+    The generators are shared handles or built per replica; the bank is ONE
+    ``SharedCacheBank`` serving every replica (``shared=False`` gives each a
+    private bank, the baseline the reference's replica bench compares
+    against).  The replicas run one after another in one process, as the
+    reference's do.
+    """
+
+    def __init__(self, engines: List[TweakLLMEngine]):
+        if not engines:
+            raise ValueError("ReplicaGroup needs at least one engine")
+        self.engines = list(engines)
+
+    @classmethod
+    def build(cls, n: int, *, tokenizer, embedder_params, embedder_cfg, big, small,
+              cache_cfg: cache_lib.CacheConfig,
+              router_cfg: Optional[router_lib.RouterConfig] = None, shared: bool = True,
+              mesh=None, reranker=None, **engine_kw) -> "ReplicaGroup":
+        """``n`` replicas.  ``big``/``small`` are generators shared by every
+        replica, or callables ``replica_id -> Generator`` for per-replica
+        handles (distinct KV pools).  ``mesh`` row-shards each bank."""
+        dev = embedder_params["embed"].device
+
+        def bank():
+            return SharedCacheBank(cache_cfg, router_cfg, device=dev, mesh=mesh,
+                                   reranker=reranker)
+
+        one = bank() if shared else None
+        return cls([TweakLLMEngine(
+            tokenizer=tokenizer, embedder_params=embedder_params, embedder_cfg=embedder_cfg,
+            big=big(rid) if callable(big) else big,
+            small=small(rid) if callable(small) else small,
+            bank=one if shared else bank(), replica_id=rid, **engine_kw)
+            for rid in range(n)])
+
+    def __len__(self) -> int:
+        return len(self.engines)
+
+    def __getitem__(self, rid: int) -> TweakLLMEngine:
+        return self.engines[rid]
+
+    @property
+    def shared(self) -> bool:
+        return all(e.bank is self.engines[0].bank for e in self.engines)
+
+    @property
+    def bank(self) -> SharedCacheBank:
+        if not self.shared:
+            raise ValueError("replicas hold private banks; no single bank")
+        return self.engines[0].bank
+
+    @property
+    def stats(self) -> EngineStats:
+        """Serve counters summed over every replica."""
+        return EngineStats.aggregate(e.stats for e in self.engines)
+
+    def leaked_kv_pages(self) -> List[int]:
+        """Per-replica leaked (live minus pinned) KV pages of paged pools;
+        every entry must be 0 once all work is harvested."""
+        return [leaked_pages(e.big, e.small) for e in self.engines]

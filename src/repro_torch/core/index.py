@@ -155,14 +155,20 @@ def live_entries_per_slot(state):
     return torch.bincount(members[live].long(), minlength=state["valid"].numel())
 
 
+def shortlist(members, count, valid, assign, slot_pos, probe):
+    """The padded member shortlist of the probed clusters ``probe`` (B,
+    nprobe): (cand_idx (B, nprobe*bucket) int32 bank rows, live (B, M))."""
+    cand = members[probe]                                       # (B, np, bucket)
+    live = _entry_live(cand, count[probe], probe, valid, assign, slot_pos)
+    b = probe.shape[0]
+    return cand.reshape(b, -1), live.reshape(b, -1)
+
+
 def candidates(members, count, valid, assign, slot_pos, centroids, q_embs, nprobe: int):
     """Two-stage probe: centroid route -> padded member shortlist.
     Returns (cand_idx (B, nprobe*bucket) int32 bank rows, live (B, M) bool)."""
-    probe = probe_clusters(centroids, q_embs, nprobe)           # (B, np)
-    cand = members[probe]                                       # (B, np, bucket)
-    live = _entry_live(cand, count[probe], probe, valid, assign, slot_pos)
-    b = q_embs.shape[0]
-    return cand.reshape(b, -1), live.reshape(b, -1)
+    return shortlist(members, count, valid, assign, slot_pos,
+                     probe_clusters(centroids, q_embs, nprobe))
 
 
 def lookup(state, cfg, q_embs):

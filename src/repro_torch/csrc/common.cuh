@@ -28,4 +28,28 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Devices a process may launch on: the entries of the per-device tables below.
+constexpr int kMaxDevices = 64;
+
+// Raise `kernel`'s dynamic shared-memory limit to `smem` bytes on the current
+// device (and, with `carveout`, ask for the largest shared-memory carveout).
+// cudaFuncSetAttribute acts on the current device only, so `allowed` keeps
+// one entry per device: one zero-initialised array per kernel instance.
+template <class Kernel>
+cudaError_t raise_smem_limit(Kernel kernel, size_t smem, size_t* allowed,
+                             bool carveout = false) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess && carveout)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) allowed[dev] = smem;
+  return err;
+}
+
 }  // namespace repro_torch

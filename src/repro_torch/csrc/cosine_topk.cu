@@ -271,18 +271,9 @@ int launch(const float* q, const float* db, const unsigned char* valid, float* p
            cudaStream_t s) {
   const int nchunks = (n + chunk - 1) / chunk;
   const size_t smem = sizeof(float) * ((size_t)kQB * d + (size_t)kStages * kStageF);
-  static size_t allowed = 0;   // the kernel's dynamic shared-memory limit set so far
-  if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(cosine_topk_partial_kernel<K>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(cosine_topk_partial_kernel<K>,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    allowed = smem;
-  }
+  static size_t allowed[kMaxDevices] = {};   // the limit set so far, per device
+  cudaError_t err = raise_smem_limit(cosine_topk_partial_kernel<K>, smem, allowed, true);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(nchunks, (batch + kQB - 1) / kQB);
   cosine_topk_partial_kernel<K><<<grid, kScanThreads, smem, s>>>(q, db, valid, batch, n, d,
                                                                  chunk, part_s, part_i);

@@ -473,14 +473,9 @@ int launch_mma(const void* q, const void* k, const void* v, const void* q_pos,
                int hk, int causal, int window, float scale, cudaStream_t stream) {
   const int ntiles = (sk_pad + kBN - 1) / kBN;
   const size_t smem = MmaSmem<DH>::bytes(ntiles);
-  static size_t allowed = 0;   // the kernel's dynamic shared-memory limit set so far
-  if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<DH>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    allowed = smem;
-  }
+  static size_t allowed[kMaxDevices] = {};   // the limit set so far, per device
+  cudaError_t err = raise_smem_limit(flash_fwd_mma_kernel<DH>, smem, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((sq * (h / hk) + kBM - 1) / kBM, hk, batch);
   flash_fwd_mma_kernel<DH><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

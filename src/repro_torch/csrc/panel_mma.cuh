@@ -426,14 +426,9 @@ template <int DH, int NT, class KV>
 int launch_nt(const void* q, const KV& kv, const panel::Geometry& geo, const Args& args,
               int batch, void* out, cudaStream_t stream) {
   const size_t smem = Smem<DH>::bytes((geo.chunk + kTile - 1) / kTile);
-  static size_t allowed = 0;   // this instance's dynamic shared-memory limit set so far
-  if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(panel_mma_kernel<DH, NT, KV>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    allowed = smem;
-  }
+  static size_t allowed[kMaxDevices] = {};   // this instance's limit so far, per device
+  cudaError_t err = raise_smem_limit(panel_mma_kernel<DH, NT, KV>, smem, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(batch * geo.hk, geo.nsplit, (geo.kq + args.kqp - 1) / args.kqp);
   cfg.blockDim = dim3(kThreads);

@@ -234,6 +234,14 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def launch(device: torch.device, entry, *args) -> int:
+    """Call a library entry ``entry(*args, stream)`` on ``device``'s current
+    stream with ``device`` current: the runtime launches on the current
+    device, and a stream of another device is an invalid handle there."""
+    with torch.cuda.device(device):
+        return entry(*args, stream_ptr(device))
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     """All tensors on one CUDA device and contiguous; returns the device."""
     dev = tensors[0].device

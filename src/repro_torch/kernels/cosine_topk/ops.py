@@ -88,10 +88,9 @@ def cosine_topk(queries, db, valid, *, k: int = 4, block_n: int = 1024):
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     lib = build.load_library()
-    rc = lib.cosine_topk_launch(
-        queries.data_ptr(), db.data_ptr(), valid.data_ptr(), part_s.data_ptr(),
-        part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), b, n, d, k, block_n,
-        build.stream_ptr(dev))
+    rc = build.launch(
+        dev, lib.cosine_topk_launch, queries.data_ptr(), db.data_ptr(), valid.data_ptr(), part_s.data_ptr(),
+        part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), b, n, d, k, block_n)
     build.check(rc, "cosine_topk")
     launches += 1
     return out_s, out_i
@@ -188,10 +187,10 @@ def cosine_topk_gather(queries, db, cand_idx, cand_valid, *, k: int = 4, block_m
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     lib = build.load_library()
-    rc = lib.cosine_topk_gather_launch(
-        queries.data_ptr(), db.data_ptr(), cand_idx.data_ptr(), cand_valid.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), b, db.shape[0], m, d, k, plan.block_m,
-        build.stream_ptr(dev))
+    rc = build.launch(
+        dev, lib.cosine_topk_gather_launch, queries.data_ptr(), db.data_ptr(),
+        cand_idx.data_ptr(), cand_valid.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), b,
+        db.shape[0], m, d, k, plan.block_m)
     build.check(rc, "cosine_topk_gather")
     gather_launches += 1
     return out_s, out_i

@@ -174,10 +174,10 @@ def decode_attention(q, k, v, cache_len):
     plan = launch_plan(b, 1, t, hk, g, dh, q.dtype)
     parts = partial_states("decode_attention", dev, plan, b, hk, g, dh)
     out = torch.empty_like(q)
-    rc = build.load_library().decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-        *map(ptr, parts), b, t, hk, g, dh, build.DTYPE_CODES[q.dtype], plan.chunk, plan.splits,
-        float(dh) ** -0.5, build.stream_ptr(dev))
+    rc = build.launch(
+        dev, build.load_library().decode_attention_launch, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), cache_len.data_ptr(), out.data_ptr(), *map(ptr, parts), b, t, hk, g, dh,
+        build.DTYPE_CODES[q.dtype], plan.chunk, plan.splits, float(dh) ** -0.5)
     build.check(rc, "decode_attention")
     launches += 1
     return out
@@ -197,10 +197,11 @@ def decode_attention_block(q, k, v, cache_len):
     plan = launch_plan(b, kq, t, hk, g, dh, q.dtype)
     parts = partial_states("decode_attention_block", dev, plan, b, hk, kq * g, dh)
     out = torch.empty_like(q)
-    rc = build.load_library().decode_attention_block_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-        *map(ptr, parts), b, kq, t, hk, g, dh, build.DTYPE_CODES[q.dtype], plan.chunk, plan.splits,
-        plan.kq_panel, float(dh) ** -0.5, build.stream_ptr(dev))
+    rc = build.launch(
+        dev, build.load_library().decode_attention_block_launch, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), cache_len.data_ptr(), out.data_ptr(), *map(ptr, parts), b, kq, t, hk, g,
+        dh, build.DTYPE_CODES[q.dtype], plan.chunk, plan.splits, plan.kq_panel,
+        float(dh) ** -0.5)
     build.check(rc, "decode_attention_block")
     block_launches += 1
     return out

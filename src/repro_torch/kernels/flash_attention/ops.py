@@ -110,10 +110,10 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
                          f"exceed {build.SMEM_PER_BLOCK} (Sk_pad {plan.sk_pad})")
     out = torch.empty_like(q)
     lib = build.load_library()
-    rc = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-        out.data_ptr(), b, sq, sk, plan.sk_pad, h, hk, dh, build.DTYPE_CODES[q.dtype],
-        int(causal), int(window), float(dh) ** -0.5, build.stream_ptr(dev))
+    rc = build.launch(
+        dev, lib.flash_attention_launch, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q_pos.data_ptr(), k_pos.data_ptr(), out.data_ptr(), b, sq, sk, plan.sk_pad, h, hk, dh,
+        build.DTYPE_CODES[q.dtype], int(causal), int(window), float(dh) ** -0.5)
     build.check(rc, "flash_attention")
     launches += 1
     return out

@@ -56,11 +56,11 @@ def _launch(entry, name, dev, q, kp, vp, block_tbl, slot_pos, q_pos, shape):
     parts = partial_states(name, dev, plan, b, hk, kq * g, dh)
     out = torch.empty_like(q)
     block = () if q_pos is None else (q_pos.data_ptr(),)   # the verify block's extra
-    rc = entry(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), block_tbl.data_ptr(),
-               slot_pos.data_ptr(), *block, out.data_ptr(), *map(ptr, parts), b,
-               *(() if q_pos is None else (kq,)), cap, hk, g, dh, page, npg,
-               build.DTYPE_CODES[q.dtype], plan.chunk, plan.splits, plan.kq_panel,
-               float(dh) ** -0.5, build.stream_ptr(dev))
+    rc = build.launch(dev, entry, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                      block_tbl.data_ptr(), slot_pos.data_ptr(), *block, out.data_ptr(),
+                      *map(ptr, parts), b, *(() if q_pos is None else (kq,)), cap, hk, g, dh,
+                      page, npg, build.DTYPE_CODES[q.dtype], plan.chunk, plan.splits,
+                      plan.kq_panel, float(dh) ** -0.5)
     build.check(rc, name)
     return out
 

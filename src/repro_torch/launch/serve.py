@@ -23,8 +23,9 @@ As in the reference, the embedder is trained contrastively
 router cascade: the stack then also builds and trains the cross-encoder
 reranker (``train_reranker_steps``, 120) and returns it under ``reranker``.
 Weights start random, drawn on the device from ``torch.Generator``s seeded
-from ``seed`` (the repo has no public weights).  Replica groups and a
-sharded bank are not ported and raise.
+from ``seed`` (the repo has no public weights).  ``build_replica_group``
+puts N engine replicas over one shared bank (or private ones), row-sharded
+over a cache mesh when ``cache_shards > 1``.
 
 ``main`` is the serving CLI of ``src/repro/launch/serve.py``: it replays a
 Zipfian arrival trace through the scheduler and prints the same report.
@@ -32,6 +33,7 @@ Zipfian arrival trace through the scheduler and prints the same report.
   PYTHONPATH=src python -m repro_torch.launch.serve --queries 200 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --index ivf --admit-floor 0.2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --band 0.12 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2 --cache-shards 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --model llama-3.1-8b   # on the card
 """
 from __future__ import annotations
@@ -43,17 +45,18 @@ import torch
 
 from repro_torch.configs import llama31_8b
 from repro_torch.core.cache import CacheConfig
-from repro_torch.core.engine import TweakLLMEngine
+from repro_torch.core.engine import ReplicaGroup, TweakLLMEngine
 from repro_torch.core.router import RouterConfig
 from repro_torch.data import WorkloadGenerator
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_cache_mesh
 from repro_torch.models import ModelConfig, build_model
 from repro_torch.models.embedder import MINILM_CONFIG, init_embedder, tiny_embedder_config
 from repro_torch.models.reranker import init_reranker, tiny_reranker_config
 from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.sampler import SamplerConfig
-from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig, SimClock,
-                                           poisson_trace, replay_trace)
+from repro_torch.serving.scheduler import (ReplicaScheduler, Scheduler, SchedulerConfig,
+                                           SimClock, poisson_trace, replay_trace)
 from repro_torch.tokenizer import HashWordTokenizer
 from repro_torch.training.embedder_train import train_embedder
 from repro_torch.training.reranker_train import train_reranker
@@ -144,18 +147,19 @@ def build_engine(**kw) -> TweakLLMEngine:
     return TweakLLMEngine(**build_stack(**kw))
 
 
-def build_replica_group(n: int, **kw):
-    raise NotImplementedError("replica groups over a shared bank are not ported")
-
-
-def _off_slice(args) -> None:
-    """Flags whose paths are not ported raise before anything is built."""
-    off = [(args.replicas > 1, "--replicas > 1 (replica groups, ROADMAP queue 1)"),
-           (args.cache_shards > 0, "--cache-shards (a sharded bank, ROADMAP queue 1)"),
-           (args.private_caches, "--private-caches (replica groups, ROADMAP queue 1)")]
-    for bad, what in off:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported")
+def build_replica_group(n: int, *, shared: bool = True, cache_shards: int = 0,
+                        **kw) -> ReplicaGroup:
+    """``n`` replicas over one shared bank (``shared=False``: a private bank
+    each); the generators are shared handles.  ``cache_shards > 1``
+    row-shards the bank over that many devices: the first CUDA devices, or
+    that many CPU shards when ``device`` is the CPU."""
+    stack = build_stack(**kw)
+    mesh = None
+    if cache_shards > 1:
+        dev = stack["embedder_params"]["embed"].device
+        mesh = make_cache_mesh(cache_shards,
+                               devices=[dev] * cache_shards if dev.type == "cpu" else None)
+    return ReplicaGroup.build(n, shared=shared, mesh=mesh, **stack)
 
 
 def main(argv=None) -> int:
@@ -186,26 +190,33 @@ def main(argv=None) -> int:
     ap.add_argument("--embedder-steps", type=int, default=60,
                     help="contrastive training steps of the embedder")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="engine replicas over one bank (not ported: > 1 raises)")
+                    help="engine replicas over ONE shared cache bank")
     ap.add_argument("--cache-shards", type=int, default=0,
-                    help="row-shard the bank (not ported: > 0 raises)")
+                    help="row-shard the shared bank over this many devices (CUDA "
+                         "devices, or CPU shards with --device cpu; 0 = local)")
     ap.add_argument("--private-caches", action="store_true",
-                    help="a private bank per replica (not ported)")
+                    help="give each replica a private bank (the degraded baseline)")
     ap.add_argument("--model", default="serve-tiny", choices=list(MODELS))
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for (--device cpu)")
     args = ap.parse_args(argv)
-    _off_slice(args)
 
     print(f"building TweakLLM stack ({args.model} on {args.device}, training the "
           f"embedder contrastively)...")
-    eng = build_engine(model=args.model, device=args.device, threshold=args.threshold,
-                       policy=args.policy, index=args.index,
-                       train_embedder_steps=args.embedder_steps, band=args.band,
-                       train_reranker_steps=args.reranker_steps, admit_floor=args.admit_floor)
+    kw = dict(model=args.model, device=args.device, threshold=args.threshold,
+              policy=args.policy, index=args.index, train_embedder_steps=args.embedder_steps,
+              band=args.band, train_reranker_steps=args.reranker_steps,
+              admit_floor=args.admit_floor)
     scfg = SchedulerConfig(max_wait=args.max_wait, max_batch=args.batch, max_new_tokens=8,
                            cost_threshold=args.cost_threshold)
-    sched = Scheduler(eng, scfg, clock=SimClock())
+    if args.replicas > 1 or args.cache_shards > 1:
+        group = build_replica_group(args.replicas, shared=not args.private_caches,
+                                    cache_shards=args.cache_shards, **kw)
+        sched = ReplicaScheduler(group.engines, scfg, clock=SimClock())
+        eng, stats_src = group[0], group
+    else:
+        eng = stats_src = build_engine(**kw)
+        sched = Scheduler(eng, scfg, clock=SimClock())
     wl = WorkloadGenerator(profile=args.profile, seed=0)
     texts = [q.text for q in wl.sample(args.queries)]
     trace = poisson_trace(texts, args.rate, seed=0)
@@ -218,12 +229,18 @@ def main(argv=None) -> int:
         raise RuntimeError(f"{len(done)} completions for {len(texts)} requests "
                            f"({sched.stats.rejected} rejected)")
 
-    s, ss = eng.stats, sched.stats
+    s, ss = stats_src.stats, sched.stats
     print(f"\n== TweakLLM serving report ({args.profile} profile) ==")
     print(f"requests: {ss.completed}  ({dt/max(ss.completed,1)*1e3:.1f} "
           f"ms/request wall on {eng.device.type})")
     print(f"scheduler: batches={ss.batches} mean_batch={ss.mean_batch:.1f} "
           f"dedup_joined={ss.joined} rejected={ss.rejected}")
+    if args.replicas > 1:
+        lanes = " ".join(f"r{i}:{lane.dispatched}d/{lane.batches}b+{lane.stolen_in}st"
+                         for i, lane in enumerate(sched.lanes))
+        print(f"replicas: {args.replicas} "
+              f"({'shared' if not args.private_caches else 'private'} bank, "
+              f"shards={max(args.cache_shards, 1)}) {lanes} stolen={ss.stolen}")
     print(f"routing: miss={s.miss} tweak={s.tweak} exact={s.exact} "
           f"hit_rate={s.hit_rate:.2%} (+{ss.joined} joined in flight)")
     if args.band > 0 or args.admit_floor > 0:

@@ -30,9 +30,15 @@ tokens do not depend on chunk size or on co-resident rows.  Under
 temperature sampling the draws of a chunk's extra steps shift later draws,
 so those equalities are greedy-only.
 
+A ``spec_k > 1`` session decodes in (slots, k) verify blocks: a row admitted
+with a draft (the cached response) accepts the longest matching prefix plus
+one correction token per block, a row without one accepts one token, and the
+rejected positions are rewound.  A chunk step is one verify block; the
+tokens equal the plain session's.  Done-masked blocks accept nothing, so
+``spec_stats`` counts exactly the JAX loop's iterations.
+
 State lives on the generator's device; page writes and slot updates are in
-place (the JAX package donates the state).  ``spec_k > 1`` (draft-verify
-blocks inside a session) is not ported.
+place (the JAX package donates the state).
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ from repro_torch.device import to_device
 
 from . import paged_kv as paged_lib
 from .generate import Generator
-from .sampler import sample
+from .sampler import greedy_ids, mask_vocab, sample
 
 
 class NoFreeSlots(RuntimeError):
@@ -72,9 +78,16 @@ class DecodeSession:
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if spec_k > 1:
-            raise NotImplementedError(
-                "DecodeSession(spec_k > 1), draft-verify blocks inside a session, is "
-                "not ported (ROADMAP queue 1, DecodeSession speculation)")
+            # speculation is lossless only under greedy argmax
+            if gen.cfg.sampler.temperature > 0:
+                raise ValueError("spec_k > 1 requires greedy sampling "
+                                 f"(temperature={gen.cfg.sampler.temperature})")
+            if not gen.model.supports_spec_decode:
+                raise ValueError(f"{gen.model.cfg.name}: speculative decode unsupported "
+                                 f"for this architecture")
+            if spec_k > gen.cfg.max_new_tokens:
+                raise ValueError(f"spec_k={spec_k} exceeds the "
+                                 f"max_new_tokens={gen.cfg.max_new_tokens} budget")
         self.gen = gen
         self.model = gen.model
         self.params = gen.params
@@ -113,7 +126,7 @@ class DecodeSession:
 
         caches = paged_lib.map_kv_leaves(self.pool.storage, empty)
         caches["pos"] = torch.zeros(b, dtype=torch.int32, device=dev)
-        return {
+        state = {
             "caches": caches,
             "tok": torch.full((b,), eos, dtype=torch.int32, device=dev),
             "toks": torch.full((b, mnt), eos, dtype=torch.int32, device=dev),
@@ -122,10 +135,22 @@ class DecodeSession:
             "eos_done": torch.zeros(b, dtype=torch.bool, device=dev),
             "occupied": torch.zeros(b, dtype=torch.bool, device=dev),
         }
+        if self.spec_k > 1:
+            state.update(
+                draft=torch.zeros((b, mnt), dtype=torch.int32, device=dev),
+                draft_len=torch.zeros(b, dtype=torch.int32, device=dev),
+                spec_on=torch.zeros(b, dtype=torch.bool, device=dev),
+                prop=torch.zeros((), dtype=torch.int32, device=dev),
+                acc=torch.zeros((), dtype=torch.int32, device=dev),
+                spec_steps=torch.zeros((), dtype=torch.int32, device=dev))
+        return state
 
-    def _splice(self, dense, logits0, slot_ids, tbl, writable):
+    def _splice(self, dense, logits0, slot_ids, tbl, writable, drafts=None):
         """Scatter a prefilled cohort's KV into its pages and splice its rows
-        into ``slot_ids``; sample the first token from the prefill logits."""
+        into ``slot_ids``; sample the first token from the prefill logits.  A
+        spec session also splices the cohort's drafts ``(ids (k, mnt), lens
+        (k,))`` and arms speculation for rows whose draft predicted the first
+        token, so mid-flight joins speculate as inaugural rows do."""
         st = self.state
         for leaf, d in zip(paged_lib.kv_leaves(st["caches"]), paged_lib.kv_leaves(dense)):
             paged_lib.scatter_pages(leaf["kp"], leaf["vp"], d["k"], d["v"], tbl, writable)
@@ -143,6 +168,11 @@ class DecodeSession:
         st["lengths"][slot_ids] = torch.where(done0, 1, self.mnt).to(torch.int32)
         st["eos_done"][slot_ids] = done0
         st["occupied"][slot_ids] = True
+        if drafts is not None:
+            did, dlen = drafts
+            st["draft"][slot_ids] = did
+            st["draft_len"][slot_ids] = dlen
+            st["spec_on"][slot_ids] = ~done0 & (dlen > 0) & (t0 == did[:, 0])
 
     def _active(self):
         st = self.state
@@ -165,6 +195,50 @@ class DecodeSession:
         st["n_emitted"] = torch.where(inactive, col, col + 1)
         st["tok"], st["eos_done"] = t, new_eos
 
+    def _step_spec(self):
+        """One (slots, k) verify block over every row (the JAX package's
+        ``step_body_spec``).  A speculating row verifies ``[last token,
+        draft...]`` and accepts ``a`` in [1, k] tokens; any other active row
+        accepts its one greedy token (position 0 of the block is the plain
+        step, in-block causal masking hides the optimistic writes); an
+        inactive row accepts none.  The k - a rejected positions are
+        rewound, so a block in which no row is active changes nothing."""
+        st = self.state
+        k, mnt, eos = self.spec_k, self.mnt, self.cfg.eos_id
+        tok, ne = st["tok"], st["n_emitted"]
+        draft, dlen = st["draft"], st["draft_len"]
+        act = self._active()
+        spec = act & st["spec_on"]
+        iota_k = torch.arange(k, dtype=torch.int32, device=self.device)
+        dpos = ne[:, None] + iota_k[None, :k - 1]                   # (B,k-1)
+        dval = draft.gather(1, dpos.clamp(0, mnt - 1).long())
+        x = torch.cat([tok[:, None], dval], dim=1)                   # (B,k)
+        logits, st["caches"] = self.model.decode_block(self.params, x, st["caches"])
+        g = greedy_ids(mask_vocab(logits, self.cfg.sampler))         # (B,k)
+        match = (g[:, :k - 1] == dval) & (dpos < dlen[:, None])
+        lmatch = match.to(torch.int32).cumprod(dim=1).sum(dim=1).to(torch.int32)
+        eos_idx = torch.where(g == eos, iota_k[None, :], k).amin(dim=1)
+        a_spec = torch.minimum(torch.minimum(lmatch + 1, eos_idx + 1), mnt - ne)
+        a = torch.where(spec, a_spec, act.to(torch.int32)).to(torch.int32)
+        tlast = g.gather(1, (a - 1).clamp(0, k - 1)[:, None].long())[:, 0]
+        ended_now = (a > 0) & (tlast == eos)
+        st["lengths"] = torch.where(ended_now, ne + a, st["lengths"])
+        sel = (self._cols - ne[:, None]).clamp(0, k - 1)
+        in_rng = (self._cols >= ne[:, None]) & (self._cols < (ne + a)[:, None])
+        st["toks"] = torch.where(in_rng, g.gather(1, sel.long()), st["toks"])
+        st["tok"] = torch.where(a > 0, tlast, tok)
+        st["caches"] = paged_lib.rewind_kv(st["caches"], k - a)
+        ne2 = ne + a
+        n_fed = (dlen - ne).clamp(0, k - 1)
+        st["n_emitted"] = ne2
+        st["eos_done"] = st["eos_done"] | ended_now
+        # full acceptance keeps a row speculating; rejection or exhaustion drops it
+        st["spec_on"] = spec & (a == k) & (ne2 < dlen)
+        st["prop"] = st["prop"] + torch.where(spec, n_fed, 0).sum().to(torch.int32)
+        st["acc"] = st["acc"] + torch.where(spec, torch.minimum(lmatch, a), 0).sum().to(
+            torch.int32)
+        st["spec_steps"] = st["spec_steps"] + spec.any().to(torch.int32)
+
     def _evict(self, slot_ids):
         """Clear harvested slots: block tables -> TRASH so the freed pages can
         be re-issued without being stomped."""
@@ -179,19 +253,41 @@ class DecodeSession:
         st["lengths"][slot_ids] = 0
         st["eos_done"][slot_ids] = False
         st["occupied"][slot_ids] = False
+        if self.spec_k > 1:
+            st["draft"][slot_ids] = 0
+            st["draft_len"][slot_ids] = 0
+            st["spec_on"][slot_ids] = False
 
     # --------------------------------------------------------- protocol
     @property
     def free_slots(self) -> int:
         return len(self._free_slots)
 
+    @property
+    def spec_stats(self) -> Dict[str, int]:
+        """Cumulative speculation counters: ``proposed`` drafted tokens fed to
+        verify blocks, ``accepted`` drafted tokens emitted, ``spec_steps``
+        verify blocks with at least one speculating row.  Reading them costs
+        one device->host copy (nothing on a ``spec_k == 1`` session)."""
+        if self.spec_k == 1:
+            return {"proposed": 0, "accepted": 0, "spec_steps": 0}
+        st = self.state
+        prop, acc, steps = torch.stack([st["prop"], st["acc"], st["spec_steps"]]).tolist()
+        return {"proposed": prop, "accepted": acc, "spec_steps": steps}
+
     def admit(self, tokens, tags: Optional[Sequence[Any]] = None,
-              slots: Optional[Sequence[int]] = None) -> List[int]:
+              slots: Optional[Sequence[int]] = None, drafts=None) -> List[int]:
         """Splice a cohort of prompts (k, S) into free slots; returns the slot
         ids used.  ``tags`` ride along to ``harvest``; ``slots`` pins
-        explicit slot choices.  All or nothing: raises ``NoFreeSlots``,
-        ``PagePoolExhausted`` or ``ValueError`` before touching the state.
+        explicit slot choices.  ``drafts`` is an optional ``(ids (k, D), lens
+        (k,))`` pair of host ints, per-row draft continuations (cached
+        response ids) that a ``spec_k > 1`` session verifies in k-wide
+        blocks; rows with ``lens == 0`` decode plainly.  All or nothing:
+        raises ``NoFreeSlots``, ``PagePoolExhausted`` or ``ValueError``
+        before touching the state.
         """
+        if drafts is not None and self.spec_k == 1:
+            raise ValueError("drafts require a spec_k > 1 session")
         tokens = to_device(np.asarray(tokens), self.device).long()
         k, s = tokens.shape
         if s + self.mnt + 1 > self.capacity:
@@ -207,13 +303,24 @@ class DecodeSession:
                 raise ValueError("slots must name one distinct free slot per row")
             if any(c not in self._free_slots for c in chosen):
                 raise NoFreeSlots(f"requested slots {chosen} not all free")
+        spec = None
+        if self.spec_k > 1:
+            # pad or clip to the mnt-column draft block the verify body indexes
+            pack = np.zeros((k, self.mnt + 1), np.int32)
+            if drafts is not None:
+                raw_ids = np.asarray(drafts[0], np.int32)
+                w = min(raw_ids.shape[1], self.mnt)
+                pack[:, 1:1 + w] = raw_ids[:, :w]
+                pack[:, 0] = np.minimum(np.asarray(drafts[1], np.int32), self.mnt)
+            pack = to_device(pack, self.device)
+            spec = (pack[:, 1:], pack[:, 0])
         tbl, writable = self.pool.alloc_block_table(k, self.capacity)
         try:
             logits0, dense = self.model.prefill(self.params, {"tokens": tokens},
                                                 self.capacity)
             self._splice(dense, logits0, to_device(np.asarray(chosen, np.int64), self.device),
                          to_device(tbl.astype(np.int32), self.device),
-                         to_device(writable, self.device))
+                         to_device(writable, self.device), spec)
         except Exception:
             self.pool.free_block_table(tbl, writable)
             raise
@@ -228,12 +335,14 @@ class DecodeSession:
 
         ``fused=True`` enqueues the steps with no host sync (all ``steps``,
         done-masked); ``fused=False`` is the host-stepped oracle, one sync
-        per step, stopping once no row is active.
+        per step, stopping once no row is active.  On a ``spec_k > 1``
+        session a step is one verify block, up to ``spec_k`` tokens a row.
         """
+        step = self._step_spec if self.spec_k > 1 else self._step
         for _ in range(steps):
             if not fused and not bool(self._active().any()):
                 break
-            self._step()
+            step()
 
     def harvest(self) -> List[FinishedRow]:
         """Collect finished rows, free their pages, clear their slots.

@@ -1,5 +1,5 @@
-"""Request scheduler over ``TweakLLMEngine`` (counterpart of
-``src/repro/serving/scheduler.py``, without the replica lanes).
+"""Request scheduler over ``TweakLLMEngine`` replicas (counterpart of
+``src/repro/serving/scheduler.py``).
 
 Requests are *submitted* individually with arrival timestamps, admitted
 through a bounded queue (backpressure), coalesced into bucket-shaped serve
@@ -27,8 +27,10 @@ expires: queue -> coalesce -> dedup -> dispatch.
   With a deterministic engine, responses and EngineStats equal barrier
   mode; only latency and throughput change.
 
-Pure host Python; it imports nothing but the batcher.  ``ReplicaScheduler``
-(replica lanes with work stealing) is not ported.
+``ReplicaScheduler`` serves N engine replicas through one submit surface:
+least-loaded lanes, global dedup, work stealing, fleet-global backpressure
+and stats; ``Scheduler`` is its one-lane case.  Pure host Python; it imports
+nothing but the batcher.
 """
 from __future__ import annotations
 
@@ -101,8 +103,8 @@ class SchedulerConfig:
     # decode together and one finishing does not stall the rest.
     continuous: bool = False
     slots: int = 8
-    # ReplicaScheduler (not ported) only: let an idle replica steal queued
-    # groups from a backed-up one.  Ignored by the single-lane Scheduler.
+    # ReplicaScheduler only: let an idle replica steal queued groups from a
+    # backed-up one.  A single-lane Scheduler has no one to steal from.
     steal: bool = True
     # Default per-request routing operating point (DESIGN.md §13); None
     # defers to the engine's RouterConfig.default_cost.  A request-level
@@ -170,139 +172,203 @@ class SchedulerStats:
 
 
 # ------------------------------------------------------------ scheduler
-class Scheduler:
-    """Event-driven continuous-batching frontend (DESIGN.md §6).
+@dataclasses.dataclass
+class _Lane:
+    """One replica's dispatch state: its FIFO of dedup groups, its
+    barrier-mode busy horizon and its continuous-mode per-slot horizons
+    (each replica owns one ``DecodeSession``'s worth of decode slots)."""
+    engine: object
+    groups: List[List[Request]] = dataclasses.field(default_factory=list)
+    busy_until: float = 0.0
+    slot_free: List[float] = dataclasses.field(default_factory=list)
+    dispatched: int = 0
+    batches: int = 0
+    stolen_in: int = 0
+
+
+class ReplicaScheduler:
+    """Replica-aware frontend: N engines behind one submit surface.
 
     Drive it with ``submit`` + ``poll``; ``poll`` dispatches every batch
-    whose flush condition holds at ``clock.now()`` and returns the
-    requests completed by this call.  ``next_wakeup`` tells a simulation
-    loop the earliest time ``poll`` would act, so traces replay
-    event-to-event with no busy waiting (see ``replay_trace``).
+    whose flush condition holds at ``clock.now()`` and returns the requests
+    completed so far.  ``next_wakeup`` tells a simulation loop the earliest
+    time ``poll`` would act, so traces replay event-to-event with no busy
+    waiting (``replay_trace``).  Across the lanes:
+
+    * **Least-loaded dispatch** — a new group lands on the lane with the
+      shortest queue, ties to the earlier free horizon, then the lower lane.
+    * **Global dedup** — the dedup map spans lanes: N concurrent copies of
+      one text join one group on ONE lane, so the fleet runs one generation
+      per unique in-flight query.
+    * **Work stealing** (``cfg.steal``) — at each poll, a lane that is idle
+      with an empty queue takes the newest half of the backlog a busy lane
+      cannot dispatch now.
+
+    Backpressure (``queue_capacity``) and ``stats`` are fleet-global;
+    per-lane counters live on ``lanes[i]``.
     """
 
-    def __init__(self, engine, cfg: Optional[SchedulerConfig] = None, *,
+    def __init__(self, engines, cfg: Optional[SchedulerConfig] = None, *,
                  clock: Optional[Clock] = None,
                  service_model: Optional[Callable[[int], float]] = None):
-        self.engine = engine
+        if not engines:
+            raise ValueError("ReplicaScheduler needs at least one engine")
         self.cfg = cfg if cfg is not None else SchedulerConfig()
         self.clock = clock if clock is not None else WallClock()
         self.service_model = service_model
         self.stats = SchedulerStats()
-        # FIFO of dedup groups; each group shares one query text and is
-        # ordered by arrival (index 0 = primary, the rest join its dispatch)
-        self._groups: List[List[Request]] = []
-        self._by_text: Dict[Tuple[str, Optional[float]],
-                            List[Request]] = {}
+        self.lanes = [_Lane(engine=e, slot_free=[0.0] * self.cfg.slots) for e in engines]
+        # group of each in-flight (text, operating point); groups are ordered
+        # by arrival (index 0 = primary, the rest join its dispatch)
+        self._by_text: Dict[Tuple[str, Optional[float]], List[Request]] = {}
         # completions park here until a poll/flush RETURNS them: if one
         # dispatch in a multi-batch poll raises, earlier batches' completed
         # requests survive and are delivered by the next call
         self._completed: List[Request] = []
         self._n_pending = 0
-        self._busy_until = 0.0
-        # continuous mode: when each decode slot next frees (multiset —
-        # slots hold no host state here, only their busy horizon; the
-        # device-side identity lives in DecodeSession's leases)
-        self._slot_free: List[float] = [0.0] * self.cfg.slots
         self._rid = itertools.count()
+
+    @property
+    def engines(self) -> List[object]:
+        return [lane.engine for lane in self.lanes]
 
     # -------------------------------------------------------- admission
     @property
     def pending(self) -> int:
         return self._n_pending
 
-    def submit(self, text: str,
-               cost_threshold: Optional[float] = None) -> Request:
+    def _free_at(self, lane: _Lane) -> float:
+        return min(lane.slot_free) if self.cfg.continuous else lane.busy_until
+
+    def submit(self, text: str, cost_threshold: Optional[float] = None) -> Request:
         """Admit one request at ``clock.now()``; raises QueueFull.
 
-        ``cost_threshold`` picks this request's routing operating point
-        (DESIGN.md §13); None falls back to ``cfg.cost_threshold``, then
-        to the engine's default.
+        ``cost_threshold`` picks this request's routing operating point;
+        None falls back to ``cfg.cost_threshold``, then to the engine's
+        default.
         """
         if self._n_pending >= self.cfg.queue_capacity:
             self.stats.rejected += 1
-            raise QueueFull(
-                f"request queue at capacity ({self.cfg.queue_capacity})")
+            raise QueueFull(f"request queue at capacity ({self.cfg.queue_capacity})")
         if cost_threshold is None:
             cost_threshold = self.cfg.cost_threshold
-        req = Request(next(self._rid), text, self.clock.now(),
-                      cost_threshold=cost_threshold)
+        req = Request(next(self._rid), text, self.clock.now(), cost_threshold=cost_threshold)
         self.stats.submitted += 1
         key = (text, cost_threshold)
         group = self._by_text.get(key) if self.cfg.dedup else None
         if group is not None:
-            group.append(req)
+            group.append(req)           # joins its group's lane, wherever
         else:
             group = [req]
-            self._groups.append(group)
+            lane = min(self.lanes, key=lambda ln: (len(ln.groups), self._free_at(ln)))
+            lane.groups.append(group)
             if self.cfg.dedup:
                 self._by_text[key] = group
         self._n_pending += 1
         return req
 
     # --------------------------------------------------------- dispatch
-    def next_wakeup(self) -> Optional[float]:
-        """Earliest time ``poll`` would dispatch; None when queue empty."""
-        if not self._groups:
+    def _lane_wakeup(self, lane: _Lane) -> Optional[float]:
+        if not lane.groups:
             return None
-        t = self._groups[0][0].arrival
+        t = lane.groups[0][0].arrival
         if self.cfg.continuous:
             # no fill barrier: dispatch the moment a slot frees
-            return max(t, min(self._slot_free))
-        if len(self._groups) < self.cfg.max_batch:
+            return max(t, min(lane.slot_free))
+        if len(lane.groups) < self.cfg.max_batch:
             t += self.cfg.max_wait          # waiting to fill the bucket
-        return max(t, self._busy_until)
+        return max(t, lane.busy_until)
+
+    def next_wakeup(self) -> Optional[float]:
+        """Earliest time any lane would dispatch; None when all are idle."""
+        wakeups = [w for w in map(self._lane_wakeup, self.lanes) if w is not None]
+        return min(wakeups) if wakeups else None
+
+    def _steal(self, now: float) -> None:
+        """Idle lanes with empty queues take backlog busy lanes cannot serve.
+
+        A donor's surplus is what its queue holds beyond what it can
+        dispatch at ``now`` (nothing while busy; one batch, or its free
+        slots, when free).  The thief takes the newest ceil(surplus/2)
+        groups; the donor keeps its oldest, deadline-closest work.
+        """
+        if not self.cfg.steal or len(self.lanes) < 2:
+            return
+        for thief in self.lanes:
+            if thief.groups or self._free_at(thief) > now:
+                continue
+            donor = max(self.lanes, key=lambda ln: len(ln.groups))
+            if donor is thief:
+                continue
+            surplus = len(donor.groups)
+            if self._free_at(donor) <= now:
+                if self.cfg.continuous:
+                    cap = sum(t <= now for t in donor.slot_free)
+                else:
+                    cap = self.cfg.max_batch
+                surplus -= min(cap, self.cfg.max_batch)
+            if surplus <= 0:
+                continue
+            take = surplus - surplus // 2
+            moved = donor.groups[-take:]
+            del donor.groups[-take:]
+            # dedup entries follow their group objects; only the lane moves
+            thief.groups.extend(moved)
+            thief.stolen_in += len(moved)
+            self.stats.stolen += len(moved)
 
     def poll(self) -> List[Request]:
-        """Dispatch every due batch at ``clock.now()``; returns completions
-        (including any parked by an earlier, partially-failed call)."""
+        """Dispatch every due lane at ``clock.now()``, earliest wakeup first;
+        returns the completions parked so far."""
         while True:
-            w = self.next_wakeup()
-            if w is None or w > self.clock.now():
+            now = self.clock.now()
+            self._steal(now)
+            due = [(w, i) for i, lane in enumerate(self.lanes)
+                   if (w := self._lane_wakeup(lane)) is not None and w <= now]
+            if not due:
                 out, self._completed = self._completed, []
                 return out
-            self._dispatch()
+            self._dispatch(self.lanes[min(due)[1]])
 
     def flush(self) -> List[Request]:
-        """Drain the queue now, ignoring deadlines (end-of-stream)."""
-        while self._groups:
-            self._dispatch()
+        """Drain every lane now, ignoring deadlines (end of stream)."""
+        while any(lane.groups for lane in self.lanes):
+            for lane in self.lanes:
+                if lane.groups:
+                    self._dispatch(lane)
         out, self._completed = self._completed, []
         return out
 
-    def _dispatch(self) -> None:
+    def _dispatch(self, lane: _Lane) -> None:
         if self.cfg.continuous:
-            self._dispatch_continuous()
-            return
-        take = min(len(self._groups), self.cfg.max_batch)
-        groups = self._groups[:take]
-        result = self._serve(groups)
-        start = max(self.clock.now(), self._busy_until)
-        service = self.service_model(take) if self.service_model else 0.0
-        finish = start + service
-        self._busy_until = finish
-        self.stats.busy_time += service
+            # the cohort is whatever fits the slots free RIGHT NOW, the
+            # request-level analogue of DecodeSession.admit; each request
+            # holds one slot for its share of a full-slot decode
+            start = max(self.clock.now(), min(lane.slot_free))
+            free = [i for i, t in enumerate(lane.slot_free) if t <= start]
+            take = min(len(lane.groups), len(free), self.cfg.max_batch)
+            groups = lane.groups[:take]
+            result = self._serve(lane, groups)
+            service = (self.service_model(self.cfg.slots) / self.cfg.slots
+                       if self.service_model else 0.0)
+            finish = start + service
+            for i in free[:take]:
+                lane.slot_free[i] = finish
+            self.stats.busy_time += service * take
+        else:
+            take = min(len(lane.groups), self.cfg.max_batch)
+            groups = lane.groups[:take]
+            result = self._serve(lane, groups)
+            start = max(self.clock.now(), lane.busy_until)
+            service = self.service_model(take) if self.service_model else 0.0
+            finish = start + service
+            lane.busy_until = finish
+            self.stats.busy_time += service
+        lane.dispatched += len(groups)
+        lane.batches += 1
         self._complete(groups, result, finish)
 
-    def _dispatch_continuous(self) -> None:
-        """Slot-based dispatch: the cohort is whatever fits the slots that
-        are free RIGHT NOW (no fill barrier) — the request-level analogue
-        of ``DecodeSession.admit`` splicing rows in at a step boundary."""
-        start = max(self.clock.now(), min(self._slot_free))
-        free = [i for i, t in enumerate(self._slot_free) if t <= start]
-        take = min(len(self._groups), len(free), self.cfg.max_batch)
-        groups = self._groups[:take]
-        result = self._serve(groups)
-        # each request holds one slot for its steady-state share of a
-        # full-slot fused decode: finishing frees ONLY that slot
-        service = (self.service_model(self.cfg.slots) / self.cfg.slots
-                   if self.service_model else 0.0)
-        finish = start + service
-        for i in free[:take]:
-            self._slot_free[i] = finish
-        self.stats.busy_time += service * take
-        self._complete(groups, result, finish)
-
-    def _serve(self, groups):
+    def _serve(self, lane: _Lane, groups):
         # engine first, queue mutation after: if the engine raises, every
         # request stays pending (and countable) for a retry or flush
         texts = [g[0].text for g in groups]
@@ -311,9 +377,9 @@ class Scheduler:
         # cost-oblivious engines (baselines, test doubles) keep working
         kw = ({"cost_thresholds": costs}
               if any(c is not None for c in costs) else {})
-        result = self.engine.handle_batch_result(
+        result = lane.engine.handle_batch_result(
             texts, max_new_tokens=self.cfg.max_new_tokens, **kw)
-        del self._groups[:len(groups)]
+        del lane.groups[:len(groups)]
         if self.cfg.dedup:
             for g in groups:
                 self._by_text.pop((g[0].text, g[0].cost_threshold), None)
@@ -339,8 +405,22 @@ class Scheduler:
         self._n_pending -= sum(len(g) for g in groups)
 
 
+class Scheduler(ReplicaScheduler):
+    """Event-driven continuous-batching frontend over one engine: a single
+    lane, so stealing never applies."""
+
+    def __init__(self, engine, cfg: Optional[SchedulerConfig] = None, *,
+                 clock: Optional[Clock] = None,
+                 service_model: Optional[Callable[[int], float]] = None):
+        super().__init__([engine], cfg, clock=clock, service_model=service_model)
+
+    @property
+    def engine(self):
+        return self.lanes[0].engine
+
+
 # ------------------------------------------------------------- replay
-def replay_trace(sched: Scheduler, trace: Iterable[Tuple[float, str]], *,
+def replay_trace(sched: ReplicaScheduler, trace: Iterable[Tuple[float, str]], *,
                  drain: bool = True) -> List[Request]:
     """Replay (arrival_time, text) events through a SimClock'd scheduler.
 

@@ -784,3 +784,133 @@ def test_paged_spec_engine_on_the_card_matches_the_cpu():
     assert gpu[2] == cpu[2] and cpu[2][0] > 0
     assert gpu[3]["paged_decode_attention_block"] > 0
     assert max(cpu[3].values()) == 0
+
+
+def test_sharded_lookup_on_the_card_matches_the_local_bank():
+    """A 4-shard bank on one card (``make_cache_mesh`` naming cuda:0 four
+    times) against the local bank, flat and at a full IVF probe: the same
+    top-k (a tie straddling shards 0 and 3 goes to the lower slot), the
+    cosine kernel once per shard, the shortlist kernel once per shard."""
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import index as index_lib
+    from repro_torch.launch.mesh import make_cache_mesh
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    cfg = CacheConfig(capacity=4096, dim=384, topk=4, block_n=256)
+    st = cache_lib.init_cache(cfg, dev)
+    st["emb"].copy_(torch.nn.functional.normalize(
+        torch.randn(4096, 384, device=dev, generator=g), dim=-1))
+    st["valid"][:4000] = True
+    q = torch.nn.functional.normalize(torch.randn(8, 384, device=dev, generator=g), dim=-1)
+    st["emb"][[7, 3079]] = q[0]                       # shards 0 and 3 of 1,024 rows
+    mesh = make_cache_mesh(4, devices=[dev] * 4)
+    want = cache_lib.lookup(st, cfg, q)
+    reset_launch_counts()
+    got = dist.lookup(dist.shard_cache_state(st, mesh), cfg, q)
+    assert launch_counts()["cosine_topk"] == 4
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5)
+    assert torch.equal(got[1], want[1]) and got[1][0, :2].tolist() == [7, 3079]
+    icfg = dataclasses.replace(cfg, index="ivf", nclusters=16)
+    ist = cache_lib.init_cache(icfg, dev)
+    for key in ("emb", "valid"):
+        ist[key].copy_(st[key])
+    index_lib.build_index(ist, icfg, seed=0)
+    full = dataclasses.replace(icfg, nprobe=16)
+    reset_launch_counts()
+    vs, vi = dist.lookup(dist.shard_ivf_cache_state(ist, mesh, full), full, q)
+    counts = launch_counts()
+    assert counts["cosine_topk_gather"] == 4 and counts["cosine_topk"] == 0
+    torch.testing.assert_close(vs, want[0], rtol=0, atol=1e-5)
+    assert torch.equal(vi, want[1])
+
+
+def test_spec_session_verify_block_on_the_card_matches_the_cpu():
+    """One ``DecodeSession(spec_k=4)`` on the card and on the CPU, fp32, drafts
+    cut from the plain session's tokens (the second row's diverging after 3):
+    the same tokens, lengths and ``spec_stats``, equal to the plain
+    session's, through the paged verify kernel, no page leaked."""
+    from repro_torch.serving.continuous import DecodeSession, leaked_pages
+    dev = _cuda()
+    prompts = np.random.default_rng(0).integers(5, 2048, (2, 8)).astype(np.int32)
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        gen = _small_engine(device).small
+        gen.cfg = dataclasses.replace(gen.cfg, paged=True, max_new_tokens=12)
+        plain = DecodeSession(gen, slots=2, capacity=32)
+        plain.admit(prompts)
+        ref = np.stack([f["tokens"] for f in sorted(plain.drain(), key=lambda f: f["slot"])])
+        ids = ref.copy()
+        ids[1, 3:] = (ids[1, 3:] + 1) % 2048
+        sess = DecodeSession(gen, slots=2, capacity=32, spec_k=4)
+        sess.admit(prompts, drafts=(ids, np.full(2, 12, np.int32)))
+        reset_launch_counts()
+        sess.run_chunk(12)
+        counts = launch_counts()
+        fins = sorted(sess.harvest(), key=lambda f: f["slot"])
+        out[device.type] = (ref, np.stack([f["tokens"] for f in fins]), sess.spec_stats,
+                            counts)
+        assert leaked_pages(sess) == 0 and sess.pool.live_pages == 0
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert np.array_equal(gpu[0], cpu[0]) and np.array_equal(gpu[1], cpu[1])
+    assert np.array_equal(gpu[1], gpu[0])
+    assert gpu[2] == cpu[2] and gpu[2]["accepted"] > 0
+    assert gpu[3]["paged_decode_attention_block"] > 0 and max(cpu[3].values()) == 0
+
+
+def test_sharded_bank_across_cards_matches_the_local_bank():
+    """A bank row-sharded over every card of the machine (``make_cache_mesh``'s
+    default: the first N CUDA devices) against a local bank on cuda:0, flat
+    and IVF, through lookups, stage 2, FIFO commits and IVF rebuilds: the
+    same routes, slots and final decisions, and the gathered state equal to
+    the local one.  Needs two cards or more."""
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.engine import SharedCacheBank
+    from repro_torch.launch.mesh import make_cache_mesh
+    from repro_torch.models.reranker import init_reranker, tiny_reranker_config
+    dev = _cuda()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices (a multi-card machine)")
+    mesh = make_cache_mesh(n)
+    assert [d.index for d in mesh] == list(range(n))
+    rr_cfg = tiny_reranker_config(512)
+    reranker = (init_reranker(rr_cfg, torch.Generator(device=dev).manual_seed(3), dev), rr_cfg)
+    rcfg = RouterConfig(tweak_threshold=0.85, band=0.2, admit_floor=0.3)
+    g = torch.Generator(device=dev).manual_seed(1)
+    centers = torch.nn.functional.normalize(torch.randn(6, 64, device=dev, generator=g), dim=-1)
+    for index in ("flat", "ivf"):
+        cfg = CacheConfig(capacity=256 * n, dim=64, max_query_tokens=8, max_response_tokens=8,
+                          topk=4, block_n=64, index=index, nclusters=8, reindex_every=96)
+        local = SharedCacheBank(cfg, rcfg, device=dev, reranker=reranker)
+        sharded = SharedCacheBank(cfg, rcfg, mesh=mesh, reranker=reranker)
+        rebuilt, stage2 = [], 0
+        for step in range(8):
+            q = centers[torch.randint(0, 6, (16,), device=dev, generator=g)]
+            spread = torch.linspace(0.05, 0.6, 16, device=dev)[:, None] / 8   # 64 dims
+            q = torch.nn.functional.normalize(
+                q + spread * torch.randn(16, 64, device=dev, generator=g), dim=-1)
+            qt = torch.randint(5, 512, (16, 8), device=dev, generator=g)
+            qm = torch.ones(16, 8, device=dev)
+            lo, sh = local.route_batch(q), sharded.route_batch(q)
+            torch.testing.assert_close(sh[0], lo[0], rtol=0, atol=1e-5)
+            for a, b in zip(lo[1:], sh[1:]):
+                assert a.device == b.device and torch.equal(a, b)
+            if bool((lo[2] == router.UNCERTAIN).any()):
+                fl = local.second_stage(qt, qm, *lo[:5])
+                fs = sharded.second_stage(qt, qm, *sh[:5])
+                assert torch.equal(fl[0], fs[0]) and torch.equal(fl[1], fs[1])
+                stage2 += 1
+            rows = (q, qt.int(), qm, qt.int(), qm)
+            assert torch.equal(local.insert_batch(*rows, 16), sharded.insert_batch(*rows, 16))
+            rebuilt.append((local.maybe_reindex(), sharded.maybe_reindex()))
+        assert all(a == b for a, b in rebuilt) and stage2 > 0
+        assert any(a for a, _ in rebuilt) == (index == "ivf")
+        got = dist.gather_cache_state(sharded.state, cfg)
+        for key, val in local.state.items():
+            if key not in ("ivf_members", "ivf_count", "ivf_pos"):
+                torch.testing.assert_close(got[key], val, rtol=0, atol=1e-6, msg=key)
+        slot = torch.tensor([3, 256 * n - 1], device=dev)
+        assert torch.equal(cache_lib.gather_rows(sharded.state, "q_tokens", slot),
+                           local.state["q_tokens"][slot])

@@ -124,7 +124,11 @@ def test_build_engine_serves_on_cpu_and_refuses_off_slice():
     cascade = build_engine(model="serve-tiny", device="cpu", capacity=32, band=0.1,
                            train_embedder_steps=0, train_reranker_steps=2)
     assert cascade.bank.cascading and not eng.bank.cascading
-    with pytest.raises(NotImplementedError, match="replica"):
-        build_replica_group(2, model="serve-tiny", device="cpu")
+    group = build_replica_group(2, model="serve-tiny", device="cpu", capacity=32,
+                                train_embedder_steps=0)
+    assert len(group) == 2 and group.shared and group[1].replica_id == 1
+    private = build_replica_group(2, shared=False, cache_shards=2, model="serve-tiny",
+                                  device="cpu", capacity=32, train_embedder_steps=0)
+    assert not private.shared and all(e.bank.sharded for e in private.engines)
     with pytest.raises(ValueError):
         build_engine(model="gpt-9", device="cpu")

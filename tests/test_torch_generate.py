@@ -139,9 +139,15 @@ def test_zero_budget_and_off_slice_options():
         GenerateConfig(max_new_tokens=4, spec_k=8)
     with pytest.raises(ValueError, match="greedy"):
         GenerateConfig(spec_k=2, sampler=SamplerConfig(temperature=0.5))
+    # a spec session, once refused, decodes the plain tokens from its drafts
+    gen = Generator(pg.model, pg.params, GenerateConfig(max_new_tokens=8))
+    prompts = np.full((2, 4), 7, np.int32)
+    plain = gen.generate_with_lengths({"tokens": prompts})
+    sess = DecodeSession(gen, slots=2, capacity=32, spec_k=2)
+    sess.admit(prompts, drafts=(plain[0], plain[1]))
+    fins = sorted(sess.drain(), key=lambda f: f["slot"])
+    assert np.array_equal(np.stack([f["tokens"] for f in fins]), plain[0])
+    assert sess.spec_stats["accepted"] > 0
     # what stays off the slice
-    with pytest.raises(NotImplementedError, match="spec_k > 1"):
-        DecodeSession(Generator(pg.model, pg.params, GenerateConfig(max_new_tokens=8)),
-                      slots=2, capacity=32, spec_k=2)
     with pytest.raises(NotImplementedError):
         build_model(PortModelConfig(sliding_window=16))

@@ -12,7 +12,8 @@ import torch
 from repro_torch.checkpoint import jax_params_to_torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, launch_counts, reset_launch_counts
-from repro_torch.launch.serve import build_embedder, build_engine
+from repro_torch.launch.mesh import make_cache_mesh
+from repro_torch.launch.serve import build_embedder, build_engine, build_replica_group
 from repro_torch.models.embedder import tiny_embedder_config
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -36,6 +37,11 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
+    names = {f.relative_to(ROOT / "src").as_posix() for f in files[:-1]}
+    assert {"repro_torch/core/distributed.py", "repro_torch/launch/mesh.py",
+            "repro_torch/serving/scheduler.py", "repro_torch/serving/continuous.py"} <= names
+    for mod in ("repro_torch.core.distributed", "repro_torch.launch.mesh"):
+        importlib.import_module(mod)
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -52,6 +58,10 @@ def test_default_device_needs_a_card():
         build_embedder()
     with pytest.raises(RuntimeError):
         build_engine(model="serve-tiny", band=0.1)
+    with pytest.raises(RuntimeError):
+        build_replica_group(2, model="serve-tiny")
+    with pytest.raises(ValueError, match="CUDA devices"):
+        make_cache_mesh(2)
     params, _ = build_embedder(device="cpu")
     assert params["embed"].device.type == "cpu"
 

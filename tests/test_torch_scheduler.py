@@ -2,7 +2,7 @@
 give the JAX package's scheduler stats and per-request completions with the
 same deterministic engine; the port's engine served through either mode
 gives the same responses and ``EngineStats``; the CLI runs on the CPU at
-serve-tiny and refuses the flags of unported paths."""
+serve-tiny, replicas and a sharded bank included."""
 import dataclasses
 import inspect
 
@@ -165,6 +165,14 @@ def test_cli_defaults_are_the_reference_stack(monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--replicas", "2"], ["--cache-shards", "2"],
                                   ["--private-caches"]])
-def test_cli_refuses_unported_paths(flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve.main(["--device", "cpu", *flag])
+def test_cli_refuses_unported_paths(flag, capsys):
+    """The replica and sharding flags, once refused, now serve as the
+    reference wires them: ``--replicas 2`` and ``--cache-shards 2`` build a
+    replica group (over 2 CPU shards for the latter) behind the replica
+    scheduler; ``--private-caches`` alone keeps one engine."""
+    assert serve.main(["--device", "cpu", "--queries", "16", "--embedder-steps", "2",
+                       *flag]) == 0
+    report = capsys.readouterr().out
+    assert "requests: 16" in report and "routing: miss=" in report
+    assert ("replicas: 2 (shared bank, shards=1) r0:" in report) == (flag[0] == "--replicas")
+    assert "replicas:" not in report or "stolen=" in report

@@ -166,10 +166,23 @@ def test_admission_guards(models):
 
 
 def test_off_slice_session_options(models):
+    """The reference's session guards: spec_k >= 1, speculation greedy-only
+    and within the token budget, drafts only on a spec session."""
     with pytest.raises(ValueError, match="spec_k"):
         DecodeSession(_gen(models), slots=2, capacity=CAP, spec_k=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeSession(_gen(models), slots=2, capacity=CAP, spec_k=2)
+    _, _, pm, pp = models
+    hot = Generator(pm, pp, GenerateConfig(
+        max_new_tokens=MNT, eos_id=EOS, page_size=4,
+        sampler=SamplerConfig(temperature=0.5, vocab_size=VOCAB)))
+    with pytest.raises(ValueError, match="greedy"):
+        DecodeSession(hot, slots=2, capacity=CAP, spec_k=2)
+    with pytest.raises(ValueError, match="max_new_tokens"):
+        DecodeSession(_gen(models), slots=2, capacity=CAP, spec_k=MNT + 1)
+    plain = DecodeSession(_gen(models), slots=2, capacity=CAP)
+    with pytest.raises(ValueError, match="drafts"):
+        plain.admit(_prompts(1, S, 0), drafts=(np.zeros((1, 2), np.int32),
+                                                np.ones((1,), np.int32)))
+    assert plain.spec_stats == {"proposed": 0, "accepted": 0, "spec_steps": 0}
 
 
 def test_session_mask_equals_model_mask(models):
@@ -185,3 +198,111 @@ def test_session_mask_equals_model_mask(models):
         assert bool((sp >= 0).any(-1)[:, occupied].all())
 
     _churn(DecodeSession(_gen(models), slots=4, capacity=CAP, seed=11), check=check)
+
+
+# ------------------------------------------------ spec_k > 1 sessions
+SPEC_COHORTS = (2, 1, 2, 1, 3)
+
+
+def _spec_drafts(plain_res, seed):
+    """Per cohort, drafts cut from the plain session's tokens: a true
+    continuation, garbage, a short true prefix, a one-token edit, none."""
+    rng = np.random.default_rng(seed)
+    out, tag = [], 0
+    for k in SPEC_COHORTS:
+        ids = np.zeros((k, MNT), np.int32)
+        lens = np.zeros((k,), np.int32)
+        for r in range(k):
+            true = np.asarray(plain_res[tag + r][0], np.int32)
+            kind = (tag + r) % 5
+            ids[r] = true if kind != 1 else rng.integers(3, VOCAB, MNT)
+            if kind == 3:
+                ids[r, 2] = (ids[r, 2] + 1) % VOCAB
+            lens[r] = (MNT, MNT, 2, MNT, 0)[kind]
+        out.append((ids, lens))
+        tag += k
+    return out
+
+
+def _spec_churn(sess, drafts, admit=None, chunk=2):
+    """The churn of ``_churn`` with per-cohort drafts; ``admit`` converts a
+    cohort for the session's framework."""
+    admit = admit or (lambda x: x)
+    pending = [(_prompts(k, S, 100 + i), drafts[i]) for i, k in enumerate(SPEC_COHORTS)]
+    results, tag = {}, 0
+    for _ in range(60):
+        while pending and pending[0][0].shape[0] <= sess.free_slots:
+            cohort, d = pending.pop(0)
+            k = cohort.shape[0]
+            sess.admit(admit(cohort), tags=list(range(tag, tag + k)), drafts=d)
+            tag += k
+        sess.run_chunk(chunk)
+        for f in sess.harvest():
+            results[f["tag"]] = (np.asarray(f["tokens"]).tolist(), f["length"], f["ended"])
+        if not pending and sess.free_slots == sess.slots:
+            break
+    assert not pending and sess.free_slots == sess.slots
+    return results
+
+
+@pytest.mark.parametrize("spec_k", [2, 4])
+def test_spec_session_churn_matches_jax_and_plain(models, spec_k):
+    """Through a join/leave churn with drafts that track, diverge, run out
+    or are absent, the spec session equals JAX's spec session (tokens,
+    lengths, flags and ``spec_stats``) and the plain session's tokens."""
+    plain = _churn(DecodeSession(_gen(models), slots=4, capacity=CAP, seed=11))
+    drafts = _spec_drafts(plain, 5)
+    jsess = JaxSession(_gen(models, jax_side=True), slots=4, capacity=CAP, seed=11,
+                       spec_k=spec_k)
+    jres = _spec_churn(jsess, drafts, admit=jnp.asarray)
+    sess = DecodeSession(_gen(models), slots=4, capacity=CAP, seed=11, spec_k=spec_k)
+    pres = _spec_churn(sess, drafts)
+    assert len(pres) == 9 and pres == jres == plain
+    stats = sess.spec_stats
+    assert stats == jsess.spec_stats
+    assert stats["proposed"] >= stats["accepted"] > 0 and stats["spec_steps"] > 0
+    assert sess.pool.live_pages == 0 and leaked_pages(sess) == 0
+
+
+def test_spec_session_masked_blocks_change_nothing(models):
+    """Blocks run after every row is done (the eager chunk's done-masking)
+    leave tokens, state and counters as they were."""
+    toks = _prompts(2, S, 7)
+    ref = DecodeSession(_gen(models), slots=2, capacity=CAP)
+    ref.admit(toks)
+    plain = sorted(ref.drain(), key=lambda f: f["slot"])
+    drafts = (np.stack([f["tokens"] for f in plain]), np.full((2,), MNT, np.int32))
+    sess = DecodeSession(_gen(models), slots=3, capacity=CAP, spec_k=3)
+    sess.admit(toks, drafts=drafts)
+    sess.run_chunk(MNT)
+    stats = sess.spec_stats
+    keep = {k: v.clone() for k, v in sess.state.items() if torch.is_tensor(v)}
+    sp = sess.state["caches"]["scan"][0]["slot_pos"].clone()
+    sess.run_chunk(3)
+    assert sess.spec_stats == stats and stats["spec_steps"] < MNT - 1
+    for k, v in keep.items():
+        assert torch.equal(sess.state[k], v), k
+    assert torch.equal(sess.state["caches"]["scan"][0]["slot_pos"], sp)
+    fins = sorted(sess.harvest(), key=lambda f: f["slot"])
+    for f, p in zip(fins, plain):
+        np.testing.assert_array_equal(f["tokens"], p["tokens"])
+        assert (f["length"], f["ended"]) == (p["length"], p["ended"])
+
+
+def test_spec_session_fused_equals_host_oracle(models):
+    """Fused chunks equal the host-stepped oracle (counters included), and
+    a row's tokens and its proposed/accepted counts do not depend on chunk
+    size (``spec_steps`` counts shared blocks, so it does)."""
+    plain = _churn(DecodeSession(_gen(models), slots=4, capacity=CAP, seed=11))
+    drafts = _spec_drafts(plain, 6)
+    runs = {}
+    for fused, chunk in ((True, 2), (False, 2), (True, 1), (True, 3)):
+        sess = DecodeSession(_gen(models), slots=4, capacity=CAP, seed=11, spec_k=3)
+        run = sess.run_chunk
+        sess.run_chunk = lambda steps, run=run, fused=fused: run(steps, fused=fused)
+        runs[(fused, chunk)] = (_spec_churn(sess, drafts, chunk=chunk), sess.spec_stats)
+    assert runs[(True, 2)] == runs[(False, 2)]
+    for res, stats in runs.values():
+        assert res == plain
+        assert ({k: stats[k] for k in ("proposed", "accepted")}
+                == {k: runs[(True, 2)][1][k] for k in ("proposed", "accepted")})
