@@ -24,7 +24,10 @@ Prints one JSON object per line:
           call's (a yardstick, never used by the port) and the least time the
           card could take (bytes / 3.35 TB/s or operations / peak rate,
           whichever is larger); the flash suffix case also holds the suffix
-          over the stored prefix bit for bit against the inline prefill;
+          over the stored prefix bit for bit against the inline prefill, and
+          the ``train-backward`` cases (bf16, fp32) time forward + backward
+          through the flash autograd wrapper (kernel forward, plain
+          backward) against autograd of the plain version and SDPA's;
   train   the embedder (MiniLM at full width over the 128,256-token
           vocabulary, 60 steps at batch 16) and the cross-encoder reranker
           (the same width, 120 steps at batch 32) trained on the card as
@@ -33,6 +36,21 @@ Prints one JSON object per line:
           of the same params and batch on the card and on the CPU, and
           held-out quality before and after (the embedder's mean cosine to a
           duplicate minus to a hard negative, the reranker's accuracy);
+  lm_train llama-3.1-8b at full width, depth cut to 4 layers, trained 40
+          steps (batch 8 x 128, AdamW lr 1e-3, remat) through
+          ``make_train_step``: median step ms, tokens/s, peak memory, flash
+          launches a step (forward and the remat recompute), the first and
+          last 10-step mean loss (the last must be lower); step 1's batch
+          gives every leaf, and every layer's w_qkv and w_o, a gradient; the
+          gradients a microbatches-2 step applies (fp32) against the whole
+          batch's within 2% of each leaf's largest |g|; the train CLI on its
+          smoke config returns 0 (its fp32 dh-16 flash shape is a kernel
+          case, ``train-cli-smoke-fp32``);
+  judge   that trained model as referee: mean log-likelihood of 48 big,
+          small and word-shuffled big responses before and after training
+          (after: real above shuffled), ms per set, flash launches, two rows
+          against an fp32 CPU score (within 0.01), ``debate_batch`` big against small
+          (verdict shares sum to 1, mean margin by persona);
   serve   the full-width stack (``build_stack(model="llama-3.1-8b")``, its
           embedder trained): a restored bank of random unit vectors, a few
           hundred populated pairs, then batches of 8 through
@@ -92,7 +110,8 @@ Prints one JSON object per line:
           share, device time by kernel name), then one paged big-model
           decode of that batch (device-busy ms, the paged kernels' share);
   kernels the ported kernels with their launches on the path that runs
-          them (serve for the dense kernels, paged, spec, ivf);
+          them (serve for the dense kernels, paged, spec, ivf; flash also
+          its launches in lm_train and judge);
   wall    the script's wall time, and how many ``device_ms`` profiler
           sessions were whole and how many lost records and were repeated;
 
@@ -283,17 +302,19 @@ def mma_plan(name: str, label: str, plan) -> dict:
 
 # ------------------------------------------------------------------ kernels
 
-def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen):
+def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen, dtype="bfloat16"):
     """The prefill kernel at one main-path shape: queries at [prefix,
-    prefix+sq) over keys [0, prefix+sq), bf16."""
+    prefix+sq) over keys [0, prefix+sq), bf16 (or fp32, the CUDA-core
+    body, as the train CLI's smoke config runs it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     dev = torch.device("cuda")
     sk = prefix + sq
-    q = torch.randn(b, sq, h, dh, device=dev, generator=gen, dtype=torch.bfloat16)
-    k = torch.randn(b, sk, hk, dh, device=dev, generator=gen, dtype=torch.bfloat16)
-    v = torch.randn(b, sk, hk, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, sq, h, dh, device=dev, generator=gen, dtype=dt)
+    k = torch.randn(b, sk, hk, dh, device=dev, generator=gen, dtype=dt)
+    v = torch.randn(b, sk, hk, dh, device=dev, generator=gen, dtype=dt)
     q_pos = torch.arange(prefix, sk, device=dev, dtype=torch.int32).expand(b, sq).contiguous()
     k_pos = torch.arange(sk, device=dev, dtype=torch.int32).expand(b, sk).contiguous()
     run = lambda: ops.flash_attention(q, k, v, q_pos, k_pos, causal=True, window=0,
@@ -307,7 +328,9 @@ def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen):
         want = ref.attend_blockwise(q.float(), k.float(), v.float(), q_pos, k_pos, True, 0,
                                     block, block)
     err = (out.float() - want).abs().max().item()
-    tol = 2e-2   # bf16 output (ulp 2^-8 near 1) against an fp32 evaluation
+    # bf16 output (ulp 2^-8 near 1) against an fp32 evaluation; fp32 against
+    # fp32 differs only in the order of the sums
+    tol = 1e-5 if dt == torch.float32 else 2e-2
     check(f"flash_attention[{label}]", err, tol)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     mask = (k_pos[0][None, :] <= q_pos[0][:, None])
@@ -318,11 +341,11 @@ def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen):
         library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                          enable_gqa=True)
     pairs = b * h * int(mask.sum().item())          # allowed (query, key) pairs
-    moved = 2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * (sq + sk) * b
-    bms, by = bound(moved, 4.0 * pairs * dh, "bf16")
+    moved = q.element_size() * (q.numel() * 2 + k.numel() + v.numel()) + 4 * (sq + sk) * b
+    bms, by = bound(moved, 4.0 * pairs * dh, "fp32" if dt == torch.float32 else "bf16")
     row = {"phase": "kernel", "name": "flash_attention", "case": label,
            "shape": {"B": b, "Sq": sq, "Sk": sk, "H": h, "Hk": hk, "dh": dh,
-                     "block": block, "impl": impl, "dtype": "bfloat16"},
+                     "block": block, "impl": impl, "dtype": dtype},
            "library": "sdpa, explicit mask" if prefix else "sdpa, is_causal",
            "max_abs_err": err, "tolerance": tol, "ms": time_ms(run),
            "plain_ms": time_ms(plain, reps=5), "library_ms": time_ms(library),
@@ -354,6 +377,74 @@ def suffix_bitwise_check(q, k, v, prefix, block, impl) -> bool:
         raise AssertionError("flash_attention: the suffix over the stored prefix differs "
                              f"from the inline prefill (max abs {worst})")
     return True
+
+
+def flash_backward_case(label, b, s, h, hk, dh, dtype, gen):
+    """The flash kernel inside the differentiable wrapper, as the LM trains
+    it (causal from position 0, impl "naive"): forward and backward through
+    the wrapper (the kernel's forward, the plain backward of
+    ``ref.attend_grads``) against autograd of the plain version on fp32
+    copies.  Tolerances: the output as the kernel's (fp32 1e-5, bf16 2e-2);
+    each gradient within 1e-4 (fp32) or 2e-2 (bf16) of its largest |g|.
+    Times forward + backward; SDPA with ``is_causal`` is the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    dev = torch.device("cuda")
+    q = torch.randn(b, s, h, dh, device=dev, generator=gen).to(dtype).requires_grad_()
+    k, v = (torch.randn(b, s, hk, dh, device=dev, generator=gen).to(dtype).requires_grad_()
+            for _ in range(2))
+    d_out = torch.randn(b, s, h, dh, device=dev, generator=gen).to(dtype)
+    pos = torch.arange(s, device=dev, dtype=torch.int32).expand(b, s).contiguous()
+
+    def run():
+        out = ops.flash_attention(q, k, v, pos, pos, causal=True, window=0, block_q=s,
+                                  block_k=s, impl="naive")
+        return (out,) + torch.autograd.grad(out, (q, k, v), d_out)
+
+    def plain():
+        out = ref.attend_naive(q, k, v, pos, pos, True, 0)
+        return torch.autograd.grad(out, (q, k, v), d_out)
+
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dt = d_out.transpose(1, 2).contiguous()
+
+    def library():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), dt)
+
+    before = ops.launches
+    got = run()
+    if ops.launches != before + 1:
+        raise AssertionError(f"flash_attention[{label}]: {ops.launches - before} launches")
+    f = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    want_out = ref.attend_naive(*f, pos, pos, True, 0)
+    want = (want_out,) + torch.autograd.grad(want_out, f, d_out.float())
+    fp32 = dtype == torch.float32
+    tol, grad_rel = (1e-5, 1e-4) if fp32 else (2e-2, 2e-2)
+    err = (got[0].detach().float() - want[0].detach()).abs().max().item()
+    check(f"flash_attention[{label}]", err, tol)
+    grad_err, grad_tol = {}, {}
+    for name, a, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        grad_err[name] = (a.float() - w).abs().max().item()
+        grad_tol[name] = grad_rel * w.abs().max().item()
+        check(f"flash_attention[{label}].{name}", grad_err[name], grad_tol[name])
+    elt = q.element_size()
+    moved = elt * (4 * q.numel() + 4 * k.numel())     # q, k, v, dO read; o, dq, dk, dv written
+    fwd_flops = 4.0 * b * h * s * s * dh / 2
+    bms, by = bound(moved, 3.5 * fwd_flops, "fp32" if fp32 else "bf16")
+    row = {"phase": "kernel", "name": "flash_attention", "case": label,
+           "shape": {"B": b, "Sq": s, "Sk": s, "H": h, "Hk": hk, "dh": dh, "impl": "naive",
+                     "dtype": str(dtype).removeprefix("torch."), "causal_from": 0},
+           "timed": "forward + backward through the autograd wrapper (kernel forward, "
+                    "plain backward)",
+           "library": "sdpa, is_causal, forward + backward",
+           "max_abs_err": err, "tolerance": tol, "grad_max_abs_err": grad_err,
+           "grad_tolerance": grad_tol, "ms": time_ms(run, reps=10),
+           "plain_ms": time_ms(plain, reps=5), "library_ms": time_ms(library, reps=10),
+           "bound_ms": bms, "bound_by": by, "bound_flops": 3.5 * fwd_flops,
+           "bound_bytes": moved}
+    return row, (run, library, 5)
 
 
 def decode_case(label, b, h, hk, dh, t, cache_len, layers, gen):
@@ -681,7 +772,7 @@ def kernel_phase(prefix_len: int, seed: int):
     import torch
     from repro_torch.configs import llama31_8b
     from repro_torch.launch.serve import LLAMA_CAPACITY, LLAMA_FLASH_BLOCK
-    cfg = llama31_8b.CONFIG
+    cfg, smoke = llama31_8b.CONFIG, llama31_8b.SMOKE_CONFIG
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device="cuda").manual_seed(seed)
     # a TWEAK row: prefix + a 128-token suffix bucket + 33, mid-decode
@@ -690,6 +781,12 @@ def kernel_phase(prefix_len: int, seed: int):
         flash_case("small-suffix-over-prefix", 8, 128, prefix_len, h, hk, dh,
                    LLAMA_FLASH_BLOCK, "xla_flash", gen),
         flash_case("big-miss-prefill", 8, 64, 0, h, hk, dh, cfg.flash_block_k, "naive", gen),
+        # the train CLI's smoke config (fp32, dh 16), which lm_train runs on the card
+        flash_case("train-cli-smoke-fp32", LM_BATCH, LM_SEQ, 0, smoke.num_heads,
+                   smoke.num_kv_heads, smoke.resolved_head_dim, smoke.flash_block_k, "naive",
+                   gen, dtype=smoke.dtype),
+        flash_backward_case("train-backward", 8, LM_SEQ, h, hk, dh, torch.bfloat16, gen),
+        flash_backward_case("train-backward-fp32", 8, LM_SEQ, h, hk, dh, torch.float32, gen),
         decode_case("small-tweak-decode", 8, h, hk, dh, prefix_len + 128 + 33,
                     prefix_len + 128 + 16, cfg.num_layers, gen),
         decode_case("big-miss-decode", 8, h, hk, dh, 64 + 33, 64 + 16, cfg.num_layers, gen),
@@ -834,6 +931,244 @@ def train_phase(model: str, device, seed: int, emb_steps: int = 60, emb_batch: i
                             d_model=rr_cfg.d_model, vocab=rr_cfg.vocab_size),
            "lr": TRAIN_LR}
     return row, (rr, rr_cfg)
+
+
+# ------------------------------------------------------------------ LM training and the judge
+
+LM_LAYERS = 4       # llama-3.1-8b at full width, depth cut: 32 layers of bf16 params and
+                    # grads with fp32 moments (~96 GB) exceed the card's 80 GB; 4 take ~23 GB
+LM_STEPS = 40
+LM_BATCH, LM_SEQ = 8, 128
+LM_LR = 1e-3        # the train CLI's default
+JUDGE_PAIRS = 48
+JUDGE_MAX_LEN = 128
+JUDGE_CPU_ROWS = 2
+# a card score (bf16 weights and activations) against the same weights cast to
+# fp32 on the CPU, absolute, on a mean log-probability of about -1 nat: about
+# ten times the gap of 0.0009 read on an H100 80GB HBM3 (700 W), so that one
+# layer's attention off by a little shows
+JUDGE_CPU_TOL = 0.01
+# the microbatch check: bf16 gradients of bf16 activations (2^-9 relative
+# rounding an element, and the halves' matmuls are cut differently from the
+# whole batch's), against a half batch, an undivided sum or a flipped sign,
+# each off by a sizeable share of the largest |g|
+MICRO_GRAD_REL = 2e-2
+MICRO_LOSS_REL = 1e-3
+
+
+def _to_device(batch, device):
+    import torch
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def judge_sets(seed: int, n: int):
+    """``n`` duplicate pairs of ``QuestionPairGenerator(seed)``: the second
+    query of each, its big and small synthesized responses, and the big ones
+    with their words shuffled by a seeded RNG."""
+    import numpy as np
+    from repro_torch.data import QuestionPairGenerator, synthesize_response
+    gen, rng = QuestionPairGenerator(seed=seed), np.random.default_rng(seed + 7)
+    sets = {"queries": [], "big": [], "small": [], "shuffled": []}
+    for _ in range(n):
+        _, q = gen.duplicate_pair()
+        big = synthesize_response(q.text, q.topic, q.intent, quality="big")
+        sets["queries"].append(q.text)
+        sets["big"].append(big)
+        sets["small"].append(synthesize_response(q.text, q.topic, q.intent, quality="small"))
+        sets["shuffled"].append(" ".join(rng.permutation(big.split())))
+    return sets
+
+
+def score_sets(model, params, tok, sets, device):
+    """Mean-loglik scores of each response set (``make_loglik_scorer``,
+    max_len 128), ms per set and the flash launches of the three."""
+    import numpy as np
+    from repro_torch.eval import make_loglik_scorer
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    score = make_loglik_scorer(model, params, tok, max_len=JUDGE_MAX_LEN)
+    scores, ms, before = {}, {}, flash_ops.launches
+    for name in ("big", "small", "shuffled"):
+        _sync(device)
+        t = time.perf_counter()
+        scores[name] = score(sets["queries"], sets[name])
+        ms[name] = (time.perf_counter() - t) * 1e3
+        if scores[name].shape != (len(sets["queries"]),) or not np.isfinite(scores[name]).all():
+            raise AssertionError(f"judge: {name} scores not finite of shape (n,)")
+    return scores, ms, flash_ops.launches - before
+
+
+def _microbatch_check(model, params, batch, full_grads, full_loss):
+    """The gradients a ``microbatches=2`` step applies (``trainer.
+    microbatch_value_and_grad``: fp32 sums over the two halves, divided by 2)
+    against the whole batch's (``value_and_grad``, what ``microbatches=1``
+    applies), which they equal on a batch whose halves hold as many tokens:
+    each leaf within ``MICRO_GRAD_REL`` of the whole batch's largest |g|,
+    the losses within ``MICRO_LOSS_REL``."""
+    import torch
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.trainer import microbatch_value_and_grad
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = microbatch_value_and_grad(model, params, batch, 2)
+    peak = torch.cuda.max_memory_allocated()
+    leaves = tree_leaves(grads)
+    if any(g.dtype != torch.float32 for g in leaves):
+        raise AssertionError("lm_train: microbatch gradients not accumulated in fp32")
+    worst = 0.0
+    for got, want in zip(leaves, tree_leaves(full_grads)):
+        scale = float(want.abs().max())
+        err = float((got - want.float()).abs().max())
+        worst = max(worst, err / scale)
+        if not err <= MICRO_GRAD_REL * scale:
+            raise AssertionError(f"lm_train: a microbatches-2 gradient leaf is {err} from the "
+                                 f"whole batch's, past {MICRO_GRAD_REL} of its largest |g| "
+                                 f"{scale}")
+    loss, full_loss = float(loss), float(full_loss)
+    if not abs(loss - full_loss) <= MICRO_LOSS_REL * abs(full_loss):
+        raise AssertionError(f"lm_train: microbatches-2 loss {loss} against {full_loss}")
+    return {"max_grad_err_over_leaf_max": worst, "grad_tolerance": MICRO_GRAD_REL,
+            "loss_mb1": full_loss, "loss_mb2": loss, "loss_tolerance": MICRO_LOSS_REL,
+            "max_memory_allocated_gb": peak / 1e9}
+
+
+def lm_train_phase(device, seed: int, sets):
+    """llama-3.1-8b at full width, depth cut to ``LM_LAYERS``, trained on the
+    card through ``make_train_step`` on ``token_stream_batches``: a gradient
+    check of step 1's batch (every leaf, every layer's attention weights), a
+    microbatch check, ``LM_STEPS`` timed steps, and the train CLI on its
+    smoke config.  The judge scores before training are taken here too.
+    Returns (line, model, trained params, tokenizer, scores before)."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from repro_torch.configs import llama31_8b
+    from repro_torch.data import token_stream_batches
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.tokenizer import HashWordTokenizer
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.trainer import value_and_grad
+    t0 = time.perf_counter()
+    cfg = llama31_8b.CONFIG.replace(num_layers=LM_LAYERS)
+    model = build_model(cfg)
+    tok = HashWordTokenizer(cfg.vocab_size)
+    params = model.init(torch.Generator(device=device).manual_seed(seed + 20), device)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    before = score_sets(model, params, tok, sets, device)
+    stream = token_stream_batches(tok, LM_BATCH, LM_SEQ, seed=seed)
+    first = _to_device(next(stream), device)
+    opt_cfg = AdamWConfig(lr=LM_LR)
+
+    # step 1's gradients: value_and_grad raises if a leaf gets none
+    n0 = flash_ops.launches
+    loss0, _, grads = value_and_grad(model, params, first)
+    grad_launches = flash_ops.launches - n0
+    attn = [(float(g["attn"]["w_qkv"].abs().max()), float(g["attn"]["w_o"].abs().max()))
+            for g in grads["layers"]]
+    g_leaves = tree_leaves(grads)
+    if len(g_leaves) != len(tree_leaves(params)) or not all(a > 0 and b > 0 for a, b in attn):
+        raise AssertionError(f"lm_train: a layer's attention weights got no gradient: {attn}")
+    grad_check = {"leaves": len(g_leaves), "leaves_with_grad": len(g_leaves),
+                  "leaves_nonzero": sum(bool(g.abs().max() > 0) for g in g_leaves),
+                  "w_qkv_abs_max": [a for a, _ in attn], "w_o_abs_max": [b for _, b in attn],
+                  "flash_launches": grad_launches}
+    del g_leaves
+    micro = _microbatch_check(model, params, first, grads, loss0)
+    del grads
+
+    step = make_train_step(model, opt_cfg, total_steps=LM_STEPS)
+    opt = init_opt_state(params)
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    n0 = flash_ops.launches
+    batch = first
+    for i in range(LM_STEPS):
+        if i:
+            batch = _to_device(next(stream), device)
+        _sync(device)
+        t = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)      # reads the loss: synchronises
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(metrics["loss"])
+    launches = flash_ops.launches - n0
+    peak = torch.cuda.max_memory_allocated()
+    del opt
+    torch.cuda.empty_cache()
+    first10, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not (np.isfinite(losses).all() and last10 < first10):
+        raise AssertionError(f"lm_train: the last 10-step mean loss {last10} is not below "
+                             f"the first {first10}")
+    if launches != LM_STEPS * 2 * LM_LAYERS:
+        raise AssertionError(f"lm_train: {launches} flash launches in {LM_STEPS} steps, not "
+                             f"2 a layer a step (forward and the remat recompute)")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_cli.main(["--steps", "20", "--log-every", "10"])
+    cli_lines = out.getvalue().strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"lm_train: the train CLI returned {rc}: {cli_lines}")
+    med = float(np.median(step_ms))
+    line = {"phase": "lm_train", "seconds": time.perf_counter() - t0, "config": cfg.name,
+            "layers": LM_LAYERS,
+            "depth_cut_from": llama31_8b.CONFIG.num_layers, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "dtype": cfg.dtype, "remat": cfg.remat,
+            "params": n_params, "batch": LM_BATCH, "seq": LM_SEQ, "lr": LM_LR,
+            "steps": LM_STEPS, "median_step_ms": med, "first_step_ms": step_ms[0],
+            "tokens_per_s": LM_BATCH * LM_SEQ / (med / 1e3),
+            "max_memory_allocated_gb": peak / 1e9,
+            "flash_launches": launches, "flash_launches_per_step": launches / LM_STEPS,
+            "first10_loss": first10, "last10_loss": last10, "loss_first": losses[0],
+            "loss_last": losses[-1], "grad_check": grad_check, "microbatch_check": micro,
+            "cli": {"rc": rc, "args": "--steps 20 --log-every 10 (smoke config)",
+                    "first_line": cli_lines[0], "last_line": cli_lines[-1]}}
+    return line, model, params, tok, before
+
+
+def judge_phase(model, params, tok, sets, before, device, seed: int):
+    """The trained referee scores the big, small and shuffled response sets
+    (real must score above shuffled), two pairs again on the CPU in fp32
+    against the card, and the debate of big against small."""
+    import numpy as np
+    from repro_torch.eval import PERSONAS, debate_batch, make_loglik_scorer, verdict_shares
+    from repro_torch.training.optimizer import tree_map
+    t0 = time.perf_counter()
+    after, ms, launches = score_sets(model, params, tok, sets, device)
+    means = lambda sc: {k: float(np.mean(v)) for k, v in sc.items()}
+    m_before, m_after = means(before[0]), means(after)
+    if not m_after["big"] > m_after["shuffled"]:
+        raise AssertionError(f"judge: after training real {m_after['big']} does not score "
+                             f"above shuffled {m_after['shuffled']}")
+    rows = slice(0, JUDGE_CPU_ROWS)
+    cpu_params = tree_map(lambda t: t.detach().float().cpu(), params)
+    cpu_score = make_loglik_scorer(model, cpu_params, tok, max_len=JUDGE_MAX_LEN)
+    card = after["big"][rows]
+    cpu = cpu_score(sets["queries"][rows], sets["big"][rows])
+    del cpu_params
+    gap = np.abs(card - cpu)
+    if not (gap <= JUDGE_CPU_TOL).all():
+        raise AssertionError(f"judge: card scores {card} against the CPU's {cpu} "
+                             f"(tol {JUDGE_CPU_TOL})")
+    results = debate_batch(sets["queries"], sets["big"], sets["small"],
+                           [float(x) for x in after["big"]], [float(x) for x in after["small"]],
+                           seed=seed)
+    shares = verdict_shares(results)
+    if abs(sum(shares.values()) - 1.0) > 1e-9:
+        raise AssertionError(f"judge: verdict shares {shares} do not sum to 1")
+    margins = np.array([r.margins for r in results])
+    return {"phase": "judge", "seconds": time.perf_counter() - t0, "referee": f"lm_train's {model.cfg.num_layers}-layer "
+                                         f"{model.cfg.name}", "pairs": len(sets["queries"]),
+            "max_len": JUDGE_MAX_LEN, "mean_loglik_before": m_before,
+            "mean_loglik_after": m_after, "ms_per_set": ms, "ms_per_set_before": before[1],
+            "flash_launches": launches, "flash_launches_before": before[2],
+            "card_vs_cpu": {"rows": JUDGE_CPU_ROWS, "card": card.tolist(), "cpu": cpu.tolist(),
+                            "max_abs_diff": float(gap.max()), "tolerance": JUDGE_CPU_TOL},
+            "debate_big_vs_small": {"shares": shares,
+                                    "mean_margin_by_persona": {
+                                        p.name: float(margins[:, i].mean())
+                                        for i, p in enumerate(PERSONAS)}}}
 
 
 # ------------------------------------------------------------------ serve
@@ -2249,6 +2584,14 @@ def main(argv=None) -> int:
     checked = kernel_phase(prefix_len, args.seed)
     train, reranker = train_phase("llama-3.1-8b", torch.device("cuda"), args.seed)
     emit(train)
+    sets = judge_sets(args.seed, JUDGE_PAIRS)
+    lm_train, lm, lm_params, lm_tok, before = lm_train_phase(torch.device("cuda"), args.seed,
+                                                             sets)
+    emit(lm_train)
+    judge = judge_phase(lm, lm_params, lm_tok, sets, before, torch.device("cuda"), args.seed)
+    emit(judge)
+    del lm_params, before
+    torch.cuda.empty_cache()
     serve, launches, eng, spare, plan, served = serve_phase(
         "llama-3.1-8b", torch.device("cuda"), args.seed, N_BATCHES, MAX_NEW_TOKENS)
     emit(serve)
@@ -2301,6 +2644,8 @@ def main(argv=None) -> int:
                         "ms": c["ms"], "device_ms": c["device_ms"], "plain_ms": c["plain_ms"],
                         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                         "library_ms": c["library_ms"]})
+    summary[0].update(launches_lm_train=lm_train["flash_launches"],
+                      launches_judge=judge["flash_launches"])
     emit({"phase": "wall", "script_s": time.perf_counter() - t_start,
           "kernel_build_s": build.build_seconds, "profiler_sessions": profiler_sessions})
     print(smi, flush=True)

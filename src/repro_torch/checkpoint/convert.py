@@ -14,6 +14,10 @@ Attention weights come as ``w_q``/``w_k``/``w_v`` (d,h,dh) and ``w_o``
 (h,dh,d) and become ``w_qkv`` (d,(H+2Hk)*dh) and ``w_o`` (H*dh,d); a
 swiglu MLP's ``w_gate``/``w_up`` become ``w_gate_up`` (d,2f).  Norm
 parameters stay fp32; weights take the config's dtype.
+
+``torch_params_to_jax`` is the inverse for the decoder LM: it carries the
+port's weights back to the reference's layout (``checkpoint.save_checkpoint``
+writes them where the JAX package's ``load_checkpoint`` reads them).
 """
 from __future__ import annotations
 
@@ -108,3 +112,47 @@ def jax_cache_state_to_torch(state_np: Dict[str, np.ndarray], cfg, device="cuda"
                              f"want {ref.dtype} {tuple(ref.shape)}")
         out[key] = t.to(device)
     return out
+
+
+def _jax_leaves(params, cfg: ModelConfig):
+    """(path, tensor) of the decoder LM in the reference's layout."""
+    d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    layers = params["layers"]
+    stack = lambda get: torch.stack([get(p).detach() for p in layers])
+    out = [("embed", params["embed"]), ("final_norm/scale", params["final_norm"]["scale"])]
+    if "bias" in params["final_norm"]:
+        out.append(("final_norm/bias", params["final_norm"]["bias"]))
+    if "lm_head" in params:
+        out.append(("lm_head", params["lm_head"]))
+    wq, wk, wv = zip(*(p["attn"]["w_qkv"].split([h * dh, hk * dh, hk * dh], dim=-1)
+                       for p in layers))
+    out += [("scan/0/attn/w_q", torch.stack(wq).reshape(-1, d, h, dh)),
+            ("scan/0/attn/w_k", torch.stack(wk).reshape(-1, d, hk, dh)),
+            ("scan/0/attn/w_v", torch.stack(wv).reshape(-1, d, hk, dh)),
+            ("scan/0/attn/w_o", stack(lambda p: p["attn"]["w_o"]).reshape(-1, h, dh, d))]
+    if cfg.mlp_type == "swiglu":
+        gate_up = stack(lambda p: p["mlp"]["w_gate_up"])
+        out += [("scan/0/mlp/w_gate", gate_up[..., :cfg.d_ff]),
+                ("scan/0/mlp/w_up", gate_up[..., cfg.d_ff:])]
+    else:
+        out.append(("scan/0/mlp/w_up", stack(lambda p: p["mlp"]["w_up"])))
+    out.append(("scan/0/mlp/w_down", stack(lambda p: p["mlp"]["w_down"])))
+    for norm in ("norm1", "norm2"):
+        for leaf in layers[0][norm]:
+            out.append((f"scan/0/{norm}/{leaf}", stack(lambda p: p[norm][leaf])))
+    return out
+
+
+def torch_params_to_jax(params, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The port's decoder-LM parameters as the reference's flattened tree
+    ``{path: array}`` (layers stacked under ``scan/0/``; ``w_qkv`` split
+    into ``w_q``/``w_k``/``w_v`` (d,h,dh), ``w_o`` (h,dh,d), ``w_gate_up``
+    split), on the host.  A bf16 leaf comes back as its exact fp32 copy;
+    ``torch_param_dtypes`` names the original dtypes."""
+    return {k: t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16
+            else t.detach().cpu().numpy() for k, t in _jax_leaves(params, cfg)}
+
+
+def torch_param_dtypes(params, cfg: ModelConfig) -> Dict[str, str]:
+    """{path: original dtype name} of ``torch_params_to_jax``'s leaves."""
+    return {k: str(t.dtype).removeprefix("torch.") for k, t in _jax_leaves(params, cfg)}

@@ -49,7 +49,8 @@
 //
 // fp32 inputs keep the CUDA-core body (flash_fwd_simt_kernel): tensor cores
 // would mean TF32, which breaks the fp32 contract (1e-5).  fp32 appears in
-// the tests and the small card engine, never on the llama-3.1-8b path.
+// the tests, the small card engine and the train CLI's smoke configs (head
+// dim 16, an fp32-only instance), never on the llama-3.1-8b path.
 
 #include <math_constants.h>
 
@@ -497,11 +498,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       void* stream) {
   using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((dh != 64 && dh != 128) || hk < 1 || h % hk != 0 || sk_pad < sk)
+  const bool wide = dh == 64 || dh == 128;
+  if (!(wide || (dh == 16 && dtype == kFloat32)) || hk < 1 || h % hk != 0 || sk_pad < sk)
     return static_cast<int>(cudaErrorInvalidValue);
   int rc = 0;
   if (dtype == kFloat32) {
-    auto run = dh == 64 ? launch_simt<64> : launch_simt<128>;
+    auto run = dh == 16 ? launch_simt<16> : dh == 64 ? launch_simt<64> : launch_simt<128>;
     run(q, k, v, q_pos, k_pos, out, batch, sq, sk, sk_pad, h, hk, causal, window, scale, s);
   } else if (dtype == kBFloat16) {
     auto run = dh == 64 ? launch_mma<64> : launch_mma<128>;

@@ -5,6 +5,12 @@ Replaces ``src/repro/kernels/flash_attention`` (the Pallas kernel) with
 ``_attend_xla_flash``.  A CPU tensor takes the plain version in ``ref``; a
 CUDA tensor launches the kernel or raises.
 
+The call is differentiable: when grad mode is on and q, k or v requires
+grad it runs inside a ``torch.autograd.Function`` whose forward is that same
+dispatch and whose backward is ``ref.attend_grads``, plain tensor arithmetic
+on both devices (the reference differentiates its XLA attention; it has no
+backward kernel).  Without grad the call is the kernel launch alone.
+
 :func:`launch_plan` states how the kernel cuts the work (it mirrors the
 constants of ``csrc/flash_attention.cu``): bf16 runs on the tensor cores in
 blocks of ``M_TILE`` (query, head) pairs of one KV group, walking key tiles
@@ -52,9 +58,15 @@ class LaunchPlan:
         return tuple((s, min(s + tile, self.sk_pad)) for s in range(0, self.sk_pad, tile))
 
 
+def padded_keys(sk: int, impl: str, block_k: int) -> int:
+    """The keys the softmax runs over: Sk under "naive", Sk rounded up to
+    whole ``block_k`` blocks under "xla_flash" (zero keys at position 2**30)."""
+    return sk if impl == "naive" else -(-sk // block_k) * block_k
+
+
 def launch_plan(b: int, sq: int, sk: int, h: int, hk: int, dh: int, dtype,
                 impl: str, block_k: int) -> LaunchPlan:
-    sk_pad = sk if impl == "naive" else -(-sk // block_k) * block_k
+    sk_pad = padded_keys(sk, impl, block_k)
     g = h // hk
     if dtype == torch.bfloat16:
         ntiles = -(-sk_pad // KEY_TILE)
@@ -82,8 +94,34 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     full-axis softmax or "xla_flash" fixed blocks).  On CUDA both run the
     kernel, which computes the same function; under "xla_flash" ``block_k``
     fixes how far the keys are padded, under "naive" they are not padded.
-    ``block_q`` has no effect on real rows.
+    ``block_q`` has no effect on real rows.  Differentiable in q, k and v
+    (module docstring).
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window, block_q,
+                                     block_k, impl)
+    return _forward(q, k, v, q_pos, k_pos, causal, window, block_q, block_k, impl)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel (or, on a CPU tensor, the plain version) forward; the
+    plain backward of ``ref.attend_grads`` over the same padded keys."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, block_q, block_k, impl):
+        ctx.save_for_backward(q, k, v, q_pos, k_pos)
+        ctx.mask = (causal, window, padded_keys(k.shape[1], impl, block_k))
+        return _forward(q, k, v, q_pos, k_pos, causal, window, block_q, block_k, impl)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, q_pos, k_pos = ctx.saved_tensors
+        causal, window, sk_pad = ctx.mask
+        dq, dk, dv = ref.attend_grads(q, k, v, q_pos, k_pos, d_out, causal, window, sk_pad)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _forward(q, k, v, q_pos, k_pos, causal, window, block_q, block_k, impl):
     if q.device.type == "cpu":
         if impl == "naive":
             return ref.attend_naive(q, k, v, q_pos, k_pos, causal, window)
@@ -96,9 +134,11 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q/k/v must share fp32 or bf16, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if dh not in (64, 128) or h % hk or k.shape != (b, sk, hk, dh) or v.shape != k.shape:
+    head_dims = (16, 64, 128) if q.dtype == torch.float32 else (64, 128)
+    if dh not in head_dims or h % hk or k.shape != (b, sk, hk, dh) or v.shape != k.shape:
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)} (dh 64 or 128)")
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} (dh {head_dims} for "
+                         f"{q.dtype})")
     if (q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32
             or q_pos.shape != (b, sq) or k_pos.shape != (b, sk)):
         raise ValueError("flash_attention: q_pos (B,Sq) and k_pos (B,Sk) must be int32")

@@ -5,6 +5,8 @@ Both mirror ``src/repro/models/attention.py`` (``_attend_naive`` and
 scores from an einsum in the input dtype then cast to fp32 (the JAX
 package's order), fp32 softmax.  The CPU path of ``ops.flash_attention``
 runs these; on the card they are what the kernel is held against.
+``attend_grads`` is the backward of either form, what autodiff of the
+reference's XLA attention computes, written out.
 """
 from __future__ import annotations
 
@@ -85,3 +87,42 @@ def attend_blockwise(q, k, v, q_pos, k_pos, causal: bool, window: int,
     out = acc / torch.clamp(l_run[..., None], min=1e-30)
     out = torch.einsum("bkgsd->bskgd", out).reshape(b, sqp, h, dh)
     return out[:, :sq].to(q.dtype)
+
+
+def attend_grads(q, k, v, q_pos, k_pos, d_out, causal: bool, window: int, sk_pad: int):
+    """(dq, dk, dv) of the prefill attention at the output gradient ``d_out``
+    (B,Sq,H,dh), each in its input's dtype.
+
+    The keys are padded to ``sk_pad`` as the forward pads them (zero K/V at
+    position 2**30; ``ops.padded_keys``).  All arithmetic is fp32: the
+    scaled scores are recomputed and masked, P is their softmax, and
+
+        dV = P^T dO,  dP = dO V^T,  dS = P * (dP - rowsum(dP * P)),
+        dQ = scale dS K,  dK = scale dS^T Q,
+
+    dK and dV summed over each GQA group.  dS is zero where the mask
+    forbids a key, so a query row with no allowed key gives nothing to dq
+    and dk; its P is uniform (the forward averages V over the padded keys),
+    and dV takes that share, as autodiff of the forward does.
+    """
+    b, sq, h, dh = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, d_out))
+    if sk_pad > sk:
+        pad = (0, 0, 0, 0, 0, sk_pad - sk)
+        kf = torch.nn.functional.pad(kf, pad)
+        vf = torch.nn.functional.pad(vf, pad)
+        k_pos = torch.nn.functional.pad(k_pos, (0, sk_pad - sk), value=2 ** 30)
+    qg = qf.reshape(b, sq, hk, h // hk, dh)
+    dog = dof.reshape(b, sq, hk, h // hk, dh)
+    scale = dh ** -0.5
+    allowed = position_mask(q_pos, k_pos, causal, window)[:, None, None]
+    s = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
+    p = torch.softmax(torch.where(allowed, s, torch.full_like(s, NEG_INF)), dim=-1)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dog)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = torch.where(allowed, ds, torch.zeros_like(ds)) * scale
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf).reshape(b, sq, h, dh)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg)
+    return dq.to(q.dtype), dk[:, :sk].to(k.dtype), dv[:, :sk].to(v.dtype)

@@ -1,5 +1,6 @@
 """``Model`` facade over the ported decoder-only stack (counterpart of
-``src/repro/models/model.py``, decoder-only ATTN stacks only).
+``src/repro/models/model.py``, decoder-only ATTN stacks only): ``forward``
+and ``loss`` for training, ``prefill`` and the decode steps for serving.
 
 Prefix-prefill contract (DESIGN.md §9): ``prefill_prefix`` returns the KV
 state of a shared prompt prefix and ``prefill_with_prefix`` prefills only
@@ -24,6 +25,19 @@ class Model:
 
     def init(self, generator, device):
         return tf_lib.init_lm(self.cfg, generator, device)
+
+    # --- training -----------------------------------------------------
+    def loss(self, params, batch):
+        """batch keys: tokens, targets, mask.  Returns (loss, {"ce", "aux",
+        "tokens"})."""
+        return tf_lib.loss_fn(params, batch["tokens"], batch["targets"], batch["mask"],
+                              self.cfg)
+
+    def forward(self, params, batch):
+        """(fp32 logits (B,S,V_padded), aux) of ``batch["tokens"]``."""
+        return tf_lib.forward(params, batch["tokens"], self.cfg)
+
+    # --- inference ----------------------------------------------------
 
     def prefill(self, params, batch, capacity: int):
         return tf_lib.prefill(params, batch["tokens"], self.cfg, capacity)

@@ -13,6 +13,8 @@ layer's KV, ``rem`` is empty for an ATTN-only stack.  Two forms:
   (``serving.paged_kv``) and for block (speculative) decode, whose rows
   advance by different amounts (``paged_kv.row_pos_caches`` converts).
 
+  forward(params, tokens, cfg)                     -> (logits (B,S,V), aux)  (training)
+  loss_fn(params, tokens, targets, mask, cfg)      -> (loss, metrics)
   prefill(params, tokens, cfg, capacity[, prefix]) -> (last logits (B,V), caches)
   decode_step(params, token, caches, cfg)          -> (logits (B,V), caches)
   decode_block(params, tokens, caches, cfg)        -> (logits (B,k,V), caches)
@@ -24,6 +26,7 @@ sliding windows and frontends raise.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import torch_dtype
 
@@ -90,6 +93,59 @@ def _logits(params, x, cfg: ModelConfig):
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def _block_train(p, x, positions, cfg: ModelConfig):
+    """One block over the full sequence, making no KV cache."""
+    a, _ = attn_lib.self_attention(p["attn"], apply_norm(p["norm1"], x, cfg.norm_type),
+                                   positions, cfg)
+    return _mlp_residual(p, x + a, cfg)
+
+
+def _run_stack_train(params, x, positions, cfg: ModelConfig):
+    """The blocks in order; with ``cfg.remat`` each is recomputed in the
+    backward and saves nothing but its input (the reference's
+    ``nothing_saveable`` remat of each scanned period, one block here).
+    Returns (x, aux): an ATTN stack has no auxiliary loss."""
+    for p in params["layers"]:
+        if cfg.remat:
+            x = checkpoint(_block_train, p, x, positions, cfg, use_reentrant=False)
+        else:
+            x = _block_train(p, x, positions, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params, tokens, cfg: ModelConfig):
+    """Training forward: tokens (B,S) -> (fp32 logits (B,S,V_padded), aux)."""
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    x, aux = _run_stack_train(params, params["embed"][tokens], positions.contiguous(), cfg)
+    return _logits(params, x, cfg), aux
+
+
+def cross_entropy(logits, targets, mask, vocab_size: int):
+    """Mean next-token CE over the ``mask``ed positions, over the first
+    ``vocab_size`` entries of the padded vocabulary: the tail is masked out
+    of the log-sum-exp with -1e30, its max taken without gradient, and the
+    target logit read by comparison with the vocabulary index (the
+    reference's form, which never gathers along the vocabulary)."""
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    masked = torch.where(iota < vocab_size, logits,
+                         torch.full((), -1e30, dtype=logits.dtype, device=logits.device))
+    m = masked.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(masked - m), dim=-1)) + m[..., 0]
+    tgt = torch.sum(torch.where(iota == targets[..., None], logits,
+                                torch.zeros((), dtype=logits.dtype, device=logits.device)),
+                    dim=-1)
+    return torch.sum((lse - tgt) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(params, tokens, targets, mask, cfg: ModelConfig):
+    """Next-token CE in fp32 over the exact (unpadded) vocabulary.
+    Returns (loss, {"ce", "aux", "tokens"})."""
+    logits, aux = forward(params, tokens, cfg)
+    ce = cross_entropy(logits, targets, mask, cfg.vocab_size)
+    return ce + aux, {"ce": ce, "aux": aux, "tokens": torch.sum(mask).to(torch.int32)}
 
 
 def prefill(params, tokens, cfg: ModelConfig, capacity: int, prefix=None):

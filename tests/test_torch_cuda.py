@@ -95,6 +95,171 @@ def test_flash_kernel_matches_plain(impl, dtype, tol, b, p, s, h, hk, dh, block,
 
 
 @pytest.mark.parametrize("impl", ["xla_flash", "naive"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_autograd_matches_plain_autograd(impl, dtype, tol, dh):
+    """The differentiable wrapper (kernel forward, plain backward) against
+    autograd of the plain version on fp32 copies: GQA g 4, queries after a
+    9-key prefix, one query row with no allowed key.  Output within the
+    kernel's tolerance, each gradient within ``tol`` of its largest |g|
+    (fp32 1e-4; bf16 2e-2, the gradients rounded to bf16)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(dh)
+    b, pre, s, h, hk, block = 2, 9, 70, 8, 2, 64
+    q, k, v = (torch.randn(b, n, heads, dh, device=dev, generator=g).to(dtype).requires_grad_()
+               for n, heads in ((s, h), (pre + s, hk), (pre + s, hk)))
+    d_out = torch.randn(b, s, h, dh, device=dev, generator=g).to(dtype)
+    q_pos = torch.arange(pre, pre + s, device=dev, dtype=torch.int32).expand(b, s).clone()
+    q_pos[1, 0] = -5
+    k_pos = torch.arange(pre + s, device=dev, dtype=torch.int32).expand(b, pre + s).contiguous()
+    before = flash_ops.launches
+    out = flash_ops.flash_attention(q, k, v, q_pos, k_pos, causal=True, window=0,
+                                    block_q=block, block_k=block, impl=impl)
+    got = torch.autograd.grad(out, (q, k, v), d_out)
+    assert flash_ops.launches == before + 1
+    f = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    want_out = (attend_naive(*f, q_pos, k_pos, True, 0) if impl == "naive" else
+                attend_blockwise(*f, q_pos, k_pos, True, 0, block, block))
+    want = torch.autograd.grad(want_out, f, d_out.float())
+    ftol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.detach().float(), want_out.detach(), rtol=0, atol=ftol)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype
+        scale = float(w.abs().max())
+        torch.testing.assert_close(a.float(), w, rtol=0, atol=tol * scale, msg=name)
+    assert not got[0][1, 0].any()
+
+
+@pytest.mark.parametrize("impl", ["xla_flash", "naive"])
+@pytest.mark.parametrize("b,p,s,h,hk,window", [(2, 0, 40, 8, 2, 0), (3, 9, 33, 4, 4, 12)])
+def test_flash_fp32_head_dim_16_matches_plain(impl, b, p, s, h, hk, window):
+    """The fp32 CUDA-core body at head dim 16, the reference's smoke configs'
+    (the train CLI's default on the card); bf16 keeps 64 and 128 only."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(s)
+    q = torch.randn(b, s, h, 16, device=dev, generator=g)
+    k, v = (torch.randn(b, p + s, hk, 16, device=dev, generator=g) for _ in range(2))
+    q_pos = torch.arange(p, p + s, device=dev, dtype=torch.int32).expand(b, s).contiguous()
+    k_pos = torch.arange(p + s, device=dev, dtype=torch.int32).expand(b, p + s).contiguous()
+    out = flash_ops.flash_attention(q, k, v, q_pos, k_pos, causal=True, window=window,
+                                    block_q=16, block_k=16, impl=impl)
+    want = (attend_naive(q, k, v, q_pos, k_pos, True, window) if impl == "naive" else
+            attend_blockwise(q, k, v, q_pos, k_pos, True, window, 16, 16))
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        flash_ops.flash_attention(*(x.bfloat16() for x in (q, k, v)), q_pos, k_pos,
+                                  causal=True, window=0, block_q=16, block_k=16, impl=impl)
+
+
+def test_train_cli_smoke_on_the_card(tmp_path, capsys):
+    """The train CLI's defaults (llama-3.1-8b's smoke config) on the card:
+    the loss falls, the flash kernel runs every layer forward, a checkpoint
+    is written."""
+    from repro_torch.checkpoint import latest_checkpoint
+    from repro_torch.launch import train
+    _cuda()
+    before = flash_ops.launches
+    rc = train.main(["--steps", "20", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 0 and "(improved)" in out, out
+    assert flash_ops.launches - before == 20 * 2          # 2 layers, no remat
+    assert latest_checkpoint(str(tmp_path)) == 20
+
+
+def test_flash_without_grad_is_the_launch_alone():
+    """Grad mode off: the wrapper is the kernel launch of before, bit for
+    bit, whatever the inputs' requires_grad; with grad the forward is the
+    same launch."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, pre, s, h, hk, dh = 8, 45, 128, 32, 8, 128
+    q = torch.randn(b, s, h, dh, device=dev, generator=g, dtype=torch.bfloat16)
+    k, v = (torch.randn(b, pre + s, hk, dh, device=dev, generator=g, dtype=torch.bfloat16)
+            for _ in range(2))
+    q_pos = torch.arange(pre, pre + s, device=dev, dtype=torch.int32).expand(b, s).contiguous()
+    k_pos = torch.arange(pre + s, device=dev, dtype=torch.int32).expand(b, pre + s).contiguous()
+    args = (q_pos, k_pos, True, 0, 64, 64, "xla_flash")
+    direct = flash_ops._forward(q, k, v, *args)
+    kw = dict(causal=True, window=0, block_q=64, block_k=64, impl="xla_flash")
+    before = flash_ops.launches
+    with torch.no_grad():
+        quiet = flash_ops.flash_attention(q.requires_grad_(), k, v, q_pos, k_pos, **kw)
+    assert flash_ops.launches == before + 1 and quiet.grad_fn is None
+    assert torch.equal(quiet, direct)
+    graded = flash_ops.flash_attention(q, k, v, q_pos, k_pos, **kw)
+    assert graded.grad_fn is not None and torch.equal(graded.detach(), direct)
+    assert flash_ops.launches == before + 2
+
+
+def _lm_on_the_card(dtype):
+    """A 2-layer LM the kernel takes (dh 64), weights drawn on the CPU."""
+    from repro_torch.configs import llama31_8b
+    cfg = llama31_8b.SMOKE_CONFIG.replace(d_model=256, num_heads=4, num_kv_heads=2,
+                                          head_dim=64, d_ff=512, dtype=dtype,
+                                          attention_impl="naive")
+    model = build_model(cfg)
+    return cfg, model, model.init(torch.Generator().manual_seed(0), "cpu")
+
+
+def _lm_batch(cfg, device, b=4, s=64):
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g)
+    return {"tokens": toks[:, :-1].to(device), "targets": toks[:, 1:].to(device),
+            "mask": torch.ones(b, s, device=device)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_backward_on_the_card(dtype):
+    """The same gradients with ``remat`` on and off; the recompute launches
+    the flash kernel once more a layer."""
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.trainer import value_and_grad
+    dev = _cuda()
+    cfg, model, params = _lm_on_the_card(dtype)
+    params = tree_map(lambda t: t.to(dev), params)
+    batch = _lm_batch(cfg, dev)
+    runs = []
+    for remat in (False, True):
+        before = flash_ops.launches
+        loss, _, grads = value_and_grad(build_model(cfg.replace(remat=remat)), params, batch)
+        runs.append((float(loss), grads, flash_ops.launches - before))
+    (l0, g0, n0), (l1, g1, n1) = runs
+    assert (n0, n1) == (cfg.num_layers, 2 * cfg.num_layers)
+    assert l0 == l1
+    for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(a.abs().max().float()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_card_step_trains_the_attention_weights(dtype):
+    """A loss through ``self_attention`` on the card gives every layer
+    non-zero ``w_qkv`` and ``w_o`` gradients, equal to autograd of the plain
+    version (the same loss on the CPU): fp32 within 1e-4, bf16 within 5e-2
+    of each leaf's largest |g| (bf16 activations through two layers); then
+    a train step runs."""
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.trainer import value_and_grad
+    dev = _cuda()
+    cfg, model, params = _lm_on_the_card(dtype)
+    card = tree_map(lambda t: t.to(dev), params)
+    _, _, g_cpu = value_and_grad(model, params, _lm_batch(cfg, "cpu"))
+    before = flash_ops.launches
+    _, _, g_card = value_and_grad(model, card, _lm_batch(cfg, dev))
+    assert flash_ops.launches == before + cfg.num_layers
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for layer in g_card["layers"]:
+        assert float(layer["attn"]["w_qkv"].abs().max()) > 0
+        assert float(layer["attn"]["w_o"].abs().max()) > 0
+    for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        torch.testing.assert_close(a.float().cpu(), b.float(), rtol=0,
+                                   atol=tol * float(b.abs().max().float()))
+    step = make_train_step(model, AdamWConfig(lr=1e-3), total_steps=4)
+    _, opt, metrics = step(card, init_opt_state(card), _lm_batch(cfg, dev))
+    assert opt["step"] == 1 and np.isfinite(metrics["loss"])
+
+
+@pytest.mark.parametrize("impl", ["xla_flash", "naive"])
 @pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("dh", [64, 128])
 def test_flash_row_with_no_allowed_key(impl, dtype, tol, dh):

@@ -159,3 +159,29 @@ def test_slice_4_modules_stand_alone(rel):
     assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     name = rel[:-3].replace("/", ".").removesuffix(".__init__")
     importlib.import_module("repro_torch." + name)
+
+
+SLICE_6 = ("models/transformer.py", "models/model.py", "kernels/flash_attention/ops.py",
+           "kernels/flash_attention/ref.py", "training/trainer.py", "data/pretrain.py",
+           "data/__init__.py", "checkpoint/checkpoint.py", "checkpoint/convert.py",
+           "configs/__init__.py", "launch/train.py", "checkpoint/__init__.py",
+           "eval/judge.py", "eval/debate.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_6)
+def test_slice_6_modules_stand_alone(rel):
+    """LM training and the judge-and-debate evaluation import without JAX or
+    the JAX package (the debate, features and token stream are copies)."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in _port_files()
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    name = rel[:-3].replace("/", ".").removesuffix(".__init__")
+    importlib.import_module("repro_torch." + name)
+
+
+def test_train_cli_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1"])
