@@ -28,6 +28,9 @@ Prints one JSON object per line:
           the ``train-backward`` cases (bf16, fp32) time forward + backward
           through the flash autograd wrapper (kernel forward, plain
           backward) against autograd of the plain version and SDPA's;
+  serve_cli ``python -m repro_torch.launch.serve`` with no arguments (the
+          tiny fp32 stack, head dim 16, on the card; run through ``runpy`` in
+          this process): exit 0, 200 completions, its kernel launches;
   train   the embedder (MiniLM at full width over the 128,256-token
           vocabulary, 60 steps at batch 16) and the cross-encoder reranker
           (the same width, 120 steps at batch 32) trained on the card as
@@ -44,13 +47,25 @@ Prints one JSON object per line:
           gives every leaf, and every layer's w_qkv and w_o, a gradient; the
           gradients a microbatches-2 step applies (fp32) against the whole
           batch's within 2% of each leaf's largest |g|; the train CLI on its
-          smoke config returns 0 (its fp32 dh-16 flash shape is a kernel
-          case, ``train-cli-smoke-fp32``);
+          default (qwen2.5-3b's smoke config) returns 0 with one flash
+          launch a layer a step (its fp32 dh-32 flash shape is a kernel case,
+          ``train-cli-default-smoke-fp32``);
   judge   that trained model as referee: mean log-likelihood of 48 big,
           small and word-shuffled big responses before and after training
           (after: real above shuffled), ms per set, flash launches, two rows
           against an fp32 CPU score (within 0.01), ``debate_batch`` big against small
           (verdict shares sum to 1, mean margin by persona);
+  archs   the dense attention variants at full width, one at a time on an
+          emptied card: qwen2.5-3b (QKV bias, 36 layers), h2o-danube-1.8b
+          (sliding window 4,096, 24 layers), deepseek-coder-33b (8 of 62
+          layers) and nemotron-4-340b (squared ReLU, layernorm, 2 of 96
+          layers), random weights: 4 prompts of 128 tokens, 32 greedy tokens
+          through ``Generator``'s fused decode against one teacher-forced
+          forward under the margin rule, the fused tokens equal to the same
+          steps run one by one (ms a step), one flash launch a layer a
+          prefill and one decode launch a layer a step; for danube also 2
+          prompts of 4,160 tokens whose prefill lays out the 4,096-slot ring
+          and 64 decode steps wrap on through it;
   serve   the full-width stack (``build_stack(model="llama-3.1-8b")``, its
           embedder trained): a restored bank of random unit vectors, a few
           hundred populated pairs, then batches of 8 through
@@ -137,6 +152,17 @@ PAGE = 16                      # KV page size of the paged phases
 POOL_PAGES = 256               # pages per paged generator (2 MiB each at full width)
 SPEC_K = 4                     # verify block of the speculating phases
 CACHE_SHARDS = 4               # shards of the sharded-bank phase, all on cuda:0
+# The dense attention variants at full width (``archs``): (id, layers kept,
+# None for the whole depth).  deepseek-coder-33b keeps 8 of 62 layers (9.4 GB
+# of weights) to hold the phase's time; nemotron-4-340b keeps 2 of 96 (33 GB:
+# 6.9 GB a layer, 18.9 GB of embedding and untied head; 96 layers need ~680
+# GB).
+ARCHS = (("qwen2.5-3b", None), ("h2o-danube-1.8b", None), ("deepseek-coder-33b", 8),
+         ("nemotron-4-340b", 2))
+ARCH_BATCH, ARCH_PROMPT, ARCH_NEW = 4, 128, 32
+RING = (2, 4160, 64)     # danube: rows, a prompt past its 4,096-token window, decode steps
+TRAIN_CLI_ARCH = "qwen2.5-3b"  # the train CLI's default --arch, as the reference's
+SERVE_CLI_QUERIES = 200        # the serve CLI's default --queries
 
 
 def emit(obj) -> None:
@@ -302,10 +328,12 @@ def mma_plan(name: str, label: str, plan) -> dict:
 
 # ------------------------------------------------------------------ kernels
 
-def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen, dtype="bfloat16"):
+def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen, dtype="bfloat16",
+               window=0):
     """The prefill kernel at one main-path shape: queries at [prefix,
     prefix+sq) over keys [0, prefix+sq), bf16 (or fp32, the CUDA-core
-    body, as the train CLI's smoke config runs it)."""
+    body, as the train CLI's smoke config runs it), within ``window``
+    positions when it is > 0 (a sliding-window stack's prefill)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -317,16 +345,17 @@ def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen, dtype="bfloat1
     v = torch.randn(b, sk, hk, dh, device=dev, generator=gen, dtype=dt)
     q_pos = torch.arange(prefix, sk, device=dev, dtype=torch.int32).expand(b, sq).contiguous()
     k_pos = torch.arange(sk, device=dev, dtype=torch.int32).expand(b, sk).contiguous()
-    run = lambda: ops.flash_attention(q, k, v, q_pos, k_pos, causal=True, window=0,
+    run = lambda: ops.flash_attention(q, k, v, q_pos, k_pos, causal=True, window=window,
                                       block_q=block, block_k=block, impl=impl)
     out = run()
     if impl == "naive":
-        plain = lambda: ref.attend_naive(q, k, v, q_pos, k_pos, True, 0)
-        want = ref.attend_naive(q.float(), k.float(), v.float(), q_pos, k_pos, True, 0)
+        plain = lambda: ref.attend_naive(q, k, v, q_pos, k_pos, True, window)
+        want = ref.attend_naive(q.float(), k.float(), v.float(), q_pos, k_pos, True, window)
     else:
-        plain = lambda: ref.attend_blockwise(q, k, v, q_pos, k_pos, True, 0, block, block)
-        want = ref.attend_blockwise(q.float(), k.float(), v.float(), q_pos, k_pos, True, 0,
-                                    block, block)
+        plain = lambda: ref.attend_blockwise(q, k, v, q_pos, k_pos, True, window, block,
+                                             block)
+        want = ref.attend_blockwise(q.float(), k.float(), v.float(), q_pos, k_pos, True,
+                                    window, block, block)
     err = (out.float() - want).abs().max().item()
     # bf16 output (ulp 2^-8 near 1) against an fp32 evaluation; fp32 against
     # fp32 differs only in the order of the sums
@@ -334,7 +363,9 @@ def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen, dtype="bfloat1
     check(f"flash_attention[{label}]", err, tol)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     mask = (k_pos[0][None, :] <= q_pos[0][:, None])
-    if prefix:      # queries after a prefix: the causal mask is not SDPA's own
+    if window:
+        mask &= k_pos[0][None, :] > q_pos[0][:, None] - window
+    if prefix or window:   # the mask is not SDPA's own causal one
         library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                          enable_gqa=True)
     else:           # positions from 0 on both sides: SDPA's causal path is the same function
@@ -345,8 +376,8 @@ def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen, dtype="bfloat1
     bms, by = bound(moved, 4.0 * pairs * dh, "fp32" if dt == torch.float32 else "bf16")
     row = {"phase": "kernel", "name": "flash_attention", "case": label,
            "shape": {"B": b, "Sq": sq, "Sk": sk, "H": h, "Hk": hk, "dh": dh,
-                     "block": block, "impl": impl, "dtype": dtype},
-           "library": "sdpa, explicit mask" if prefix else "sdpa, is_causal",
+                     "block": block, "impl": impl, "dtype": dtype, "window": window},
+           "library": "sdpa, explicit mask" if prefix or window else "sdpa, is_causal",
            "max_abs_err": err, "tolerance": tol, "ms": time_ms(run),
            "plain_ms": time_ms(plain, reps=5), "library_ms": time_ms(library),
            "bound_ms": bms, "bound_by": by}
@@ -447,24 +478,26 @@ def flash_backward_case(label, b, s, h, hk, dh, dtype, gen):
     return row, (run, library, 5)
 
 
-def decode_case(label, b, h, hk, dh, t, cache_len, layers, gen):
-    """The decode kernel at one main-path shape, bf16.  The timed loop walks
+def decode_case(label, b, h, hk, dh, t, cache_len, layers, gen, dtype="bfloat16"):
+    """The decode kernel at one main-path shape, bf16 (or fp32, the CUDA-core
+    body, as the serve CLI's tiny stack runs it).  The timed loop walks
     ``layers`` distinct caches, as a decode step walks its layers, so each
     launch finds its K/V outside the 50 MB L2, as the serve path does."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
     dev = torch.device("cuda")
-    q = torch.randn(b, h, dh, device=dev, generator=gen, dtype=torch.bfloat16)
-    ks = [torch.randn(b, t, hk, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, h, dh, device=dev, generator=gen, dtype=dt)
+    ks = [torch.randn(b, t, hk, dh, device=dev, generator=gen, dtype=dt)
           for _ in range(layers)]
-    vs = [torch.randn(b, t, hk, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+    vs = [torch.randn(b, t, hk, dh, device=dev, generator=gen, dtype=dt)
           for _ in range(layers)]
     lens = torch.full((b,), cache_len, device=dev, dtype=torch.int32)
     out = ops.decode_attention(q, ks[0], vs[0], lens)
     want = ref.decode_attention_ref(q.float(), ks[0].float(), vs[0].float(), lens)
     err = (out.float() - want).abs().max().item()
-    tol = 2e-2
+    tol = 1e-5 if dt == torch.float32 else 2e-2
     check(f"decode_attention[{label}]", err, tol)
     step = [0]
 
@@ -485,13 +518,16 @@ def decode_case(label, b, h, hk, dh, t, cache_len, layers, gen):
         return F.scaled_dot_product_attention(q4, kts[j], vts[j], attn_mask=mask,
                                               enable_gqa=True)
 
-    moved = 2 * 2 * b * cache_len * hk * dh + 2 * 2 * q.numel() + 4 * b
-    bms, by = bound(moved, 4.0 * b * h * cache_len * dh, "bf16")
-    plan = mma_plan("decode_attention", label, ops.launch_plan(b, 1, t, hk, h // hk, dh,
-                                                               torch.bfloat16))
+    elt = q.element_size()
+    moved = 2 * elt * b * cache_len * hk * dh + 2 * elt * q.numel() + 4 * b
+    fp32 = dt == torch.float32
+    bms, by = bound(moved, 4.0 * b * h * cache_len * dh, "fp32" if fp32 else "bf16")
+    cut = ops.launch_plan(b, 1, t, hk, h // hk, dh, dt)
+    plan = ({"route": cut.route, "grid": list(cut.grid), "chunk": cut.chunk,
+             "splits": cut.splits} if fp32 else mma_plan("decode_attention", label, cut))
     return {"phase": "kernel", "name": "decode_attention", "case": label,
             "shape": {"B": b, "H": h, "Hk": hk, "dh": dh, "T": t, "cache_len": cache_len,
-                      **plan, "dtype": "bfloat16"},
+                      **plan, "dtype": dtype},
             "max_abs_err": err, "tolerance": tol, "ms": time_ms(run, reps=layers),
             "plain_ms": time_ms(plain), "library_ms": time_ms(library, reps=layers),
             "bound_ms": bms, "bound_by": by}, (run, library, layers)
@@ -781,7 +817,8 @@ def kernel_phase(prefix_len: int, seed: int):
         flash_case("small-suffix-over-prefix", 8, 128, prefix_len, h, hk, dh,
                    LLAMA_FLASH_BLOCK, "xla_flash", gen),
         flash_case("big-miss-prefill", 8, 64, 0, h, hk, dh, cfg.flash_block_k, "naive", gen),
-        # the train CLI's smoke config (fp32, dh 16), which lm_train runs on the card
+        # llama-3.1-8b's smoke config (fp32, dh 16): the train CLI's --arch llama-3.1-8b,
+        # and the serve CLI's tiny stack's head dim
         flash_case("train-cli-smoke-fp32", LM_BATCH, LM_SEQ, 0, smoke.num_heads,
                    smoke.num_kv_heads, smoke.resolved_head_dim, smoke.flash_block_k, "naive",
                    gen, dtype=smoke.dtype),
@@ -805,7 +842,65 @@ def kernel_phase(prefix_len: int, seed: int):
                    prefix_len, cfg.num_layers, gen, block=True),
         paged_case("small-tweak-paged-verify-k1", 8, 1, h, hk, dh, PAGE, tweak_cap, tweak_len,
                    prefix_len, cfg.num_layers, gen, block=True),
+    ] + arch_kernel_cases(prefix_len, gen)
+
+
+def arch_kernel_cases(prefix_len: int, gen):
+    """The kernel instances the dense variants add, each at the shape the
+    ``archs`` phase (or a CLI run) drives: every arch's prefill (B 4, 128
+    tokens, causal from 0) and decode (a 161-slot cache mid-decode) at its
+    head dim and G, danube's 4,160-token windowed prefill and its full
+    4,096-slot ring, nemotron's verify block and paged kernels (dh 192, G
+    12), the train CLI's default smoke flash (qwen2.5-3b smoke: fp32, dh 32)
+    and the serve CLI's tiny stack's fp32 dh-16 decode (its big model's MISS
+    decode and its small model's TWEAK decode)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import model_configs
+    cases = []
+    cap, mid = ARCH_PROMPT + ARCH_NEW + 1, ARCH_PROMPT + ARCH_NEW // 2 + 1
+    for arch, _ in ARCHS:
+        cfg = get_config(arch)
+        h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        cases.append(flash_case(f"{arch}-prefill", ARCH_BATCH, ARCH_PROMPT, 0, h, hk, dh,
+                                cfg.flash_block_k, "naive", gen))
+        cases.append(decode_case(f"{arch}-decode", ARCH_BATCH, h, hk, dh, cap, mid,
+                                 cfg.num_layers, gen))
+    danube = get_config("h2o-danube-1.8b")
+    rows, prompt, _ = RING
+    cases.append(flash_case("h2o-danube-1.8b-long-prefill", rows, prompt, 0, danube.num_heads,
+                            danube.num_kv_heads, danube.resolved_head_dim,
+                            danube.flash_block_k, "xla_flash", gen,
+                            window=danube.sliding_window))
+    cases.append(decode_case("h2o-danube-1.8b-ring-decode", rows, danube.num_heads,
+                             danube.num_kv_heads, danube.resolved_head_dim,
+                             danube.sliding_window, danube.sliding_window,
+                             danube.num_layers, gen))
+    nem = get_config("nemotron-4-340b")
+    h, hk, dh, n = nem.num_heads, nem.num_kv_heads, nem.resolved_head_dim, nem.num_layers
+    cases += [
+        block_case("nemotron-4-340b-verify-k4", ARCH_BATCH, SPEC_K, h, hk, dh, cap, mid, n,
+                   gen),
+        paged_case("nemotron-4-340b-paged-decode", ARCH_BATCH, 1, h, hk, dh, PAGE, cap,
+                   mid + 1, 0, n, gen, block=False),
+        paged_case("nemotron-4-340b-paged-verify-k4", ARCH_BATCH, SPEC_K, h, hk, dh, PAGE,
+                   cap, mid, 0, n, gen, block=True),
     ]
+    smoke = get_config(TRAIN_CLI_ARCH, smoke=True)
+    cases.append(flash_case("train-cli-default-smoke-fp32", LM_BATCH, LM_SEQ, 0,
+                            smoke.num_heads, smoke.num_kv_heads, smoke.resolved_head_dim,
+                            smoke.flash_block_k, "naive", gen, dtype=smoke.dtype))
+    # the serve CLI's most frequent decode calls: the big model's MISS batches
+    # of 4 over a 64-token bucket, the small model's TWEAK batches of 8 over the
+    # prefix and a 64-token suffix bucket, 8 new tokens
+    big, small, _, _ = model_configs("serve-tiny")
+    cases.append(decode_case("serve-cli-big-miss-decode-fp32", 4, big.num_heads,
+                             big.num_kv_heads, big.resolved_head_dim, 64 + 8 + 1, 64 + 4,
+                             big.num_layers, gen, dtype=big.dtype))
+    cases.append(decode_case("serve-cli-small-tweak-decode-fp32", 8, small.num_heads,
+                             small.num_kv_heads, small.resolved_head_dim,
+                             prefix_len + 64 + 8 + 1, prefix_len + 64 + 4, small.num_layers,
+                             gen, dtype=small.dtype))
+    return cases
 
 
 # ------------------------------------------------------------------ train
@@ -1104,11 +1199,16 @@ def lm_train_phase(device, seed: int, sets):
         raise AssertionError(f"lm_train: {launches} flash launches in {LM_STEPS} steps, not "
                              f"2 a layer a step (forward and the remat recompute)")
     out = io.StringIO()
+    n0 = flash_ops.launches
     with contextlib.redirect_stdout(out):
         rc = train_cli.main(["--steps", "20", "--log-every", "10"])
+    cli_launches = flash_ops.launches - n0
     cli_lines = out.getvalue().strip().splitlines()
-    if rc != 0:
+    if rc != 0 or not cli_lines[0].startswith(f"arch={TRAIN_CLI_ARCH} "):
         raise AssertionError(f"lm_train: the train CLI returned {rc}: {cli_lines}")
+    if cli_launches != 20 * 2:
+        raise AssertionError(f"lm_train: the train CLI launched flash {cli_launches} times, "
+                             f"not once a layer a step (2 layers, 20 steps)")
     med = float(np.median(step_ms))
     line = {"phase": "lm_train", "seconds": time.perf_counter() - t0, "config": cfg.name,
             "layers": LM_LAYERS,
@@ -1122,7 +1222,9 @@ def lm_train_phase(device, seed: int, sets):
             "flash_launches": launches, "flash_launches_per_step": launches / LM_STEPS,
             "first10_loss": first10, "last10_loss": last10, "loss_first": losses[0],
             "loss_last": losses[-1], "grad_check": grad_check, "microbatch_check": micro,
-            "cli": {"rc": rc, "args": "--steps 20 --log-every 10 (smoke config)",
+            "cli": {"rc": rc, "args": "--steps 20 --log-every 10 (the default --arch "
+                                      f"{TRAIN_CLI_ARCH}, its smoke config)",
+                    "flash_launches": cli_launches,
                     "first_line": cli_lines[0], "last_line": cli_lines[-1]}}
     return line, model, params, tok, before
 
@@ -1172,6 +1274,186 @@ def judge_phase(model, params, tok, sets, before, device, seed: int):
 
 
 # ------------------------------------------------------------------ serve
+
+# ------------------------------------------------------------------ archs
+
+def generate_check(model, params, rng, b: int, s: int, mnt: int):
+    """Greedy generation of ``mnt`` tokens from ``b`` random prompts of ``s``
+    tokens through ``Generator``'s fused decode, held against one
+    teacher-forced forward of ``[prompt | generated]`` (the prefill's
+    attention, every position's logits) under the margin rule, whose
+    tolerance is twice the largest logit difference between that forward and
+    the decode steps fed the same tokens, plus 1e-3.  The decode steps are
+    run again one by one from a prefill (timed: ms a step) and must give the
+    fused loop's tokens exactly.  Returns the run's line and the caches the
+    step loop left."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.generate import GenerateConfig, Generator
+    from repro_torch.serving.sampler import SamplerConfig
+    cfg, dev = model.cfg, params["embed"].device
+    vocab = cfg.vocab_size
+    toks = torch.as_tensor(rng.integers(5, vocab, (b, s)), device=dev).long()
+    gen = Generator(model, params, GenerateConfig(max_new_tokens=mnt,
+                                                  sampler=SamplerConfig(vocab_size=vocab)))
+    with torch.no_grad():
+        gen.generate_with_lengths({"tokens": toks[:, :16]}, max_new_tokens=2)   # warm-up
+        _sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens, lengths, _ = gen.generate_with_lengths({"tokens": toks})
+        generate_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        fed = torch.as_tensor(tokens, device=dev).long()
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, {"tokens": toks}, s + mnt + 1)
+        _sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        dec = [logits[:, :vocab].float()]
+        t0 = time.perf_counter()
+        for j in range(1, mnt):
+            logits, caches = model.decode_step(params, fed[:, j - 1], caches)
+            dec.append(logits[:, :vocab].float())
+        _sync(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3 / (mnt - 1)
+        dec = torch.stack(dec, 1)                                        # (B, mnt, V)
+        full, _ = model.forward(params, {"tokens": torch.cat([toks, fed[:, :-1]], 1)})
+        teach = full[:, s - 1:, :vocab].float()
+        del full
+    live = torch.arange(mnt, device=dev)[None, :] < torch.as_tensor(lengths, device=dev)[:, None]
+    if not torch.equal(torch.where(live, dec.argmax(-1), fed), fed):
+        raise AssertionError(f"archs[{cfg.name}]: the fused decode's tokens differ from "
+                             f"the same steps run one by one")
+    noise = (dec - teach).abs().max().item()
+    top = teach.topk(2, dim=-1).values
+    ref = teach.argmax(-1)
+    test = torch.where(live, fed, ref)
+    rule = margin_rule(f"archs[{cfg.name}]", [(ref.cpu().numpy(),
+                                               (top[..., 0] - top[..., 1]).cpu().numpy(),
+                                               test.cpu().numpy())], 2 * noise + 1e-3)
+    n_layers = cfg.num_layers
+    if counts["flash_attention"] != n_layers or counts["decode_attention"] != n_layers * (
+            mnt - 1):
+        raise AssertionError(f"archs[{cfg.name}]: launches {counts}, not one flash a layer "
+                             f"and one decode a layer a step")
+    if not torch.isfinite(dec).all():
+        raise AssertionError(f"archs[{cfg.name}]: non-finite logits")
+    return {"batch": b, "prompt": s, "new_tokens": mnt, "generate_ms": generate_ms,
+            "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+            "flash_launches_per_generate": counts["flash_attention"],
+            "decode_launches_per_step": counts["decode_attention"] / (mnt - 1),
+            "kernel_launches": {k: v for k, v in counts.items() if v},
+            "max_logit_diff_decode_vs_forward": noise, "margin_rule": rule,
+            "mean_generated_length": float(np.mean(lengths))}, caches
+
+
+def archs_phase(seed: int, device=None):
+    """The dense attention variants at full width, one at a time on an emptied
+    card, each freed before the next: random weights from seeds, depth cut
+    as ``ARCHS`` says; a batch of ``ARCH_BATCH`` prompts of ``ARCH_PROMPT``
+    tokens and ``ARCH_NEW`` greedy tokens through ``generate_check``; for a
+    sliding-window stack also ``RING``: prompts longer than its window, so
+    prefill lays out the ring and decode wraps it further (the ring's
+    positions are checked to be the last ``window`` ones)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import tree_leaves
+    dev = device or torch.device("cuda")
+    t_phase = time.perf_counter()
+    out, launches = {}, {"flash_attention": 0, "decode_attention": 0}
+    for i, (arch, depth) in enumerate(ARCHS):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        full = get_config(arch)
+        cfg = full if depth is None else full.replace(num_layers=depth)
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        with torch.no_grad():
+            params = model.init(torch.Generator(device=dev).manual_seed(seed + 40 + i), dev)
+        _sync(dev)
+        leaves = tree_leaves(params)
+        line = {"layers": cfg.num_layers, "layers_of": full.num_layers, "d_model": cfg.d_model,
+                "heads": [cfg.num_heads, cfg.num_kv_heads], "head_dim": cfg.resolved_head_dim,
+                "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "window": cfg.sliding_window,
+                "qkv_bias": cfg.qkv_bias, "mlp": cfg.mlp_type, "norm": cfg.norm_type,
+                "dtype": cfg.dtype, "params": sum(p.numel() for p in leaves),
+                "weight_gb": sum(p.numel() * p.element_size() for p in leaves) / 1e9,
+                "init_s": time.perf_counter() - t0}
+        del leaves
+        rng = np.random.default_rng(seed + 50 + i)
+        line["short"], _ = generate_check(model, params, rng, ARCH_BATCH, ARCH_PROMPT, ARCH_NEW)
+        runs = [line["short"]]
+        if cfg.sliding_window:
+            rows, prompt, steps = RING
+            if prompt <= cfg.sliding_window:
+                raise AssertionError(f"archs[{arch}]: the ring prompt does not pass the window")
+            line["ring"], caches = generate_check(model, params, rng, rows, prompt, steps + 1)
+            sp = caches["scan"][0]["slot_pos"]
+            end = caches["pos"]
+            cap = sp.shape[-1]
+            if cap != cfg.sliding_window or not torch.equal(
+                    sp.sort(-1).values, torch.arange(end - cap, end, device=dev, dtype=sp.dtype)
+                    .expand_as(sp)):
+                raise AssertionError(f"archs[{arch}]: the ring does not hold the last {cap} "
+                                     f"positions before {end}")
+            line["ring"].update(ring_slots=cap, last_pos=end - 1,
+                                wraps=(end - 1) // cap, writes_past_prompt=end - prompt)
+            runs.append(line["ring"])
+            del caches
+        for run in runs:
+            for k in launches:
+                launches[k] += run["kernel_launches"].get(k, 0)
+        line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        line["seconds"] = time.perf_counter() - t0
+        out[arch] = line
+        del params, model
+        torch.cuda.empty_cache()
+    return {"phase": "archs", "seconds": time.perf_counter() - t_phase, "configs": out,
+            "launches": launches}
+
+
+def serve_cli_phase():
+    """``python -m repro_torch.launch.serve`` with no arguments, as a user runs
+    it (``runpy``, what ``-m`` runs, in this process so that its kernel
+    launches are counted): the tiny fp32 stack (head dim 16) on the card,
+    200 queries; it must exit 0 with every request completed and launch the
+    flash, decode and lookup kernels."""
+    import contextlib
+    import io
+    import runpy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    out, argv = io.StringIO(), sys.argv
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        sys.argv = ["python -m repro_torch.launch.serve"]
+        with contextlib.redirect_stdout(out):
+            try:
+                runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+                rc = 0
+            except SystemExit as e:
+                rc = e.code
+    finally:
+        sys.argv = argv
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    lines = out.getvalue().strip().splitlines()
+    done = [ln for ln in lines if ln.startswith("requests:")]
+    n = int(done[0].split()[1]) if done else -1
+    if rc != 0 or n != SERVE_CLI_QUERIES or "on cuda" not in done[0]:
+        raise AssertionError(f"serve_cli: rc {rc}, completions {n}: {lines[-8:]}")
+    if min(counts[k] for k in ("flash_attention", "decode_attention", "cosine_topk")) == 0:
+        raise AssertionError(f"serve_cli: a kernel of the path never launched: {counts}")
+    return {"phase": "serve_cli", "argv": "python -m repro_torch.launch.serve", "rc": rc,
+            "seconds": seconds, "requests": n,
+            "kernel_launches": {k: v for k, v in counts.items() if v},
+            "report": [ln for ln in lines if ln.split(":")[0] in
+                       ("requests", "scheduler", "routing", "tokens", "cost")]}
+
 
 def plan_traffic(stack, device, seed: int, n_pop: int, n_batches: int, bsz: int):
     """Populated pairs, serve batches and the router threshold.
@@ -2582,6 +2864,8 @@ def main(argv=None) -> int:
 
     prefix_len = len(tweak_lib.tweak_prefix_ids(HashWordTokenizer(128256)))
     checked = kernel_phase(prefix_len, args.seed)
+    serve_cli = serve_cli_phase()
+    emit(serve_cli)
     train, reranker = train_phase("llama-3.1-8b", torch.device("cuda"), args.seed)
     emit(train)
     sets = judge_sets(args.seed, JUDGE_PAIRS)
@@ -2592,6 +2876,8 @@ def main(argv=None) -> int:
     emit(judge)
     del lm_params, before
     torch.cuda.empty_cache()
+    archs = archs_phase(args.seed)
+    emit(archs)
     serve, launches, eng, spare, plan, served = serve_phase(
         "llama-3.1-8b", torch.device("cuda"), args.seed, N_BATCHES, MAX_NEW_TOKENS)
     emit(serve)
@@ -2625,7 +2911,8 @@ def main(argv=None) -> int:
     for row, (run, library, reps) in checked:
         row["device_ms"], row["device_by_kernel"] = device_ms(run, reps, split=True)
         per_call = [n for _, n in row["device_by_kernel"].values()]
-        if row["name"] in ONE_LAUNCH_KERNELS and per_call != [1.0]:
+        one = row["name"] in ONE_LAUNCH_KERNELS and row["shape"].get("route") != "panel"
+        if one and per_call != [1.0]:
             raise AssertionError(f"{row['name']}[{row['case']}]: launches per call "
                                  f"{row['device_by_kernel']}, not one kernel once")
         row["library_device_ms"] = device_ms(library, reps)
@@ -2645,7 +2932,15 @@ def main(argv=None) -> int:
                         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                         "library_ms": c["library_ms"]})
     summary[0].update(launches_lm_train=lm_train["flash_launches"],
-                      launches_judge=judge["flash_launches"])
+                      launches_judge=judge["flash_launches"],
+                      launches_archs=archs["launches"]["flash_attention"])
+    summary[1].update(launches_archs=archs["launches"]["decode_attention"],
+                      launches_serve_cli=serve_cli["kernel_launches"]["decode_attention"])
+    for row in summary:    # every case of the kernel, the summary's own included
+        row["cases"] = [{k: c.get(k) for k in ("case", "max_abs_err", "ms", "device_ms",
+                                                "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms", "library_device_ms")}
+                        for c in cases if c["name"] == row["name"]]
     emit({"phase": "wall", "script_s": time.perf_counter() - t_start,
           "kernel_build_s": build.build_seconds, "profiler_sessions": profiler_sessions})
     print(smi, flush=True)

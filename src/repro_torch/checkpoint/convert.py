@@ -11,9 +11,11 @@ the JAX package's own ``_flatten``) key them.  Two layouts are understood:
   plus an fp32 ``score_head`` (d, 1).
 
 Attention weights come as ``w_q``/``w_k``/``w_v`` (d,h,dh) and ``w_o``
-(h,dh,d) and become ``w_qkv`` (d,(H+2Hk)*dh) and ``w_o`` (H*dh,d); a
-swiglu MLP's ``w_gate``/``w_up`` become ``w_gate_up`` (d,2f).  Norm
-parameters stay fp32; weights take the config's dtype.
+(h,dh,d) and become ``w_qkv`` (d,(H+2Hk)*dh) and ``w_o`` (H*dh,d); QKV
+biases ``b_q``/``b_k``/``b_v`` (h,dh) become ``b_qkv`` ((H+2Hk)*dh,); a
+swiglu MLP's ``w_gate``/``w_up`` become ``w_gate_up`` (d,2f), a gelu or
+squared-ReLU MLP keeps ``w_up``/``w_down``.  Norm parameters stay fp32;
+weights take the config's dtype.
 
 ``torch_params_to_jax`` is the inverse for the decoder LM: it carries the
 port's weights back to the reference's layout (``checkpoint.save_checkpoint``
@@ -55,8 +57,6 @@ def jax_params_to_torch(flat: Dict[str, np.ndarray], cfg: ModelConfig, device="c
     if any(k.startswith("rem/") for k in flat) or any(
             k.startswith("scan/1/") for k in flat):
         raise NotImplementedError("only single-kind (ATTN) stacks are converted")
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias is not ported")
     pre = "scan/0/" if "scan/0/attn/w_q" in flat else "scan/"
     dt = torch_dtype(cfg.dtype)
     d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -74,10 +74,15 @@ def jax_params_to_torch(flat: Dict[str, np.ndarray], cfg: ModelConfig, device="c
         else:
             mlp = {"w_up": w("mlp/w_up")}
         mlp["w_down"] = w("mlp/w_down")
+        attn = {"w_qkv": _tensor(w_qkv, dt, device),
+                "w_o": _tensor(w("attn/w_o").reshape(h * dh, d), dt, device)}
+        if cfg.qkv_bias:
+            attn["b_qkv"] = _tensor(np.concatenate(
+                [w("attn/b_q").reshape(-1), w("attn/b_k").reshape(-1),
+                 w("attn/b_v").reshape(-1)]), dt, device)
         layers.append({
             "norm1": _norm(flat, pre + "norm1", i, device),
-            "attn": {"w_qkv": _tensor(w_qkv, dt, device),
-                     "w_o": _tensor(w("attn/w_o").reshape(h * dh, d), dt, device)},
+            "attn": attn,
             "norm2": _norm(flat, pre + "norm2", i, device),
             "mlp": {k: _tensor(v, dt, device) for k, v in mlp.items()},
         })
@@ -130,6 +135,12 @@ def _jax_leaves(params, cfg: ModelConfig):
             ("scan/0/attn/w_k", torch.stack(wk).reshape(-1, d, hk, dh)),
             ("scan/0/attn/w_v", torch.stack(wv).reshape(-1, d, hk, dh)),
             ("scan/0/attn/w_o", stack(lambda p: p["attn"]["w_o"]).reshape(-1, h, dh, d))]
+    if cfg.qkv_bias:
+        bq, bk, bv = stack(lambda p: p["attn"]["b_qkv"]).split([h * dh, hk * dh, hk * dh],
+                                                               dim=-1)
+        out += [("scan/0/attn/b_q", bq.reshape(-1, h, dh)),
+                ("scan/0/attn/b_k", bk.reshape(-1, hk, dh)),
+                ("scan/0/attn/b_v", bv.reshape(-1, hk, dh))]
     if cfg.mlp_type == "swiglu":
         gate_up = stack(lambda p: p["mlp"]["w_gate_up"])
         out += [("scan/0/mlp/w_gate", gate_up[..., :cfg.d_ff]),
@@ -146,9 +157,10 @@ def _jax_leaves(params, cfg: ModelConfig):
 def torch_params_to_jax(params, cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """The port's decoder-LM parameters as the reference's flattened tree
     ``{path: array}`` (layers stacked under ``scan/0/``; ``w_qkv`` split
-    into ``w_q``/``w_k``/``w_v`` (d,h,dh), ``w_o`` (h,dh,d), ``w_gate_up``
-    split), on the host.  A bf16 leaf comes back as its exact fp32 copy;
-    ``torch_param_dtypes`` names the original dtypes."""
+    into ``w_q``/``w_k``/``w_v`` (d,h,dh), ``w_o`` (h,dh,d), ``b_qkv`` into
+    ``b_q``/``b_k``/``b_v`` (h,dh), ``w_gate_up`` split), on the host.  A
+    bf16 leaf comes back as its exact fp32 copy; ``torch_param_dtypes``
+    names the original dtypes."""
     return {k: t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16
             else t.detach().cpu().numpy() for k, t in _jax_leaves(params, cfg)}
 

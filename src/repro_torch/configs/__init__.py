@@ -1,10 +1,11 @@
 """Architecture registry of the port (counterpart of ``src/repro/configs``).
 
 ``get_config(arch, smoke)`` resolves the reference's ids whose stack the port
-builds: decoder-only global-attention (ATTN) stacks without QKV bias, with
-a swiglu or gelu MLP.  Their config modules are copies of the reference's.
-Every other id raises ``NotImplementedError`` naming what the port lacks for
-it; an unknown id raises ``KeyError`` as in the reference.
+builds: decoder-only ATTN stacks, global or sliding-window, with or without
+QKV bias, with a swiglu, gelu or squared-ReLU MLP.  Their config modules are
+copies of the reference's.  Every other id raises ``NotImplementedError``
+naming what the port lacks for it; an unknown id raises ``KeyError`` as in
+the reference.
 """
 from __future__ import annotations
 
@@ -12,20 +13,20 @@ import importlib
 
 _MODULES = {
     "llama-3.1-8b": "llama31_8b",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "nemotron-4-340b": "nemotron_4_340b",
 }
 
 # what each reference id needs that the port does not build yet
 MISSING = {
-    "deepseek-coder-33b": "its config (a plain llama-arch stack; no caller needs it yet)",
-    "whisper-tiny": "enc-dec (audio frontend, cross attention), qkv_bias",
-    "qwen2.5-3b": "qkv_bias",
-    "recurrentgemma-9b": "RG-LRU blocks, sliding window (local attention)",
-    "h2o-danube-1.8b": "sliding window",
+    "whisper-tiny": "enc-dec (audio frontend, cross attention)",
+    "recurrentgemma-9b": "RG-LRU and LOCAL_ATTN blocks",
     "internvl2-26b": "vision frontend (prefix embeddings)",
     "arctic-480b": "MoE (dense residual)",
     "mamba2-130m": "SSM (Mamba-2)",
     "qwen3-moe-235b-a22b": "MoE",
-    "nemotron-4-340b": "squared_relu",
 }
 
 

@@ -31,6 +31,11 @@
 //    dh/32 consecutive elements, the dot product is a warp shuffle
 //    reduction, and each warp keeps its own online softmax.  The warps'
 //    states are merged through shared memory at the end.
+//  * dh 16 (the serve CLI's default tiny stack, fp32 only): a key's row is
+//    16 elements, one a lane, so a warp takes two keys at once, a
+//    half-warp each, with its own shuffle reduction (offsets below 16 stay
+//    inside the half) and its own online softmax; every lane joins every
+//    shuffle, and a half past the split's last key skips only the update.
 
 #include "common.cuh"
 #include "panel_mma.cuh"
@@ -47,10 +52,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int tlen, int hk, int chunk, int nsplit, float scale,
                     T* __restrict__ out, float* __restrict__ part_m,
                     float* __restrict__ part_l, float* __restrict__ part_acc) {
-  constexpr int EPL = DH / 32;  // elements of dh per lane
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][DH];
+  constexpr int EPL = DH >= 32 ? DH / 32 : 1;  // elements of dh per lane
+  constexpr int LANES = DH / EPL;               // lanes per key: 32, or 16 at dh 16
+  constexpr int SUBS = 32 / LANES;              // keys a warp takes at once
+  constexpr int WORKERS = kWarps * SUBS;        // online-softmax states per block
+  __shared__ float sm_m[WORKERS][G];
+  __shared__ float sm_l[WORKERS][G];
+  __shared__ float sm_acc[WORKERS][G][DH];
 
   const int bk = blockIdx.x;
   const int b = bk / hk;
@@ -58,6 +66,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int split = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int sub = lane / LANES;                 // this lane's key of the warp's SUBS
+  const int sl = lane % LANES;                  // its place in the key's row
+  const int worker = warp * SUBS + sub;
   const int h = hk * G;
 
   // cache_len <= 0 leaves every slot masked: the reference's softmax over
@@ -72,7 +83,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[G][EPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const T* qp = q + ((size_t)b * h + (size_t)kh * G + g) * DH + lane * EPL;
+    const T* qp = q + ((size_t)b * h + (size_t)kh * G + g) * DH + sl * EPL;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) qr[g][e] = to_float(qp[e]);
   }
@@ -86,8 +97,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   }
 
-  for (int t = t0 + warp; t < t1; t += kWarps) {
-    const size_t row = (((size_t)b * tlen + t) * hk + kh) * DH + lane * EPL;
+  // the warp walks the slots SUBS at a time, every lane in every shuffle
+  for (int tw = t0 + warp * SUBS; tw < t1; tw += WORKERS) {
+    const int t = tw + sub;
+    const bool live = t < t1;
+    const size_t row = (((size_t)b * tlen + (live ? t : tw)) * hk + kh) * DH + sl * EPL;
     float kv[EPL], vv[EPL];
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
@@ -99,7 +113,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s = 0.f;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) s += qr[g][e] * kv[e];
-      s = all_masked ? kNeg : warp_sum(s) * scale;
+#pragma unroll
+      for (int off = LANES / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (!live) continue;
+      s = all_masked ? kNeg : s * scale;
       const float m_new = fmaxf(m[g], s);
       const float p = __expf(s - m_new);
       const float corr = __expf(m[g] - m_new);
@@ -112,12 +129,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+    if (sl == 0) {
+      sm_m[worker][g] = m[g];
+      sm_l[worker][g] = l[g];
     }
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[warp][g][lane * EPL + e] = acc[g][e];
+    for (int e = 0; e < EPL; ++e) sm_acc[worker][g][sl * EPL + e] = acc[g][e];
   }
   __syncthreads();
 
@@ -126,10 +143,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int d = i % DH;
     float mx = kNeg;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    for (int w = 0; w < WORKERS; ++w) mx = fmaxf(mx, sm_m[w][g]);
     float lsum = 0.f, asum = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < WORKERS; ++w) {
       const float c = __expf(sm_m[w][g] - mx);
       lsum += sm_l[w][g] * c;
       asum += sm_acc[w][g][d] * c;
@@ -210,6 +227,7 @@ bool dispatch_dh(int dh, int g, const void* q, const void* k, const void* v,
                  int batch, int tlen, int hk, int chunk, int nsplit, float scale,
                  cudaStream_t stream) {
   switch (dh) {
+    case 16: return dispatch_g<T, 16>(g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch, tlen, hk, chunk, nsplit, scale, stream);
     case 64: return dispatch_g<T, 64>(g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch, tlen, hk, chunk, nsplit, scale, stream);
     case 128: return dispatch_g<T, 128>(g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch, tlen, hk, chunk, nsplit, scale, stream);
     default: return false;

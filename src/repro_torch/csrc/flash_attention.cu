@@ -46,11 +46,18 @@
 //    multiplied by exp(kNeg - m_real) = 0, so skipping is bit-exact for every
 //    row that has an allowed key.  A row with none (the uniform average over
 //    Sk_pad keys, as the reference gives) is recomputed from V at the end.
+//  * Head dims 64, 80, 128 and 192 (llama, qwen and deepseek at 128, danube
+//    at 80, nemotron at 192) and any G = H/Hk: the tile is cut by pairs, so
+//    G 7 and 12 only change which (query, head) a row holds.  Q and the
+//    output take DH/16 k-steps (5 at dh 80), one ldmatrix each; the dh-80
+//    rows sit in 128-column shared-memory rows (mma.cuh's row_bytes) so the
+//    swizzle stays inside them.  At dh 192 the tiles take 123 KB: one block
+//    a SM.
 //
 // fp32 inputs keep the CUDA-core body (flash_fwd_simt_kernel): tensor cores
 // would mean TF32, which breaks the fp32 contract (1e-5).  fp32 appears in
 // the tests, the small card engine and the train CLI's smoke configs (head
-// dim 16, an fp32-only instance), never on the llama-3.1-8b path.
+// dims 16, 24 and 32, fp32-only instances), never on a full-width path.
 
 #include <math_constants.h>
 
@@ -182,7 +189,7 @@ constexpr int kKeyPadPos = 1 << 30;  // position of the keys past Sk
 // key positions of both buffers, then one flag per key tile (dynamic).
 template <int DH>
 struct MmaSmem {
-  static constexpr int kRowBytes = DH * 2;
+  static constexpr int kRowBytes = row_bytes(DH);
   static constexpr int kTileBytes = kBN * kRowBytes;
   static constexpr int kQ = 0;
   static constexpr int kK0 = kBM * kRowBytes;
@@ -193,8 +200,10 @@ struct MmaSmem {
   static size_t bytes(int ntiles) { return kFlags + ((ntiles + 15) / 16) * 16; }
 };
 
+// Two blocks a SM up to dh 128; at dh 192 a block's tiles (123 KB) leave
+// room for one, which may then take every register it needs.
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads, 2)
+__global__ void __launch_bounds__(kMmaThreads, DH > 128 ? 1 : 2)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_pos,
                      const int* __restrict__ k_pos, __nv_bfloat16* __restrict__ out, int sq,
@@ -294,7 +303,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int qp_hi = p0 + r_hi < pairs ? q_pos[(size_t)b * sq + (p0 + r_hi) / g] : -1;
   const int tq = lane % 4;
 
-  uint32_t qf[DH / 16][4];
+  // the Q tile's A fragments stay in registers for the whole loop up to dh
+  // 128; at dh 192 they would spill (48 registers beside the 96 of acc), so
+  // each k-step rereads its own from the Q tile
+  constexpr bool kQRegs = DH <= 128;
+  uint32_t qf[kQRegs ? DH / 16 : 1][4];
   float acc[DH / 8][4];
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -312,12 +325,14 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     const unsigned char* sV = smem + L::kV0 + buf * L::kBufStride;
     const int* kp = sKp + buf * kBN;
 
-    if (it == 0) {
-      const unsigned char* sQ = smem + L::kQ;
+    const unsigned char* sQ = smem + L::kQ;
+    if constexpr (kQRegs) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        ldsm_x4(smem_u32(sQ + swz<DH>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4))),
-                qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+        for (int kk = 0; kk < DH / 16; ++kk)
+          ldsm_x4(smem_u32(sQ + swz<DH>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4))),
+                  qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+      }
     }
 
     // S = Q K^T for 64 keys: 8 accumulator tiles of 16 x 8
@@ -326,13 +341,23 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     for (int j = 0; j < kBN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+        qa[0] = qf[kk][0];
+        qa[1] = qf[kk][1];
+        qa[2] = qf[kk][2];
+        qa[3] = qf[kk][3];
+      } else {
+        ldsm_x4(smem_u32(sQ + swz<DH>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4))),
+                qa[0], qa[1], qa[2], qa[3]);
+      }
 #pragma unroll
       for (int np = 0; np < kBN / 16; ++np) {
         uint32_t b0, b1, b2, b3;
         const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
         ldsm_x4(smem_u32(sK + swz<DH>(key, 2 * kk + ((lane >> 3) & 1))), b0, b1, b2, b3);
-        mma_bf16(s[2 * np], qf[kk], b0, b1);
-        mma_bf16(s[2 * np + 1], qf[kk], b2, b3);
+        mma_bf16(s[2 * np], qa, b0, b1);
+        mma_bf16(s[2 * np + 1], qa, b2, b3);
       }
     }
 
@@ -498,19 +523,22 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       void* stream) {
   using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = dh == 64 || dh == 128;
-  if (!(wide || (dh == 16 && dtype == kFloat32)) || hk < 1 || h % hk != 0 || sk_pad < sk)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int rc = 0;
-  if (dtype == kFloat32) {
-    auto run = dh == 16 ? launch_simt<16> : dh == 64 ? launch_simt<64> : launch_simt<128>;
-    run(q, k, v, q_pos, k_pos, out, batch, sq, sk, sk_pad, h, hk, causal, window, scale, s);
+  if (hk < 1 || h % hk != 0 || sk_pad < sk) return static_cast<int>(cudaErrorInvalidValue);
+  decltype(&launch_simt<16>) simt = nullptr;
+  decltype(&launch_mma<64>) mma = nullptr;
+  if (dtype == kFloat32) {   // ops.HEAD_DIMS
+    simt = dh == 16 ? launch_simt<16> : dh == 24 ? launch_simt<24> : dh == 32 ? launch_simt<32>
+         : dh == 64 ? launch_simt<64> : dh == 128 ? launch_simt<128> : nullptr;
   } else if (dtype == kBFloat16) {
-    auto run = dh == 64 ? launch_mma<64> : launch_mma<128>;
-    rc = run(q, k, v, q_pos, k_pos, out, batch, sq, sk, sk_pad, h, hk, causal, window, scale, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    mma = dh == 64 ? launch_mma<64> : dh == 80 ? launch_mma<80> : dh == 128 ? launch_mma<128>
+        : dh == 192 ? launch_mma<192> : nullptr;
   }
+  if (!simt && !mma) return static_cast<int>(cudaErrorInvalidValue);
+  int rc = 0;
+  if (simt)
+    simt(q, k, v, q_pos, k_pos, out, batch, sq, sk, sk_pad, h, hk, causal, window, scale, s);
+  else
+    rc = mma(q, k, v, q_pos, k_pos, out, batch, sq, sk, sk_pad, h, hk, causal, window, scale, s);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,13 +9,21 @@
 
 namespace repro_torch {
 
+// Bytes of one row of a [rows][DH] bf16 tile in shared memory: DH/8 16-byte
+// chunks rounded up to a whole number of groups of 8, so that the swizzle
+// below keeps every chunk inside its row.  At DH 64, 128 and 192 that is the
+// row itself; at DH 80 (10 chunks) the row is padded to 128 columns, whose
+// other 6 chunks are never written or read (256 bytes a row against 160: the
+// price of conflict-free ldmatrix phases, paid in shared memory only).
+__host__ __device__ constexpr int row_bytes(int dh) { return (dh / 8 + 7) / 8 * 8 * 16; }
+
 // Byte offset of the 16-byte chunk `ch` of row `row` in a [rows][DH] bf16
 // tile: chunks are XOR-swizzled by the row's low 3 bits, so the 8 rows an
 // ldmatrix phase reads, and the rows cp.async writes, fall in 8 distinct
 // bank groups.
 template <int DH>
 __device__ __forceinline__ int swz(int row, int ch) {
-  return row * (DH * 2) + ((ch ^ (row & 7)) << 4);
+  return row * row_bytes(DH) + ((ch ^ (row & 7)) << 4);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -42,6 +50,13 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r
                                         uint32_t& r2, uint32_t& r3) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+
+// Two 8x8 matrices: lanes 0-15 give the row addresses (the others' are
+// ignored).
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(addr));
 }
 
 __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0, uint32_t& r1,

@@ -56,6 +56,13 @@
 //    warp sit in the 8 lanes of one lane-in-quad, so the max takes 3
 //    shuffles); the 4 warps merge through shared memory at the end, four
 //    outputs (a float4) a thread.
+//  * Shapes: dh 64, 80, 128 and 192, and any G whose panel fits kMaxCols
+//    rows (G 7 and 12 at deepseek's and nemotron's widths: one query of G
+//    12 fills 12 of 16 columns, so a K-4 verify block runs 4 panels).  A
+//    panel row's query and head are c / G and c % G.  S takes DH/16
+//    k-steps, whose Q fragments load two at a time; an odd count (5 at dh
+//    80) loads its last alone.  dh-80 rows sit in 128-column shared rows
+//    (mma.cuh's row_bytes); at dh 192 a block takes ~105 KB, still two a SM.
 //  * Splits: with one split the block writes the output.  Otherwise the
 //    splits of a (row, KV head, panel) run as one thread-block cluster
 //    (at most 8): each block leaves its state (m, l, acc) in shared memory,
@@ -89,12 +96,12 @@ struct Args {
 // warps' states, then the block's merged acc, reuse the tile buffers.
 template <int DH>
 struct Smem {
-  static constexpr int kTileBytes = kTile * DH * 2;
+  static constexpr int kTileBytes = kTile * row_bytes(DH);
   static constexpr int kBuf = 2 * kTileBytes;             // K then V
   static constexpr int kPos = 2 * kBuf;                   // int [2][kTile]
   static constexpr int kRow = kPos + 2 * kTile * 4;       // long long [2][kTile], -1: none
   static constexpr int kQ = kRow + 2 * kTile * 8;         // bf16 [kMaxCols][DH], swizzled
-  static constexpr int kFlags = kQ + kMaxCols * DH * 2;   // unsigned char [tiles]
+  static constexpr int kFlags = kQ + kMaxCols * row_bytes(DH);   // unsigned char [tiles]
   static constexpr int kAccStride = DH + 4;               // floats per warp-state row
   static constexpr int kBlk = kWarps * kMaxCols * kAccStride * 4;   // float [kMaxCols][DH]
   static size_t bytes(int tiles) { return kFlags + ((tiles + 15) / 16) * 16; }
@@ -135,7 +142,6 @@ panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo
   const int kh = bk % geo.hk;
   const int split = blockIdx.y;
   const int g = args.g;
-  const int gs = __ffs(g) - 1;       // log2 g (1, 2, 4 or 8)
   const int h = geo.hk * g;
   const int qbase = blockIdx.z * args.kqp;
   const int nq = min(args.kqp, geo.kq - qbase);
@@ -147,8 +153,7 @@ panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo
   const int tq = lane % 4;
   // output (and Q) row of panel row c: query qbase + c / g, head kh*g + c % g
   auto qrow = [&](int c) {
-    return (((long long)b * geo.kq + qbase + (c >> gs)) * h + (long long)kh * g + (c & (g - 1)))
-           * DH;
+    return (((long long)b * geo.kq + qbase + c / g) * h + (long long)kh * g + c % g) * DH;
   };
 
   // --- the Q panel, in flight with the first tile (rows past it zero)
@@ -165,7 +170,7 @@ panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = nt * 8 + 2 * tq + e;
-      lim[nt][e] = c < ncols ? kv.limit(b, qbase + (c >> gs), geo) : -1;
+      lim[nt][e] = c < ncols ? kv.limit(b, qbase + c / g, geo) : -1;
     }
   }
   const int lim_max = kv.limit(b, qbase + nq - 1, geo);   // limits grow with the query
@@ -203,7 +208,9 @@ panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo
       sRow[buf * kTile + tid] = row;
     }
     __syncthreads();
-#pragma unroll
+    // unrolled whole up to dh 128; at dh 192 (24 copies a thread) a whole
+    // unroll computes every source address up front and the body spills
+#pragma unroll (DH > 128 ? 4 : 2 * kTile * kChunks / kThreads)
     for (int j = 0; j < 2 * kTile * kChunks / kThreads; ++j) {
       const int c = j * kThreads + tid;
       const int sel = c / (kTile * kChunks);     // 0: K, 1: V
@@ -221,7 +228,11 @@ panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo
     return t;
   };
 
-  uint32_t qf[NT][KS][2];   // B fragments of S = K Q^T, from the Q panel
+  // B fragments of S = K Q^T, from the Q panel: held in registers for the
+  // whole loop, except at dh 192 with two n-tiles, where the 48 registers
+  // they take would spill; there each tile rereads them (ldmatrix) instead
+  constexpr bool kQRegs = KS * NT <= 16;
+  uint32_t qf[kQRegs ? NT : 1][kQRegs ? KS : 1][2];
   float acc[KS][NT][4];
   float m[NT][2], l[NT][2];
 #pragma unroll
@@ -243,16 +254,23 @@ panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (it == 0) {   // b0, b1 of k-steps kk and kk+1: panel rows nt*8.., dh chunks 2kk..2kk+3
+    if constexpr (kQRegs) {
+      if (it == 0) {   // b0, b1 of k-steps kk and kk+1: panel rows nt*8.., chunks 2kk..2kk+3
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+        for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-        for (int kk = 0; kk < KS; kk += 2)
-          ldsm_x4(smem_u32(smem + L::kQ) + swz<DH>(nt * 8 + (lane & 7), 2 * kk + (lane >> 3)),
-                  qf[nt][kk][0], qf[nt][kk][1], qf[nt][kk + 1][0], qf[nt][kk + 1][1]);
+          for (int kk = 0; kk + 1 < KS; kk += 2)
+            ldsm_x4(smem_u32(smem + L::kQ) + swz<DH>(nt * 8 + (lane & 7), 2 * kk + (lane >> 3)),
+                    qf[nt][kk][0], qf[nt][kk][1], qf[nt][kk + 1][0], qf[nt][kk + 1][1]);
+          if (KS % 2)   // an odd last k-step (dh 80): its two chunks alone
+            ldsm_x2(smem_u32(smem + L::kQ) +
+                        swz<DH>(nt * 8 + (lane & 7), 2 * (KS - 1) + ((lane >> 3) & 1)),
+                    qf[nt][KS - 1][0], qf[nt][KS - 1][1]);
+        }
+      }
     }
     // this warp's 16 slots (row offsets keep their low 3 bits: same swizzle)
-    const unsigned char* sK = smem + buf * L::kBuf + warp * 16 * DH * 2;
+    const unsigned char* sK = smem + buf * L::kBuf + warp * 16 * row_bytes(DH);
     const unsigned char* sV = sK + L::kTileBytes;
     const int* pos = sPos + buf * kTile + warp * 16;
 
@@ -264,7 +282,17 @@ panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo
       uint32_t a[4];
       ldsm_x4(smem_u32(sK + swz<DH>(lane & 15, 2 * kk + (lane >> 4))), a[0], a[1], a[2], a[3]);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_bf16(s[nt], a, qf[nt][kk][0], qf[nt][kk][1]);
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t b0, b1;
+        if constexpr (kQRegs) {
+          b0 = qf[nt][kk][0];
+          b1 = qf[nt][kk][1];
+        } else {
+          ldsm_x2(smem_u32(smem + L::kQ) +
+                      swz<DH>(nt * 8 + (lane & 7), 2 * kk + ((lane >> 3) & 1)), b0, b1);
+        }
+        mma_bf16(s[nt], a, b0, b1);
+      }
     }
 
     // mask from positions, online softmax per panel row (score column)
@@ -477,22 +505,23 @@ template <int DH, class KV>
 int launch_dh(const void* q, const KV& kv, const panel::Geometry& geo, const Args& args,
               int batch, void* out, cudaStream_t stream) {
   const int cols = args.kqp * args.g;
-  if (args.kqp < 1 || cols > kMaxCols || geo.chunk % kTile != 0 || geo.nsplit < 1 ||
+  if (args.g < 1 || args.kqp < 1 || cols > kMaxCols || geo.chunk % kTile != 0 || geo.nsplit < 1 ||
       geo.nsplit > kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
   return cols <= 8 ? launch_nt<DH, 1, KV>(q, kv, geo, args, batch, out, stream)
                    : launch_nt<DH, 2, KV>(q, kv, geo, args, batch, out, stream);
 }
 
-// bf16 q/out (B,K,H,dh); dh 64 or 128, G in 1, 2, 4, 8.
+// bf16 q/out (B,K,H,dh); dh 64, 80, 128 or 192; any G with a panel of at
+// most kMaxCols rows (ops._check_qkv admits G 1, 2, 4, 7, 8 and 12).
 template <class KV>
 int launch(int dh, const void* q, const KV& kv, const panel::Geometry& geo, const Args& args,
            int batch, void* out, cudaStream_t stream) {
-  if (args.g != 1 && args.g != 2 && args.g != 4 && args.g != 8)
-    return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
     case 64: return launch_dh<64, KV>(q, kv, geo, args, batch, out, stream);
+    case 80: return launch_dh<80, KV>(q, kv, geo, args, batch, out, stream);
     case 128: return launch_dh<128, KV>(q, kv, geo, args, batch, out, stream);
+    case 192: return launch_dh<192, KV>(q, kv, geo, args, batch, out, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

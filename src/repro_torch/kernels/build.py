@@ -55,6 +55,13 @@ SIGNATURES = {
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_PER_BLOCK = 232_448   # bytes of shared memory one block may use on an H100
 
+
+def smem_row_bytes(dh: int) -> int:
+    """Bytes of a bf16 row of ``dh`` in a shared-memory tile: whole groups of
+    8 16-byte chunks, so the XOR swizzle stays inside the row (mma.cuh's
+    ``row_bytes``; dh 80 sits in 128 columns)."""
+    return -(-dh // 64) * 64 * 2
+
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
 

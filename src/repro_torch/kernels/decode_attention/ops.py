@@ -38,6 +38,13 @@ PANEL_ROWS = 16       # (query, head) rows per fp32 panel (kMaxRows)
 # (cudaOccupancyMaxActiveClusters; chip_smoke.py checks them on the card).
 # More clusters than that run a second wave, which doubles a call's time.
 WAVE_CLUSTERS = (264, 132, 79, 62, 47, 39, 32, 30)
+# The shapes each body has instances for: bf16 the tensor-core panel body
+# (panel_mma.cuh; a panel of at most MAX_COLS rows takes any G, these are the
+# configs' G); fp32 the CUDA-core bodies, the single-token one
+# (decode_attention.cu) also at dh 16.
+BF16_SHAPES = ((64, 80, 128, 192), (1, 2, 4, 7, 8, 12))
+FP32_SHAPES = ((64, 128), (1, 2, 4, 8))
+FP32_DECODE_SHAPES = ((16, 64, 128), (1, 2, 4, 8))
 
 
 def split_plan(batch: int, hk: int, tlen: int):
@@ -108,8 +115,8 @@ def launch_plan(b: int, kq: int, cap: int, hk: int, g: int, dh: int, dtype) -> L
         splits = -(-ntiles // per_split)
         # two (K, V) tile buffers, the positions and rows of both, the Q panel,
         # a flag per tile
-        smem = (4 * TILE * dh * 2 + 2 * TILE * (4 + 8) + MAX_COLS * dh * 2
-                + -(-per_split // 16) * 16)
+        row = build.smem_row_bytes(dh)
+        smem = 4 * TILE * row + 2 * TILE * (4 + 8) + MAX_COLS * row + -(-per_split // 16) * 16
         return LaunchPlan("mma", (b * hk, splits, panels), TILE, per_split * TILE, splits,
                           kqp, smem)
     chunk, nsplit = split_plan(b, hk, cap)
@@ -144,6 +151,14 @@ def check_aligned(name, q, *cache):
         raise ValueError(f"{name}: q and the cache must be 16-byte aligned")
 
 
+def shapes_taken(dtype, single: bool):
+    """(head dims, groups H/Hk) the kernels take for ``dtype``; ``single``:
+    the dense single-token kernel, whose fp32 body also takes dh 16."""
+    if dtype == torch.bfloat16:
+        return BF16_SHAPES
+    return FP32_DECODE_SHAPES if single else FP32_SHAPES
+
+
 def _check_qkv(name, q, k, v, kq_axis: bool):
     """(b, kq, t, hk, g, dh) of a decode call; raises on what the kernels
     do not take."""
@@ -154,10 +169,12 @@ def _check_qkv(name, q, k, v, kq_axis: bool):
     kq = q.shape[1] if kq_axis else 1
     t, hk = k.shape[1], k.shape[2]
     g = h // hk if hk and h % hk == 0 else 0
-    if (dh not in (64, 128) or g not in (1, 2, 4, 8) or k.shape != (b, t, hk, dh)
+    dims, groups = shapes_taken(q.dtype, single=not kq_axis)
+    if (dh not in dims or g not in groups or k.shape != (b, t, hk, dh)
             or v.shape != k.shape or q.dim() != (4 if kq_axis else 3)):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} (dh 64/128, H/Hk in 1,2,4,8)")
+                         f"k {tuple(k.shape)} (dh in {dims}, H/Hk in {groups} "
+                         f"for {q.dtype})")
     check_aligned(name, q, k, v)
     return b, kq, t, hk, g, dh
 

@@ -33,6 +33,9 @@ M_TILE = 64          # (query, head) rows per tensor-core block (kBM)
 KEY_TILE = 64        # keys per tile of the tensor-core body (kBN)
 SIMT_QUERIES = 16    # query rows per fp32 block (kBQ)
 SIMT_KEY_TILE = 32   # keys per fp32 tile (kBK)
+# head dims of the kernel's instances: the CUDA-core body in fp32, the
+# tensor-core body in bf16 (any G = H/Hk)
+HEAD_DIMS = {torch.float32: (16, 24, 32, 64, 128), torch.bfloat16: (64, 80, 128, 192)}
 
 
 @dataclass(frozen=True)
@@ -72,7 +75,8 @@ def launch_plan(b: int, sq: int, sk: int, h: int, hk: int, dh: int, dtype,
         ntiles = -(-sk_pad // KEY_TILE)
         # Q tile + two (K, V) buffers of bf16 rows, two tiles of key positions,
         # one flag per key tile rounded up to 16 bytes (MmaSmem in the source)
-        smem = (M_TILE + 4 * KEY_TILE) * dh * 2 + 2 * KEY_TILE * 4 + -(-ntiles // 16) * 16
+        smem = ((M_TILE + 4 * KEY_TILE) * build.smem_row_bytes(dh) + 2 * KEY_TILE * 4
+                + -(-ntiles // 16) * 16)
         return LaunchPlan("mma", (-(-sq * g // M_TILE), hk, b), smem, sk_pad, g)
     return LaunchPlan("simt", (-(-sq // SIMT_QUERIES), h, b), 0, sk_pad, g)
 
@@ -134,7 +138,7 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, block_q, block_k, impl):
     if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q/k/v must share fp32 or bf16, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    head_dims = (16, 64, 128) if q.dtype == torch.float32 else (64, 128)
+    head_dims = HEAD_DIMS[q.dtype]
     if dh not in head_dims or h % hk or k.shape != (b, sk, hk, dh) or v.shape != k.shape:
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} (dh {head_dims} for "

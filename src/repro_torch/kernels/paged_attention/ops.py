@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from ..decode_attention.ops import check_aligned, launch_plan, partial_states, ptr
+from ..decode_attention.ops import (check_aligned, launch_plan, partial_states, ptr,
+                                    shapes_taken)
 from .ref import paged_decode_attention_block_ref, paged_decode_attention_ref
 
 launches = 0
@@ -35,10 +36,12 @@ def _check_paged(name, q, kp, vp, block_tbl, slot_pos, kq_axis: bool):
     kq = q.shape[1] if kq_axis else 1
     hk = kp.shape[2] if kp.dim() == 4 else 0
     g = h // hk if hk and h % hk == 0 else 0
-    if (dh not in (64, 128) or g not in (1, 2, 4, 8) or kp.dim() != 4 or kp.shape[3] != dh
+    dims, groups = shapes_taken(q.dtype, single=False)
+    if (dh not in dims or g not in groups or kp.dim() != 4 or kp.shape[3] != dh
             or vp.shape != kp.shape or q.dim() != (4 if kq_axis else 3)):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
-                         f"kp {tuple(kp.shape)} (dh 64/128, H/Hk in 1,2,4,8)")
+                         f"kp {tuple(kp.shape)} (dh in {dims}, H/Hk in {groups} "
+                         f"for {q.dtype})")
     page = kp.shape[1]
     npg, cap = block_tbl.shape[-1], slot_pos.shape[-1]
     if (block_tbl.dtype != torch.int32 or slot_pos.dtype != torch.int32

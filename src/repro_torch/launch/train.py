@@ -7,9 +7,9 @@ lines and exits 0 when the loss improved.
 
   PYTHONPATH=src python -m repro_torch.launch.train --steps 50 --batch 8 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --steps 20 --device cpu --ckpt-dir ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b --device cpu
 
-``--arch`` defaults to llama-3.1-8b: the reference's default, qwen2.5-3b,
-needs QKV bias, which the port does not build yet.
+``--arch`` defaults to qwen2.5-3b, as the reference's does.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from repro_torch.training.optimizer import tree_leaves
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama-3.1-8b")
+    ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

@@ -10,7 +10,9 @@
 Prefill attention goes through ``kernels.flash_attention``, decode through
 ``kernels.decode_attention`` and ``kernels.paged_attention``: the
 hand-written kernels on a CUDA tensor, their plain versions on a CPU
-tensor.  The windowed ring buffer is not ported and raises.
+tensor.  A sliding-window stack keeps a dense ring buffer of ``min(capacity,
+window)`` slots (``decode_attention``); its paged and block paths raise, as
+the reference's do.
 
 Cache writes are in place (the JAX package donates the buffers).  The
 step-level parts that are the same in every layer (where a token lands,
@@ -20,7 +22,9 @@ the ``slot_pos`` update of all layers) run once per step in
 Layouts follow the JAX package at the public functions: activations
 (B,S,d), heads (B,S,H,dh), caches (B,T,Hk,dh).  The projection weights
 are 2-D: ``w_qkv`` (d, (H+2Hk)*dh) holds w_q | w_k | w_v and ``w_o`` is
-(H*dh, d) (``checkpoint.convert`` builds them from the JAX layout).
+(H*dh, d); with ``cfg.qkv_bias`` the biases b_q | b_k | b_v are one
+``b_qkv`` ((H+2Hk)*dh,) beside ``w_qkv`` (``checkpoint.convert`` builds them
+from the JAX layout).
 """
 from __future__ import annotations
 
@@ -38,23 +42,30 @@ from .layers import apply_rope, dense_init
 
 def init_attention(cfg: ModelConfig, generator, device):
     """One layer's attention weights, drawn as the JAX package draws w_q,
-    w_k, w_v (d, heads*dh) and w_o (H*dh, d)."""
+    w_k, w_v (d, heads*dh) and w_o (H*dh, d); the QKV biases start at zero,
+    as the reference's do."""
     d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias is not ported")
     dt = torch_dtype(cfg.dtype)
     w_q = dense_init((d, h * dh), dt, generator, device)
     w_k = dense_init((d, hk * dh), dt, generator, device)
     w_v = dense_init((d, hk * dh), dt, generator, device)
-    return {"w_qkv": torch.cat([w_q, w_k, w_v], dim=-1),
-            "w_o": dense_init((h * dh, d), dt, generator, device)}
+    p = {"w_qkv": torch.cat([w_q, w_k, w_v], dim=-1),
+         "w_o": dense_init((h * dh, d), dt, generator, device)}
+    if cfg.qkv_bias:
+        p["b_qkv"] = torch.zeros((h + 2 * hk) * dh, dtype=dt, device=device)
+    return p
 
 
-def project_qkv(w_qkv, x, cfg: ModelConfig):
-    """x (B,S,d) -> q (B,S,H,dh), k, v (B,S,Hk,dh)."""
+def project_qkv(p, x, cfg: ModelConfig):
+    """x (B,S,d) -> q (B,S,H,dh), k, v (B,S,Hk,dh); the biases, where the
+    layer has them, are added after the projection in the weights' dtype,
+    as the reference adds b_q, b_k and b_v."""
     b, s, _ = x.shape
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q, k, v = (x @ w_qkv).split([h * dh, hk * dh, hk * dh], dim=-1)
+    y = x @ p["w_qkv"]
+    if "b_qkv" in p:
+        y = y + p["b_qkv"]
+    q, k, v = y.split([h * dh, hk * dh, hk * dh], dim=-1)
     return (q.reshape(b, s, h, dh), k.reshape(b, s, hk, dh),
             v.reshape(b, s, hk, dh).contiguous())
 
@@ -85,7 +96,7 @@ def self_attention(p, x, positions, cfg: ModelConfig, *, window: int = 0,
     attend over ``[prefix | self]`` and the returned K/V cover both, ready
     to lay out slots ``[0, P+S)`` as an inline prefill would.
     """
-    q, k, v = project_qkv(p["w_qkv"], x, cfg)
+    q, k, v = project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     k_pos = positions
@@ -133,6 +144,18 @@ def decode_attention(p, x, cache, layer: int, pos, cache_len, cfg: ModelConfig,
     slot t, so that mask is ``t < pos + 1`` and the kernel takes
     ``cache_len = pos + 1`` (B,) int32, built once per step by the caller.
 
+    Windowed (``window > 0``): the cache is a ring of ``cap = min(capacity,
+    window)`` slots, the token goes to slot ``pos % cap`` (the reference's
+    rule) and the reference keeps ``slot_pos >= 0 & slot_pos <= pos &
+    slot_pos > pos - window``.  Before the ring wraps, slot t holds position
+    t for t <= pos and -1 after it; once it has wrapped (or prefill laid a
+    longer prompt out in ring order), every slot holds one of the last
+    ``cap`` positions ``(pos - cap, pos]``, all inside the window since
+    ``cap <= window``.  Either way the mask is ``t < min(pos + 1, cap)``, so
+    the kernel takes ``cache_len = min(pos + 1, cap)``, built by the caller.
+    The ring's key order differs from position order only in the order of
+    the softmax sums.
+
     Paged cache (``"kp"`` in it): ``pos`` is (B,) per row and ``plan`` the
     step's ``write_plan`` (which already set ``slot_pos``).  The token goes
     through the block table to slot ``min(pos, cap-1)`` and the kernel reads
@@ -141,10 +164,11 @@ def decode_attention(p, x, cache, layer: int, pos, cache_len, cfg: ModelConfig,
     (``rewind_kv`` empties every slot at or past ``pos``), which the tests
     check.  The dense cache is never built.
     """
-    if window > 0:
-        raise NotImplementedError("windowed (ring-buffer) decode is not ported")
+    if window > 0 and "kp" in cache:
+        raise NotImplementedError("paged KV decode is global-attention only; windowed "
+                                  "stacks must use the dense ring-buffered cache")
     b = x.shape[0]
-    q, k, v = project_qkv(p["w_qkv"], x, cfg)
+    q, k, v = project_qkv(p, x, cfg)
     cur = (torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
            if plan is None else plan["cur"])
     q = apply_rope(q, cur, cfg.rope_theta)
@@ -157,7 +181,7 @@ def decode_attention(p, x, cache, layer: int, pos, cache_len, cfg: ModelConfig,
             cache["block_tbl"], cache["slot_pos"][layer])
         return ctx.reshape(b, 1, -1) @ p["w_o"]
     capacity = cache["k"].shape[2]
-    slot = min(pos, capacity - 1)
+    slot = pos % capacity if window > 0 else min(pos, capacity - 1)
     cache["k"][layer, :, slot] = k[:, 0]
     cache["v"][layer, :, slot] = v[:, 0]
     cache["slot_pos"][layer, :, slot] = pos
@@ -239,7 +263,7 @@ def decode_attention_block(p, x, cache, layer: int, pos, plan, cfg: ModelConfig)
     writes and ``rewind_kv`` keep it so; the tests check it).
     """
     b, kblk = x.shape[0], x.shape[1]
-    q, k, v = project_qkv(p["w_qkv"], x, cfg)
+    q, k, v = project_qkv(p, x, cfg)
     q = apply_rope(q, plan["cur"], cfg.rope_theta)
     k = apply_rope(k, plan["cur"], cfg.rope_theta)
     if "kp" in cache:
@@ -259,7 +283,7 @@ def decode_attention_block(p, x, cache, layer: int, pos, plan, cfg: ModelConfig)
 def encoder_attention(p, x, positions, valid, cfg: ModelConfig):
     """Bidirectional masked attention for the embedder, plain PyTorch (the
     JAX package computes it in XLA, not in a kernel)."""
-    q, k, v = project_qkv(p["w_qkv"], x, cfg)
+    q, k, v = project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     ctx = attend_naive(q, k, v, positions, positions, False, 0, extra_mask=valid)

@@ -55,10 +55,13 @@ def apply_norm(params, x, norm_type: str, eps: float = 1e-6):
 
 def apply_mlp(params, x, mlp_type: str):
     """``params`` holds ``w_gate_up`` (d, 2f) for swiglu (gate | up) or
-    ``w_up`` (d, f) for gelu, and ``w_down`` (f, d)."""
+    ``w_up`` (d, f) for gelu and squared_relu, and ``w_down`` (f, d).  The
+    activation runs in the input dtype, as the reference computes it."""
     if mlp_type == "swiglu":
         g, u = (x @ params["w_gate_up"]).chunk(2, dim=-1)
         h = F.silu(g) * u
+    elif mlp_type == "squared_relu":
+        h = torch.square(F.relu(x @ params["w_up"]))
     elif mlp_type == "gelu":
         h = F.gelu(x @ params["w_up"], approximate="tanh")  # jax.nn.gelu's default
     else:

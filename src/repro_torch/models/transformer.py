@@ -1,5 +1,5 @@
-"""Decoder-only LM of global-attention blocks (the ATTN stack of
-``src/repro/models/transformer.py``).
+"""Decoder-only LM of attention blocks (the ATTN stack of
+``src/repro/models/transformer.py``), global or sliding-window.
 
 Parameters are a dict: ``embed`` (V,d), ``final_norm``, ``lm_head`` (d,V)
 unless tied, and ``layers``, one dict per block.  Caches keep the JAX
@@ -8,7 +8,11 @@ layer's KV, ``rem`` is empty for an ATTN-only stack.  Two forms:
 
 * dense (prefill's): ``k``/``v`` (L,B,T,Hk,dh), ``slot_pos`` (L,B,T), and
   ``pos`` (the tokens already in the cache) a host integer, so the dense
-  decode step needs no device round trip to place the next token;
+  decode step needs no device round trip to place the next token.  A
+  sliding-window stack's cache is a ring of ``min(capacity, window)``
+  slots (the reference's ``_cache_capacity``): slot ``pos % cap`` takes
+  position ``pos``, and a prompt longer than the ring is laid out in the
+  reference's ring order;
 * per-row: ``pos`` a (B,) int32 device tensor, for paged caches
   (``serving.paged_kv``) and for block (speculative) decode, whose rows
   advance by different amounts (``paged_kv.row_pos_caches`` converts).
@@ -20,8 +24,9 @@ layer's KV, ``rem`` is empty for an ATTN-only stack.  Two forms:
   decode_block(params, tokens, caches, cfg)        -> (logits (B,k,V), caches)
 
 Decode updates the cache tensors in place (the JAX package donates them)
-and returns a new top-level dict with ``pos`` advanced.  Other block kinds,
-sliding windows and frontends raise.
+and returns a new top-level dict with ``pos`` advanced.  Other block kinds
+and frontends raise, and so do the paged, block and prefix paths of a
+windowed stack, as the reference's do.
 """
 from __future__ import annotations
 
@@ -36,10 +41,16 @@ from .layers import apply_mlp, apply_norm, dense_init, init_norm, truncated_norm
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if (set(cfg.block_pattern) != {ATTN} or cfg.sliding_window > 0 or cfg.enc_layers
-            or cfg.frontend != "none" or cfg.num_prefix_tokens):
+    if (set(cfg.block_pattern) != {ATTN} or cfg.enc_layers or cfg.frontend != "none"
+            or cfg.num_prefix_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: only decoder-only global-attention (ATTN) stacks are ported")
+            f"{cfg.name}: only decoder-only attention (ATTN) stacks are ported")
+
+
+def cache_capacity(cfg: ModelConfig, capacity: int) -> int:
+    """KV slots a layer keeps: a sliding window keeps at most its width
+    (the reference's ``_cache_capacity``)."""
+    return min(capacity, cfg.sliding_window) if cfg.sliding_window > 0 else capacity
 
 
 # ----------------------------------------------------------------- init
@@ -75,7 +86,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device):
 
 def init_caches(batch: int, capacity: int, cfg: ModelConfig, device):
     check_supported(cfg)
-    return {"scan": (attn_lib.init_kv_cache(cfg.num_layers, batch, capacity, cfg, device),),
+    return {"scan": (attn_lib.init_kv_cache(cfg.num_layers, batch,
+                                            cache_capacity(cfg, capacity), cfg, device),),
             "rem": (), "pos": 0}
 
 
@@ -98,7 +110,7 @@ def _logits(params, x, cfg: ModelConfig):
 def _block_train(p, x, positions, cfg: ModelConfig):
     """One block over the full sequence, making no KV cache."""
     a, _ = attn_lib.self_attention(p["attn"], apply_norm(p["norm1"], x, cfg.norm_type),
-                                   positions, cfg)
+                                   positions, cfg, window=cfg.sliding_window)
     return _mlp_residual(p, x + a, cfg)
 
 
@@ -154,8 +166,16 @@ def prefill(params, tokens, cfg: ModelConfig, capacity: int, prefix=None):
     With ``prefix`` (the caches of a prefix-only prefill), ``tokens`` are
     the suffix: positions continue from ``prefix["pos"]``, every layer
     attends over ``[prefix KV | suffix]``, and the caches cover ``[0, P+S)``
-    as a prefill of the concatenation would.
+    as a prefill of the concatenation would (global attention only).
+
+    A windowed stack attends within its window; when the prompt is longer
+    than its ring it keeps the last ``cap`` tokens, token j in slot ``j %
+    cap`` (the reference's ``slot_of``), so decode continues the ring.
     """
+    window = cfg.sliding_window
+    if prefix is not None and window > 0:
+        raise NotImplementedError("prefix-cached prefill is global-attention only; windowed "
+                                  "stacks must fall back to full prefill")
     b, s = tokens.shape
     device = tokens.device
     start = 0 if prefix is None else prefix["pos"]
@@ -163,6 +183,11 @@ def prefill(params, tokens, cfg: ModelConfig, capacity: int, prefix=None):
     positions = positions.contiguous()
     caches = init_caches(b, capacity, cfg, device)
     kv = caches["scan"][0]
+    cap = kv["k"].shape[2]
+    ring = None
+    if window > 0 and s > cap:     # the token index each slot keeps
+        first = s - cap
+        ring = first + (torch.arange(cap, device=device) - first) % cap
     pre = None if prefix is None else prefix["scan"][0]
     x = params["embed"][tokens]
     for i, p in enumerate(params["layers"]):
@@ -170,10 +195,13 @@ def prefill(params, tokens, cfg: ModelConfig, capacity: int, prefix=None):
             "k": pre["k"][i], "v": pre["v"][i], "slot_pos": pre["slot_pos"][i]}
         a, (k, v, k_pos) = attn_lib.self_attention(
             p["attn"], apply_norm(p["norm1"], x, cfg.norm_type), positions, cfg,
-            prefix=layer_prefix)
-        if k.shape[1] > capacity:
+            window=window, prefix=layer_prefix)
+        if k.shape[1] <= cap:
+            attn_lib.fill_kv_cache(kv, i, k, v, k_pos)
+        elif window > 0:
+            attn_lib.fill_kv_cache(kv, i, k[:, ring], v[:, ring], k_pos[:, ring])
+        else:
             raise ValueError(f"prefill of {k.shape[1]} tokens exceeds capacity {capacity}")
-        attn_lib.fill_kv_cache(kv, i, k, v, k_pos)
         x = _mlp_residual(p, x + a, cfg)
     caches["pos"] = start + s
     return _logits(params, x[:, -1:], cfg)[:, 0], caches
@@ -182,11 +210,17 @@ def prefill(params, tokens, cfg: ModelConfig, capacity: int, prefix=None):
 def decode_step(params, token, caches, cfg: ModelConfig):
     """token (B,) int -> (logits (B,V) fp32, caches with ``pos`` + 1).
 
-    Dense caches carry a host-int ``pos``; paged caches a per-row one."""
+    Dense caches carry a host-int ``pos``; paged caches a per-row one.  A
+    windowed stack's ring keeps ``t < min(pos + 1, cap)`` (the argument is
+    in ``attention.decode_attention``)."""
     b = token.shape[0]
     pos = caches["pos"]
     kv = caches["scan"][0]
+    window = cfg.sliding_window
     if "kp" in kv:
+        if window > 0:
+            raise NotImplementedError("paged KV decode is global-attention only; windowed "
+                                      "stacks must use the dense ring-buffered cache")
         plan = attn_lib.write_plan(kv, pos, 1, block=False)
         cache_len = None
     else:
@@ -194,11 +228,12 @@ def decode_step(params, token, caches, cfg: ModelConfig):
             raise ValueError("dense decode_step takes a host-int pos; per-row caches "
                              "decode through decode_block")
         plan = None
-        cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=token.device)
+        filled = min(pos + 1, kv["k"].shape[2]) if window > 0 else pos + 1
+        cache_len = torch.full((b,), filled, dtype=torch.int32, device=token.device)
     x = params["embed"][token[:, None]]
     for i, p in enumerate(params["layers"]):
         a = attn_lib.decode_attention(p["attn"], apply_norm(p["norm1"], x, cfg.norm_type),
-                                      kv, i, pos, cache_len, cfg, plan=plan)
+                                      kv, i, pos, cache_len, cfg, window=window, plan=plan)
         x = _mlp_residual(p, x + a, cfg)
     return _logits(params, x, cfg)[:, 0], {"scan": caches["scan"], "rem": (), "pos": pos + 1}
 
@@ -208,6 +243,9 @@ def decode_block(params, tokens, caches, cfg: ModelConfig):
     + k).  ``logits[:, i]`` is the next-token distribution after
     ``tokens[:, :i+1]`` on top of the cache.  Needs per-row positions
     (``paged_kv.row_pos_caches``); the caller rewinds rejected tokens."""
+    if cfg.sliding_window > 0:
+        raise ValueError("block decode requires global-attention KV layers: a windowed "
+                         "ring buffer overwrites slots a rewind would need back")
     pos = caches["pos"]
     if not torch.is_tensor(pos):
         raise ValueError("decode_block needs per-row (B,) positions: convert the "

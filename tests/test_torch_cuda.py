@@ -152,9 +152,9 @@ def test_flash_fp32_head_dim_16_matches_plain(impl, b, p, s, h, hk, window):
 
 
 def test_train_cli_smoke_on_the_card(tmp_path, capsys):
-    """The train CLI's defaults (llama-3.1-8b's smoke config) on the card:
-    the loss falls, the flash kernel runs every layer forward, a checkpoint
-    is written."""
+    """The train CLI's defaults (qwen2.5-3b's smoke config, fp32 flash at dh
+    32) on the card: the loss falls, the flash kernel runs every layer
+    forward, a checkpoint is written."""
     from repro_torch.checkpoint import latest_checkpoint
     from repro_torch.launch import train
     _cuda()
@@ -573,6 +573,143 @@ def test_paged_kernels_match_plain(dtype, tol, kq, page, b, h, hk, dh, cap):
         ref1 = paged_decode_attention_ref(f[0][:, 0], f[1], f[2], tbl, sp)
         torch.testing.assert_close(one[:-1].float(), ref1[:-1], rtol=tol, atol=tol)
         assert bool(torch.isfinite(one.float()).all())
+
+
+# ---------------------------------------- the dense variants' kernel shapes
+
+@pytest.mark.parametrize("impl", ["xla_flash", "naive"])
+@pytest.mark.parametrize("dtype,tol,b,p,s,h,hk,dh,window", [
+    (torch.bfloat16, 2e-2, 2, 0, 130, 32, 8, 80, 0),      # h2o-danube-1.8b, dh 80
+    (torch.bfloat16, 2e-2, 2, 20, 150, 32, 8, 80, 64),    # ... inside a window
+    (torch.bfloat16, 2e-2, 2, 45, 64, 56, 8, 128, 0),     # deepseek-coder-33b, G 7
+    (torch.bfloat16, 2e-2, 2, 0, 70, 96, 8, 192, 0),      # nemotron-4-340b, G 12, dh 192
+    (torch.bfloat16, 2e-2, 1, 9, 40, 16, 2, 128, 0),      # qwen2.5-3b, G 8
+    (torch.float32, 1e-5, 3, 9, 40, 4, 2, 32, 0),         # qwen2.5-3b smoke, fp32 dh 32
+    (torch.float32, 1e-5, 2, 0, 50, 4, 2, 32, 12),
+    (torch.float32, 1e-5, 2, 5, 40, 8, 2, 24, 0),         # nemotron-4-340b smoke, dh 24
+])
+def test_flash_new_head_dims_and_groups_match_plain(impl, dtype, tol, b, p, s, h, hk, dh,
+                                                    window):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(p + s + dh)
+    q = torch.randn(b, s, h, dh, device=dev, generator=g).to(dtype)
+    k = torch.randn(b, p + s, hk, dh, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, p + s, hk, dh, device=dev, generator=g).to(dtype)
+    q_pos = torch.arange(p, p + s, device=dev, dtype=torch.int32).expand(b, s).contiguous()
+    k_pos = torch.arange(p + s, device=dev, dtype=torch.int32).expand(b, p + s).contiguous()
+    before = flash_ops.launches
+    out = flash_ops.flash_attention(q, k, v, q_pos, k_pos, causal=True, window=window,
+                                    block_q=64, block_k=64, impl=impl)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    f = [x.float() for x in (q, k, v)]
+    want = (attend_naive(*f, q_pos, k_pos, True, window) if impl == "naive" else
+            attend_blockwise(*f, q_pos, k_pos, True, window, 64, 64))
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol,b,h,hk,t,dh", [
+    (torch.bfloat16, 2e-2, 4, 32, 8, 300, 80),      # h2o-danube-1.8b
+    (torch.bfloat16, 2e-2, 2, 32, 8, 4096, 80),     # its whole ring
+    (torch.bfloat16, 2e-2, 4, 56, 8, 160, 128),     # deepseek-coder-33b, G 7
+    (torch.bfloat16, 2e-2, 4, 96, 8, 160, 192),     # nemotron-4-340b, G 12
+    (torch.float32, 1e-5, 8, 8, 4, 300, 16),        # serve-tiny's big model, dh 16
+    (torch.float32, 1e-5, 3, 4, 2, 45, 16),         # its small model, one split
+    (torch.float32, 1e-5, 2, 8, 1, 700, 16),        # G 8, splits merged
+])
+def test_decode_new_shapes_match_plain(dtype, tol, b, h, hk, t, dh):
+    """Ragged lengths, a full row and a row at cache_len 0 (the uniform
+    rule) against the plain version, one launch a call."""
+    dev = _cuda()
+    q, k, v = _dense_case(dev, t + dh, b, 0, h, hk, t, dh, dtype)
+    g = torch.Generator(device=dev).manual_seed(t)
+    lens = torch.randint(1, t + 1, (b,), device=dev, generator=g, dtype=torch.int32)
+    lens[0], lens[-1] = t, 0
+    before = dec_ops.launches
+    out, ref = _dense_both(q, k, v, lens, 0)
+    torch.cuda.synchronize()
+    assert dec_ops.launches == before + 1
+    torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kq", [1, 4])
+@pytest.mark.parametrize("b,h,hk,t,dh", [(4, 32, 8, 160, 80), (4, 56, 8, 160, 128),
+                                         (4, 96, 8, 206, 192), (2, 96, 8, 700, 192)])
+def test_verify_and_paged_new_shapes_match_plain(kq, b, h, hk, t, dh):
+    """The dense verify block and both paged kernels at dh 80 and 192 and G
+    7 and 12 (bf16: the panel body only), against the plain versions."""
+    dev = _cuda()
+    q, k, v = _dense_case(dev, t + kq, b, kq, h, hk, t, dh, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(t + kq)
+    lens = torch.randint(0, t - kq + 1, (b,), device=dev, generator=g, dtype=torch.int32)
+    lens[0] = t - kq
+    out, ref = _dense_both(q, k, v, lens, kq)
+    torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
+    q, kp, vp, tbl, sp, qpos = _paged_case(dev, g, b, kq, h, hk, dh, 16, t, torch.bfloat16)
+    f = [x.float() for x in (q, kp, vp)]
+    out = paged_ops.paged_decode_attention_block(q, kp, vp, tbl, sp, qpos)
+    ref = paged_decode_attention_block_ref(f[0], f[1], f[2], tbl, sp, qpos)
+    torch.testing.assert_close(out[:-1].float(), ref[:-1], rtol=2e-2, atol=2e-2)
+    one = paged_ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, tbl, sp)
+    ref1 = paged_decode_attention_ref(f[0][:, 0], f[1], f[2], tbl, sp)
+    torch.testing.assert_close(one[:-1].float(), ref1[:-1], rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()
+
+
+def test_danube_smoke_stack_on_the_card_matches_the_cpu():
+    """h2o-danube-1.8b's smoke stack (fp32, dh 16, window 16) on the card
+    against the CPU: a 24-token prompt laid out in the 16-slot ring, then 20
+    decode steps that wrap it, through the flash and dense decode kernels."""
+    from repro_torch.configs import get_config
+    dev = _cuda()
+    cfg = get_config("h2o-danube-1.8b", smoke=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(5, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(1))
+    steps = torch.randint(5, cfg.vocab_size, (20, 2), generator=torch.Generator().manual_seed(2))
+    logits = {}
+    for device in (torch.device("cpu"), dev):
+        p = _to(params, device)
+        reset_launch_counts()
+        out, caches = model.prefill(p, {"tokens": toks.to(device)}, 24 + 20)
+        assert caches["scan"][0]["k"].shape[2] == cfg.sliding_window
+        seq = [out]
+        for tok in steps:
+            out, caches = model.decode_step(p, tok.to(device), caches)
+            seq.append(out)
+        logits[device.type] = torch.stack(seq).cpu()
+        if device.type == "cuda":
+            counts = launch_counts()
+            assert counts["flash_attention"] == cfg.num_layers
+            assert counts["decode_attention"] == 20 * cfg.num_layers
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-coder-33b", "h2o-danube-1.8b",
+                                  "nemotron-4-340b"])
+def test_train_cli_each_arch_on_the_card(arch, capsys):
+    """The train CLI's smoke run of each dense variant on the card (fp32 flash
+    at dh 32, 16, 16 and 24): the loss falls, one flash launch a layer a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    _cuda()
+    before = flash_ops.launches
+    rc = train.main(["--steps", "20", "--arch", arch])
+    out = capsys.readouterr().out
+    assert rc == 0 and "(improved)" in out, out
+    assert flash_ops.launches - before == 20 * get_config(arch, smoke=True).num_layers
+
+
+def test_serve_cli_default_stack_on_the_card(capsys):
+    """The serve CLI with its defaults (the tiny fp32 stack, dh 16, on the
+    card), fewer queries: every request completes."""
+    from repro_torch.launch import serve
+    _cuda()
+    reset_launch_counts()
+    assert serve.main(["--queries", "24"]) == 0
+    out = capsys.readouterr().out
+    assert "requests: 24 " in out and "on cuda" in out, out
+    assert launch_counts()["decode_attention"] > 0
 
 
 def _scrambled_case(dev, kq, g, page, dtype, seed):

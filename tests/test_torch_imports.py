@@ -38,9 +38,13 @@ def test_port_imports_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
     names = {f.relative_to(ROOT / "src").as_posix() for f in files[:-1]}
+    configs = {f"repro_torch/configs/{m}.py" for m in (
+        "qwen2_5_3b", "deepseek_coder_33b", "h2o_danube_1_8b", "nemotron_4_340b")}
     assert {"repro_torch/core/distributed.py", "repro_torch/launch/mesh.py",
             "repro_torch/serving/scheduler.py", "repro_torch/serving/continuous.py"} <= names
-    for mod in ("repro_torch.core.distributed", "repro_torch.launch.mesh"):
+    assert configs <= names
+    for mod in ("repro_torch.core.distributed", "repro_torch.launch.mesh",
+                *(n.removesuffix(".py").replace("/", ".") for n in sorted(configs))):
         importlib.import_module(mod)
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]

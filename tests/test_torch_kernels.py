@@ -327,6 +327,11 @@ def test_blockwise_is_length_invariant():
     (1, 5, 5, 8, 1, 128, torch.bfloat16, "naive", 64),            # g 8, fewer rows than a tile
     (3, 37, 37, 4, 4, 64, torch.float32, "naive", 32),            # fp32 body
     (8, 128, 173, 32, 8, 128, torch.float32, "xla_flash", 64),
+    (4, 128, 128, 32, 8, 80, torch.bfloat16, "naive", 64),        # danube, dh 80
+    (2, 160, 160, 32, 8, 80, torch.bfloat16, "xla_flash", 64),    # danube, its window's blocks
+    (4, 128, 128, 56, 8, 128, torch.bfloat16, "naive", 64),       # deepseek, g 7
+    (4, 128, 128, 96, 8, 192, torch.bfloat16, "naive", 64),       # nemotron, g 12, dh 192
+    (8, 128, 128, 4, 2, 32, torch.float32, "naive", 128),         # qwen smoke, fp32 dh 32
 ])
 def test_flash_launch_plan_covers_every_row_once(b, sq, sk, h, hk, dh, dtype, impl, block):
     """Every (b, query, head) output row belongs to exactly one block; a
@@ -391,6 +396,12 @@ def test_flash_plan_shared_memory():
     (64, 1, 100, 8, 2, 128, torch.bfloat16),   # many rows: one split, no merge
     (8, 4, 206, 8, 4, 128, torch.float32),     # fp32: the panel body
     (3, 3, 75, 2, 8, 64, torch.float32),
+    (4, 1, 160, 8, 4, 80, torch.bfloat16),     # danube decode, dh 80
+    (2, 1, 4096, 8, 4, 80, torch.bfloat16),    # danube's full ring
+    (4, 1, 160, 8, 7, 128, torch.bfloat16),    # deepseek decode, g 7: 7 of 8 columns
+    (4, 4, 160, 8, 7, 128, torch.bfloat16),    # its verify block: panels of 2 queries
+    (4, 1, 160, 8, 12, 192, torch.bfloat16),   # nemotron decode, g 12, dh 192
+    (4, 4, 160, 8, 12, 192, torch.bfloat16),   # its verify block: a panel a query
 ])
 def test_paged_launch_plan_covers_every_slot_and_row_once(b, kq, cap, hk, g, dh, dtype):
     """Every slot of a row falls in exactly one (split, tile), every
@@ -602,3 +613,55 @@ def test_sass_opcodes_are_counted_per_kernel():
     res = build.count_opcodes(sass, ("HMMA", "LDSM", "LDGSTS", "SHFL"))
     assert list(res.values()) == [{"HMMA": 2, "LDSM": 1, "LDGSTS": 1, "SHFL": 0},
                                   {"HMMA": 0, "LDSM": 0, "LDGSTS": 0, "SHFL": 1}]
+
+
+@pytest.mark.parametrize("dtype,dh,g,single,taken", [
+    (torch.bfloat16, 80, 4, True, True), (torch.bfloat16, 192, 12, False, True),
+    (torch.bfloat16, 128, 7, False, True), (torch.bfloat16, 96, 4, True, False),
+    (torch.bfloat16, 128, 3, True, False), (torch.bfloat16, 16, 2, True, False),
+    (torch.float32, 16, 2, True, True), (torch.float32, 16, 2, False, False),
+    (torch.float32, 80, 4, True, False), (torch.float32, 128, 12, True, False),
+])
+def test_decode_wrappers_admit_exactly_the_instances(dtype, dh, g, single, taken):
+    """The shape checks of the dense and paged wrappers admit the shapes the
+    kernels have instances for: bf16 dh 64/80/128/192 at G 1, 2, 4, 7, 8,
+    12; fp32 dh 64/128, and dh 16 for the single-token kernel alone (the
+    serve CLI's tiny stack).  Anything else raises before a launch."""
+    hk, t, b = 2, 20, 2
+    q = torch.zeros((b, hk * g, dh) if single else (b, 4, hk * g, dh), dtype=dtype)
+    k = torch.zeros(b, t, hk, dh, dtype=dtype)
+    if taken:
+        assert dec_ops._check_qkv("x", q, k, k, not single)[3:] == (hk, g, dh)
+    else:
+        with pytest.raises(ValueError, match="unsupported shapes"):
+            dec_ops._check_qkv("x", q, k, k, not single)
+    if not single:
+        tbl = torch.zeros(b, 2, dtype=torch.int32)
+        sp = torch.zeros(b, t, dtype=torch.int32)
+        kp = torch.zeros(5, 16, hk, dh, dtype=dtype)
+        if taken:
+            assert paged_ops._check_paged("x", q, kp, kp, tbl, sp, True)[3:6] == (hk, g, dh)
+        else:
+            with pytest.raises(ValueError, match="unsupported shapes"):
+                paged_ops._check_paged("x", q, kp, kp, tbl, sp, True)
+
+
+def test_new_shapes_fit_shared_memory():
+    """dh 80 rows take 128 columns in shared memory (the swizzle's whole
+    groups of 8 chunks), dh 192 its own 192: flash at dh 192 holds one
+    block a SM, the panel body two at every new shape."""
+    assert [build.smem_row_bytes(d) for d in (64, 80, 128, 192)] == [128, 256, 256, 384]
+    for dh in (80, 192):
+        for sk in (128, 4160, 131_072):
+            plan = flash_ops.launch_plan(2, 128, sk, 32, 8, dh, torch.bfloat16, "naive", 64)
+            assert plan.smem_bytes <= build.SMEM_PER_BLOCK
+    flash192 = flash_ops.launch_plan(4, 128, 128, 96, 8, 192, torch.bfloat16, "naive", 64)
+    assert flash192.smem_bytes == (64 + 4 * 64) * 384 + 2 * 64 * 4 + 16
+    for dh, g in ((80, 4), (128, 7), (192, 12)):
+        for cap in (160, 4096):
+            plan = dec_ops.launch_plan(4, 4, cap, 8, g, dh, torch.bfloat16)
+            assert 2 * plan.smem_bytes + 2 * 1024 <= 228 * 1024
+    assert dec_ops.launch_plan(4, 4, 160, 8, 12, 192, torch.bfloat16).kq_panel == 1
+    assert dec_ops.launch_plan(4, 4, 160, 8, 7, 128, torch.bfloat16).kq_panel == 2
+    assert flash_ops.HEAD_DIMS == {torch.float32: (16, 24, 32, 64, 128),
+                                   torch.bfloat16: (64, 80, 128, 192)}

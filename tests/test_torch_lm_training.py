@@ -354,12 +354,13 @@ def test_train_cli_smoke_on_cpu(tmp_path, capsys):
     rc = train_cli.main(["--device", "cpu", "--steps", "20", "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert rc == 0, out
-    assert out.startswith("arch=llama-3.1-8b ") and "(improved)" in out
+    assert out.startswith("arch=qwen2.5-3b ") and "(improved)" in out   # the reference's
     assert "step    0 loss" in out and "step   19 loss" in out
     assert latest_checkpoint(str(tmp_path)) == 20
-    jm = jax_build_model(_jax_cfg(SMOKE))
+    jm = jax_build_model(jax_configs.get_config("qwen2.5-3b", smoke=True))
     restored, meta = load_checkpoint(str(tmp_path), 20, jm.init(jax.random.PRNGKey(0)))
-    assert meta["metadata"] == {"arch": "llama-3.1-8b"}
+    assert meta["metadata"] == {"arch": "qwen2.5-3b"}
+    assert {"b_q", "b_k", "b_v"} <= set(restored["scan"][0]["attn"])
     assert all(np.isfinite(np.asarray(x)).all() for x in jax.tree.leaves(restored))
 
 

@@ -12,12 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jax_configs
 from repro.checkpoint import save_checkpoint
 from repro.checkpoint.checkpoint import _flatten
 from repro.configs import llama31_8b as jax_llama
 from repro.models import ModelConfig as JaxModelConfig
 from repro.models import build_model as jax_build_model
 from repro.models import embedder as jax_embedder
+from repro_torch import configs as port_configs
 from repro_torch.checkpoint import jax_params_to_torch, read_checkpoint
 from repro_torch.configs import llama31_8b
 from repro_torch.models import ModelConfig, build_model
@@ -56,11 +58,18 @@ def _assert_caches(port, ref):
     assert ref["rem"] == () and port["rem"] == ()
 
 
-def test_config_copies_match_reference():
-    assert llama31_8b.CONFIG.__dict__ == jax_llama.CONFIG.__dict__
-    assert llama31_8b.SMOKE_CONFIG.__dict__ == jax_llama.SMOKE_CONFIG.__dict__
+@pytest.mark.parametrize("arch", ["llama-3.1-8b", "qwen2.5-3b", "deepseek-coder-33b",
+                                  "h2o-danube-1.8b", "nemotron-4-340b"])
+def test_config_copies_match_reference(arch):
+    port, ref = port_configs.get_arch(arch), jax_configs.get_arch(arch)
+    assert port.CONFIG.__dict__ == ref.CONFIG.__dict__
+    assert port.SMOKE_CONFIG.__dict__ == ref.SMOKE_CONFIG.__dict__
+    assert port.SKIP_SHAPES == ref.SKIP_SHAPES
+    assert port.CONFIG.padded_vocab == ref.CONFIG.padded_vocab
     assert port_embedder.MINILM_CONFIG.__dict__ == jax_embedder.MINILM_CONFIG.__dict__
-    assert llama31_8b.CONFIG.padded_vocab == llama31_8b.CONFIG.vocab_size == 128256
+    if arch == "llama-3.1-8b":
+        assert port.CONFIG is llama31_8b.CONFIG and ref.CONFIG is jax_llama.CONFIG
+        assert llama31_8b.CONFIG.padded_vocab == llama31_8b.CONFIG.vocab_size == 128256
 
 
 def test_convert_round_trip_through_checkpoint(tmp_path):
@@ -178,7 +187,11 @@ def test_embedder_matches_jax():
 def test_decode_mask_is_cache_len_pos_plus_one():
     """The reference masks decode with ``slot_pos >= 0 & slot_pos <= pos``
     after writing the token at slot ``pos``; on a prefilled dense cache
-    that is ``t < pos + 1``, the mask the port's kernel takes."""
+    that is ``t < pos + 1``, the mask the port's kernel takes.  A windowed
+    ring of ``cap`` slots adds ``slot_pos > pos - window``, and the mask
+    is ``t < min(pos + 1, cap)`` before and after the ring wraps, also
+    when prefill laid out a prompt longer than the ring; a paged cache
+    refuses a window."""
     cfg = CONFIGS["tiny-big"]
     pm = build_model(cfg)
     pp = pm.init(torch.Generator().manual_seed(0), "cpu")
@@ -191,6 +204,19 @@ def test_decode_mask_is_cache_len_pos_plus_one():
         ref_mask = (slot_pos >= 0) & (slot_pos <= pos)
         t = torch.arange(slot_pos.shape[-1])
         assert torch.equal(ref_mask, (t < pos + 1).expand_as(ref_mask))
+    wcfg = cfg.replace(sliding_window=8)
+    wm = build_model(wcfg)
+    for prompt, capacity in ((5, 7), (5, 40), (13, 40)):
+        _, caches = wm.prefill(pp, {"tokens": toks[:, :prompt]}, capacity)
+        cap = caches["scan"][0]["k"].shape[2]
+        assert cap == min(capacity, 8)
+        for _ in range(12):
+            pos = caches["pos"]
+            _, caches = wm.decode_step(pp, torch.randint(5, cfg.vocab_size, (3,)), caches)
+            slot_pos = caches["scan"][0]["slot_pos"]
+            ref_mask = (slot_pos >= 0) & (slot_pos <= pos) & (slot_pos > pos - 8)
+            t = torch.arange(cap)
+            assert torch.equal(ref_mask, (t < min(pos + 1, cap)).expand_as(ref_mask))
     with pytest.raises(NotImplementedError):
         decode_attention(pp["layers"][0]["attn"], torch.zeros(3, 1, cfg.d_model),
-                         caches["scan"][0], 0, caches["pos"], None, cfg, window=8)
+                         {"kp": None}, 0, caches["pos"], None, cfg, window=8)
