@@ -55,17 +55,27 @@ Prints one JSON object per line:
           (after: real above shuffled), ms per set, flash launches, two rows
           against an fp32 CPU score (within 0.01), ``debate_batch`` big against small
           (verdict shares sum to 1, mean margin by persona);
-  archs   the dense attention variants at full width, one at a time on an
-          emptied card: qwen2.5-3b (QKV bias, 36 layers), h2o-danube-1.8b
-          (sliding window 4,096, 24 layers), deepseek-coder-33b (8 of 62
-          layers) and nemotron-4-340b (squared ReLU, layernorm, 2 of 96
-          layers), random weights: 4 prompts of 128 tokens, 32 greedy tokens
-          through ``Generator``'s fused decode against one teacher-forced
-          forward under the margin rule, the fused tokens equal to the same
-          steps run one by one (ms a step), one flash launch a layer a
-          prefill and one decode launch a layer a step; for danube also 2
-          prompts of 4,160 tokens whose prefill lays out the 4,096-slot ring
-          and 64 decode steps wrap on through it;
+  archs   the dense attention variants and the MoE stacks at full width,
+          one at a time on an emptied card: qwen2.5-3b (QKV bias, 36
+          layers), h2o-danube-1.8b (sliding window 4,096, 24 layers),
+          deepseek-coder-33b (8 of 62 layers), nemotron-4-340b (squared
+          ReLU, layernorm, 2 of 96 layers), arctic-480b (128 experts top-2
+          and a dense residual, 2 of 35 layers) and qwen3-moe-235b-a22b (128
+          experts top-8, G 16, 4 of 94 layers), random weights: 4 prompts of
+          128 tokens, 32 greedy tokens through ``Generator``'s fused decode
+          against one teacher-forced forward under the margin rule (for a
+          MoE stack over the rows where neither the prefill nor the forward
+          dropped a pair), the fused tokens equal to the same steps run one
+          by one (ms a step, against the step's weight-read bound), one
+          flash launch a layer a prefill and one decode launch a layer a
+          step; for danube also 2 prompts of 4,160 tokens whose prefill lays
+          out the 4,096-slot ring and 64 decode steps wrap on through it;
+          for a MoE stack layer 0's MoE on the prefill's 512-token group and
+          on a 4-token decode group against a literal fp32 transcription of
+          the reference's one-hot einsum dispatch (the same kept pairs, 2e-2),
+          the dropped pairs, the train CLI's smoke run of the id, and for
+          qwen3-moe a paged ``DecodeSession``, the speculative Generator and
+          a speculative session, held to the Generator's tokens;
   serve   the full-width stack (``build_stack(model="llama-3.1-8b")``, its
           embedder trained): a restored bank of random unit vectors, a few
           hundred populated pairs, then batches of 8 through
@@ -152,13 +162,21 @@ PAGE = 16                      # KV page size of the paged phases
 POOL_PAGES = 256               # pages per paged generator (2 MiB each at full width)
 SPEC_K = 4                     # verify block of the speculating phases
 CACHE_SHARDS = 4               # shards of the sharded-bank phase, all on cuda:0
-# The dense attention variants at full width (``archs``): (id, layers kept,
-# None for the whole depth).  deepseek-coder-33b keeps 8 of 62 layers (9.4 GB
+# The dense attention variants and the MoE stacks at full width (``archs``):
+# (id, layers kept, None for the whole depth).  deepseek-coder-33b keeps 8 of 62 layers (9.4 GB
 # of weights) to hold the phase's time; nemotron-4-340b keeps 2 of 96 (33 GB:
 # 6.9 GB a layer, 18.9 GB of embedding and untied head; 96 layers need ~680
 # GB).
 ARCHS = (("qwen2.5-3b", None), ("h2o-danube-1.8b", None), ("deepseek-coder-33b", 8),
-         ("nemotron-4-340b", 2))
+         ("nemotron-4-340b", 2), ("arctic-480b", 2), ("qwen3-moe-235b-a22b", 4))
+# The MoE stacks: arctic-480b keeps 2 of 35 layers (~55.4 GB: 27.2 GB a layer,
+# 26.8 GB of it experts; 35 layers need ~954 GB); qwen3-moe-235b-a22b 4 of 94
+# (~22.4 GB: 4.98 GB a layer; 94 layers need ~470 GB).  qwen3-moe also runs
+# the paged and speculative paths (``moe_paths_check``) at G 16; arctic's
+# attention shapes are deepseek-coder-33b's, whose kernel cases stand for it.
+MOE_PATHS_ARCH = "qwen3-moe-235b-a22b"
+ARCH_KERNEL_CASES_OF = {"arctic-480b": "deepseek-coder-33b-prefill, deepseek-coder-33b-decode "
+                                       "(the same shapes: B 4, H 56 / Hk 8, dh 128)"}
 ARCH_BATCH, ARCH_PROMPT, ARCH_NEW = 4, 128, 32
 RING = (2, 4160, 64)     # danube: rows, a prompt past its 4,096-token window, decode steps
 TRAIN_CLI_ARCH = "qwen2.5-3b"  # the train CLI's default --arch, as the reference's
@@ -846,19 +864,23 @@ def kernel_phase(prefix_len: int, seed: int):
 
 
 def arch_kernel_cases(prefix_len: int, gen):
-    """The kernel instances the dense variants add, each at the shape the
-    ``archs`` phase (or a CLI run) drives: every arch's prefill (B 4, 128
-    tokens, causal from 0) and decode (a 161-slot cache mid-decode) at its
-    head dim and G, danube's 4,160-token windowed prefill and its full
-    4,096-slot ring, nemotron's verify block and paged kernels (dh 192, G
-    12), the train CLI's default smoke flash (qwen2.5-3b smoke: fp32, dh 32)
-    and the serve CLI's tiny stack's fp32 dh-16 decode (its big model's MISS
-    decode and its small model's TWEAK decode)."""
+    """The kernel instances the dense variants and the MoE stacks add, each
+    at the shape the ``archs`` phase (or a CLI run) drives: every arch's
+    prefill (B 4, 128 tokens, causal from 0) and decode (a 161-slot cache
+    mid-decode) at its head dim and G (arctic's are deepseek's), danube's
+    4,160-token windowed prefill and its full 4,096-slot ring, nemotron's
+    verify block and paged kernels (dh 192, G 12), qwen3-moe's (G 16), the
+    train CLI's default smoke flash (qwen2.5-3b smoke: fp32, dh 32; the MoE
+    smoke configs' is llama smoke's, ``train-cli-smoke-fp32``) and the serve
+    CLI's tiny stack's fp32 dh-16 decode (its big model's MISS decode and
+    its small model's TWEAK decode)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import model_configs
     cases = []
     cap, mid = ARCH_PROMPT + ARCH_NEW + 1, ARCH_PROMPT + ARCH_NEW // 2 + 1
     for arch, _ in ARCHS:
+        if arch in ARCH_KERNEL_CASES_OF:          # another arch's cases are its shapes
+            continue
         cfg = get_config(arch)
         h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         cases.append(flash_case(f"{arch}-prefill", ARCH_BATCH, ARCH_PROMPT, 0, h, hk, dh,
@@ -884,6 +906,18 @@ def arch_kernel_cases(prefix_len: int, gen):
                    mid + 1, 0, n, gen, block=False),
         paged_case("nemotron-4-340b-paged-verify-k4", ARCH_BATCH, SPEC_K, h, hk, dh, PAGE,
                    cap, mid, 0, n, gen, block=True),
+    ]
+    # qwen3-moe at G 16 on the paths ``moe_paths_check`` drives: the Generator's
+    # verify blocks (B 4), the sessions' paged decode and verify (8 slots)
+    moe = get_config(MOE_PATHS_ARCH)
+    h, hk, dh, n = moe.num_heads, moe.num_kv_heads, moe.resolved_head_dim, moe.num_layers
+    cases += [
+        block_case(f"{MOE_PATHS_ARCH}-verify-k4", ARCH_BATCH, SPEC_K, h, hk, dh, cap, mid, n,
+                   gen),
+        paged_case(f"{MOE_PATHS_ARCH}-paged-decode", 8, 1, h, hk, dh, PAGE, cap, mid + 1, 0,
+                   n, gen, block=False),
+        paged_case(f"{MOE_PATHS_ARCH}-paged-verify-k4", 8, SPEC_K, h, hk, dh, PAGE, cap, mid,
+                   0, n, gen, block=True),
     ]
     smoke = get_config(TRAIN_CLI_ARCH, smoke=True)
     cases.append(flash_case("train-cli-default-smoke-fp32", LM_BATCH, LM_SEQ, 0,
@@ -1277,6 +1311,126 @@ def judge_phase(model, params, tok, sets, before, device, seed: int):
 
 # ------------------------------------------------------------------ archs
 
+class MoeProbe:
+    """While active, wraps ``models.moe.apply_moe`` (the module attribute the
+    transformer calls): each call's dropped (token, choice) pairs are
+    counted per batch row on the device, read only after the run; with
+    ``capture`` the first call's input (layer 0's) is kept.  It routes each
+    input once more to count, so no timed run goes through it."""
+
+    def __init__(self, capture: bool = False):
+        self.capture, self.first_input, self.calls = capture, None, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._inner = moe, moe.apply_moe
+
+        def wrapped(params, x, cfg):
+            if self.capture and self.first_input is None:
+                self.first_input = x.detach().clone()
+            b, s = x.shape[:2]
+            _, _, _, rank, cap, _ = moe.route(params, x.detach(), cfg)
+            self.calls.append((s, (rank >= cap).sum(-1).reshape(-1)[:b * s].view(b, s).sum(1)))
+            return self._inner(params, x, cfg)
+
+        moe.apply_moe = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.apply_moe = self._inner
+
+    def dropped(self, tokens=None) -> list:
+        """Dropped pairs per batch row, summed over the calls (layers, steps)
+        of ``tokens`` tokens a row (every call when None)."""
+        rows = [r for s, r in self.calls if tokens is None or s == tokens]
+        return [] if not rows else [int(v) for v in sum(rows).tolist()]
+
+
+def onehot_moe(p, x, cfg):
+    """The reference's GShard dispatch (``src/repro/models/moe.py:38-118``)
+    transcribed literally into torch, in fp32 from the layer's own weights:
+    top-k by a stable descending sort (``lax.top_k``'s lowest index on
+    ties), the cumsum position of each (token, choice) in its expert, the
+    (G, S, E, C) one-hot dispatch and combine tensors, and the einsums; each
+    expert's weights converted to fp32 in turn (arctic's take 53 GB in fp32).
+    Returns (out (B,S,d) fp32, aux * coef, keep (G,S_g,k), top-k idx)."""
+    import torch
+    import torch.nn.functional as F
+    b, s, d = x.shape
+    n = b * s
+    gsz = min(cfg.moe_group_size, n)
+    pad = (-n) % gsz
+    xf = x.reshape(n, d).float()
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros(pad, d)])
+    xg = xf.view(-1, gsz, d)
+    g_, e, k = xg.shape[0], cfg.num_experts, cfg.experts_per_token
+    logits = torch.einsum("gsd,de->gse", xg, p["router"])
+    topi = torch.sort(logits, dim=-1, descending=True, stable=True).indices[..., :k]
+    probs = torch.softmax(logits.gather(-1, topi), dim=-1)
+    me = torch.mean(torch.softmax(logits, dim=-1), dim=(0, 1))
+    ce = torch.mean(F.one_hot(topi[..., 0], e).float(), dim=(0, 1))
+    aux = e * torch.sum(me * ce)
+    c = int(cfg.capacity_factor * k * gsz / e)
+    cap = max(8, ((c + 7) // 8) * 8)
+    onehot = F.one_hot(topi, e)                                      # (G,S,k,E)
+    flat = onehot.reshape(g_, gsz * k, e)
+    pos = torch.sum((torch.cumsum(flat, dim=1) - 1) * flat, dim=-1).reshape(g_, gsz, k)
+    keep = pos < cap
+    wts = probs * keep
+    slot = (pos[..., None] == torch.arange(cap, device=x.device)).float()  # 0 past C
+    sel = onehot.float() * keep[..., None]
+    disp = torch.einsum("gske,gskc->gsec", sel, slot)
+    comb = torch.einsum("gske,gskc,gsk->gsec", sel, slot, wts)
+    ex_in = torch.einsum("gsec,gsd->egcd", disp, xg)
+    ex_out = torch.empty_like(ex_in)
+    for i in range(e):
+        w_gate, w_up = p["w_gate_up"][i].float().chunk(2, dim=-1)
+        h = (F.silu(torch.einsum("gcd,df->gcf", ex_in[i], w_gate))
+             * torch.einsum("gcd,df->gcf", ex_in[i], w_up))
+        ex_out[i] = torch.einsum("gcf,fd->gcd", h, p["w_down"][i].float())
+    out = torch.einsum("egcd,gsec->gsd", ex_out, comb)
+    if cfg.moe_dense_residual:
+        dense = p["dense"]
+        gate, up = (xg @ dense["w_gate_up"].float()).chunk(2, dim=-1)
+        out = out + (F.silu(gate) * up) @ dense["w_down"].float()
+    return (out.reshape(-1, d)[:n].view(b, s, d), aux * cfg.router_aux_coef, keep, topi)
+
+
+MOE_TOL = 2e-2      # the bf16 MoE layer against its fp32 transcription (bf16 rounding)
+MOE_AUX_TOL = 1e-5  # aux: fp32 on both sides, sums in another order
+
+
+def moe_layer_check(p, x, cfg, label: str):
+    """Layer 0's ``apply_moe`` on the group ``x`` against ``onehot_moe`` from
+    the same weights: the same top-k experts and the same kept (token,
+    choice) set exactly, outputs within MOE_TOL, aux within MOE_AUX_TOL."""
+    import torch
+    from repro_torch.models import moe
+    got, aux = moe.apply_moe(p, x, cfg)
+    _, _, idx, rank, cap, _ = moe.route(p, x, cfg)
+    want, want_aux, keep, topi = onehot_moe(p, x, cfg)
+    name = f"archs[{cfg.name}].moe[{label}]"
+    if not torch.equal(idx, topi):
+        raise AssertionError(f"{name}: the routed experts differ from the transcription's")
+    if not torch.equal(rank < cap, keep):
+        raise AssertionError(f"{name}: the kept (token, choice) set differs from the "
+                             f"transcription's")
+    err = (got.float() - want).abs().max().item()
+    check(name, err, MOE_TOL)
+    aux_err = abs(float(aux) - float(want_aux))
+    check(name + ".aux", aux_err, MOE_AUX_TOL)
+    load = torch.zeros(idx.shape[0], cfg.num_experts, device=x.device).scatter_add_(
+        1, idx.reshape(idx.shape[0], -1), torch.ones(idx.shape[0], idx[0].numel(),
+                                                     device=x.device))
+    return {"tokens": x.shape[0] * x.shape[1], "groups": idx.shape[0],
+            "group_tokens": idx.shape[1], "capacity": cap, "capacity_factor":
+            cfg.capacity_factor, "pairs": keep.numel(), "dropped_pairs": int((~keep).sum()),
+            "max_expert_load": int(load.max()), "mean_expert_load": float(load.mean()),
+            "max_abs_out": want.abs().max().item(), "max_abs_err": err, "tolerance": MOE_TOL, "aux": float(aux),
+            "aux_abs_err": aux_err, "same_experts": True, "same_kept_set": True}
+
+
 def generate_check(model, params, rng, b: int, s: int, mnt: int):
     """Greedy generation of ``mnt`` tokens from ``b`` random prompts of ``s``
     tokens through ``Generator``'s fused decode, held against one
@@ -1285,8 +1439,18 @@ def generate_check(model, params, rng, b: int, s: int, mnt: int):
     tolerance is twice the largest logit difference between that forward and
     the decode steps fed the same tokens, plus 1e-3.  The decode steps are
     run again one by one from a prefill (timed: ms a step) and must give the
-    fused loop's tokens exactly.  Returns the run's line and the caches the
-    step loop left."""
+    fused loop's tokens exactly.
+
+    A MoE stack routes each call's tokens as a group, and the forward's
+    group (all rows, prompt and generated) is not the prefill's nor a decode
+    step's: where either drops a pair of a row (a probed re-run counts
+    them), that row's forward is another function, so the noise and the
+    rule are taken over the rows where neither dropped any.  Layer 0's MoE
+    is then held to its one-hot transcription (``moe_layer_check``) on the
+    prefill's own group and on the first decode step's.
+
+    Returns the run's line, the caches the step loop left and the greedy
+    reference (prompts, tokens, the top-2 margin of each token's logits)."""
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1294,6 +1458,7 @@ def generate_check(model, params, rng, b: int, s: int, mnt: int):
     from repro_torch.serving.sampler import SamplerConfig
     cfg, dev = model.cfg, params["embed"].device
     vocab = cfg.vocab_size
+    is_moe = "moe" in params["layers"][0]
     toks = torch.as_tensor(rng.integers(5, vocab, (b, s)), device=dev).long()
     gen = Generator(model, params, GenerateConfig(max_new_tokens=mnt,
                                                   sampler=SamplerConfig(vocab_size=vocab)))
@@ -1319,20 +1484,57 @@ def generate_check(model, params, rng, b: int, s: int, mnt: int):
         _sync(dev)
         step_ms = (time.perf_counter() - t0) * 1e3 / (mnt - 1)
         dec = torch.stack(dec, 1)                                        # (B, mnt, V)
-        full, _ = model.forward(params, {"tokens": torch.cat([toks, fed[:, :-1]], 1)})
+        with MoeProbe() as fwd_probe:
+            full, _ = model.forward(params, {"tokens": torch.cat([toks, fed[:, :-1]], 1)})
         teach = full[:, s - 1:, :vocab].float()
         del full
+        if is_moe:
+            with MoeProbe(capture=True) as pre_probe:
+                _, probe_caches = model.prefill(params, {"tokens": toks}, s + mnt + 1)
+            with MoeProbe(capture=True) as step_probe:
+                model.decode_step(params, fed[:, 0], probe_caches)
+            del probe_caches
     live = torch.arange(mnt, device=dev)[None, :] < torch.as_tensor(lengths, device=dev)[:, None]
     if not torch.equal(torch.where(live, dec.argmax(-1), fed), fed):
         raise AssertionError(f"archs[{cfg.name}]: the fused decode's tokens differ from "
                              f"the same steps run one by one")
-    noise = (dec - teach).abs().max().item()
+    clean = torch.ones(b, dtype=torch.bool, device=dev)
+    moe_line = None
+    if is_moe:
+        dropped = {"prefill": pre_probe.dropped(), "forward": fwd_probe.dropped(),
+                   "decode_step": step_probe.dropped()}
+        if any(dropped["decode_step"]):
+            raise AssertionError(f"archs[{cfg.name}]: a decode step of {b} tokens dropped "
+                                 f"pairs: {dropped['decode_step']}")
+        clean = torch.as_tensor([p == 0 and f == 0 for p, f in
+                                 zip(dropped["prefill"], dropped["forward"])], device=dev)
+        layer0 = params["layers"][0]["moe"]
+        moe_line = {"dropped_pairs_by_row": dropped,
+                    "rows_without_drops": int(clean.sum()),
+                    "prefill_group": moe_layer_check(layer0, pre_probe.first_input, cfg,
+                                                     "prefill-group"),
+                    "decode_group": moe_layer_check(layer0, step_probe.first_input, cfg,
+                                                    "decode-group")}
+        if moe_line["prefill_group"]["dropped_pairs"] == 0:   # then a group that drops
+            tight = cfg.replace(capacity_factor=cfg.capacity_factor / 4)
+            moe_line["prefill_group_cf_quarter"] = moe_layer_check(
+                layer0, pre_probe.first_input, tight, "prefill-group-cf-quarter")
     top = teach.topk(2, dim=-1).values
     ref = teach.argmax(-1)
     test = torch.where(live, fed, ref)
-    rule = margin_rule(f"archs[{cfg.name}]", [(ref.cpu().numpy(),
-                                               (top[..., 0] - top[..., 1]).cpu().numpy(),
-                                               test.cpu().numpy())], 2 * noise + 1e-3)
+    if bool(clean.any()):
+        noise = (dec[clean] - teach[clean]).abs().max().item()
+        rule = margin_rule(f"archs[{cfg.name}]", [(ref[clean].cpu().numpy(),
+                                                   (top[..., 0] - top[..., 1])[clean]
+                                                   .cpu().numpy(),
+                                                   test[clean].cpu().numpy())],
+                           2 * noise + 1e-3)
+    else:
+        noise = None
+        rule = {"rows": 0, "applied": False,
+                "reason": "every row dropped a (token, choice) pair in the prefill or the "
+                          "forward, whose groups differ: the forward is another function "
+                          "there; the MoE layer check and fused = stepwise hold instead"}
     n_layers = cfg.num_layers
     if counts["flash_attention"] != n_layers or counts["decode_attention"] != n_layers * (
             mnt - 1):
@@ -1340,34 +1542,157 @@ def generate_check(model, params, rng, b: int, s: int, mnt: int):
                              f"and one decode a layer a step")
     if not torch.isfinite(dec).all():
         raise AssertionError(f"archs[{cfg.name}]: non-finite logits")
-    return {"batch": b, "prompt": s, "new_tokens": mnt, "generate_ms": generate_ms,
+    top_dec = dec.topk(2, dim=-1).values
+    greedy = (toks, fed.cpu().numpy(), (top_dec[..., 0] - top_dec[..., 1]).cpu().numpy())
+    line = {"batch": b, "prompt": s, "new_tokens": mnt, "generate_ms": generate_ms,
             "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
             "flash_launches_per_generate": counts["flash_attention"],
             "decode_launches_per_step": counts["decode_attention"] / (mnt - 1),
             "kernel_launches": {k: v for k, v in counts.items() if v},
             "max_logit_diff_decode_vs_forward": noise, "margin_rule": rule,
-            "mean_generated_length": float(np.mean(lengths))}, caches
+            "mean_generated_length": float(np.mean(lengths))}
+    if moe_line is not None:
+        line["moe"] = moe_line
+    return line, caches, greedy
+
+
+def moe_paths_check(model, params, greedy, seed: int):
+    """A MoE stack through the paged and the speculative paths, on the same 4
+    prompts as ``generate_check``'s Generator (so each prefill forms the
+    same dispatch group), its tokens the reference: a ``DecodeSession(slots=
+    8)`` over a page pool, the 4 prompts one cohort (paged decode); the
+    Generator with ``spec_k=SPEC_K`` and the Generator's own tokens as drafts
+    (dense verify blocks); a ``DecodeSession(slots=8, spec_k=SPEC_K)`` with
+    the same drafts (paged verify blocks).  Tokens are held to the
+    reference's under the margin rule, at ``path_noise``'s tolerance.  A
+    decode step never drops a pair (C >= 8 >= its tokens); a verify block
+    of B*K tokens may, and a dropped pair changes its own token's output
+    alone, so the rule holds the rows none of whose verify tokens dropped a
+    pair, and the others are reported.  No page may leak, and each path's
+    kernel must launch."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.continuous import DecodeSession, leaked_pages
+    from repro_torch.serving.generate import GenerateConfig, Generator
+    from repro_torch.serving.sampler import SamplerConfig
+    toks, ref, margins = greedy
+    b, mnt = ref.shape
+    cap = toks.shape[1] + mnt + 1
+    vocab = model.cfg.vocab_size
+    sampler = SamplerConfig(vocab_size=vocab)
+    gcfg = GenerateConfig(max_new_tokens=mnt, sampler=sampler)
+    drafts = (ref, np.full(b, mnt, np.int32))
+    host = toks.cpu().numpy()
+    out, launches = {}, {}
+    with torch.no_grad():
+        noise = path_noise(model, params, sampler, toks)
+        paged = Generator(model, params, dataclasses.replace(gcfg, paged=True, page_size=PAGE))
+        spec = Generator(model, params, dataclasses.replace(gcfg, spec_k=SPEC_K))
+        for name in ("session", "spec_generate", "spec_session"):
+            reset_launch_counts()
+            t = time.perf_counter()
+            with MoeProbe() as probe:
+                if name == "spec_generate":
+                    got = spec.generate_with_lengths({"tokens": toks}, drafts=drafts)[0]
+                    stats = dict(spec.last_spec_stats)
+                    slots = list(range(b))
+                else:
+                    sess = DecodeSession(paged, slots=8, capacity=cap, seed=seed,
+                                         spec_k=SPEC_K if name == "spec_session" else 1)
+                    slots = sess.admit(host, tags=list(range(b)),
+                                       drafts=drafts if name == "spec_session" else None)
+                    done = sorted(sess.drain(chunk=SPEC_K if name == "spec_session" else 0),
+                                  key=lambda f: f["tag"])
+                    got = np.stack([f["tokens"] for f in done])
+                    stats = sess.spec_stats if name == "spec_session" else {}
+                    leaked = leaked_pages(sess) + sess.pool.live_pages
+                    if leaked:
+                        raise AssertionError(f"archs[{model.cfg.name}].{name}: {leaked} "
+                                             f"pages leaked")
+                    del sess
+            _sync(toks.device)
+            ms = (time.perf_counter() - t) * 1e3
+            launches[name] = {k: v for k, v in launch_counts().items() if v}
+            run = {"ms": ms, "launches": launches[name], **stats,
+                   "prefill_dropped_pairs": sum(probe.dropped(toks.shape[1])),
+                   "step_dropped_pairs": sum(probe.dropped(1)),
+                   "block_dropped_pairs": sum(probe.dropped(SPEC_K))}
+            if run["step_dropped_pairs"]:
+                raise AssertionError(f"archs[{model.cfg.name}].{name}: a decode step dropped "
+                                     f"pairs")
+            label = f"archs[{model.cfg.name}].{name}"
+            by_slot = probe.dropped(SPEC_K) or [0] * 8
+            clean = np.array([by_slot[j] == 0 for j in slots])
+            run.update(block_dropped_pairs_by_row=[by_slot[j] for j in slots],
+                       token_match=float((got == ref).mean()))
+            if clean.any():
+                run["margin_rule"] = margin_rule(label, [(ref[clean], margins[clean],
+                                                          got[clean])], noise["tol"])
+            else:
+                run["margin_rule"] = {"rows": 0, "applied": False,
+                                      "reason": "every row's verify tokens dropped a pair"}
+            out[name] = run
+    want = {"session": "paged_decode_attention", "spec_generate": "decode_attention_block",
+            "spec_session": "paged_decode_attention_block"}
+    if toks.device.type == "cuda":
+        for name, kernel in want.items():
+            if not launches[name].get(kernel):
+                raise AssertionError(f"archs[{model.cfg.name}].{name}: {kernel} never "
+                                     f"launched: {launches[name]}")
+    out["path_noise"] = noise
+    out["leaked_pages"] = 0
+    return out
+
+
+def train_cli_check(arch: str, layers: int):
+    """The train CLI's smoke run of ``arch`` on the card (``--steps 20``):
+    exit 0 with the loss falling, one flash launch a layer a step."""
+    import contextlib
+    import io
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import train as train_cli
+    out = io.StringIO()
+    n0 = flash_ops.launches
+    with contextlib.redirect_stdout(out):
+        rc = train_cli.main(["--steps", "20", "--log-every", "10", "--arch", arch])
+    launches = flash_ops.launches - n0
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or not lines[0].startswith(f"arch={arch} "):
+        raise AssertionError(f"archs[{arch}]: the train CLI returned {rc}: {lines}")
+    if launches != 20 * layers:
+        raise AssertionError(f"archs[{arch}]: the train CLI launched flash {launches} times, "
+                             f"not once a layer a step ({layers} layers, 20 steps)")
+    return {"rc": rc, "args": f"--steps 20 --log-every 10 --arch {arch} (its smoke config)",
+            "flash_launches": launches, "first_line": lines[0], "last_line": lines[-1]}
 
 
 def archs_phase(seed: int, device=None):
-    """The dense attention variants at full width, one at a time on an emptied
-    card, each freed before the next: random weights from seeds, depth cut
-    as ``ARCHS`` says; a batch of ``ARCH_BATCH`` prompts of ``ARCH_PROMPT``
-    tokens and ``ARCH_NEW`` greedy tokens through ``generate_check``; for a
-    sliding-window stack also ``RING``: prompts longer than its window, so
-    prefill lays out the ring and decode wraps it further (the ring's
-    positions are checked to be the last ``window`` ones)."""
+    """The dense attention variants and the MoE stacks at full width, one at
+    a time on an emptied card, each freed before the next: random weights
+    from seeds, depth cut as ``ARCHS`` says; a batch of ``ARCH_BATCH``
+    prompts of ``ARCH_PROMPT`` tokens and ``ARCH_NEW`` greedy tokens through
+    ``generate_check``; for a sliding-window stack also ``RING``: prompts
+    longer than its window, so prefill lays out the ring and decode wraps it
+    further (the ring's positions are checked to be the last ``window``
+    ones); for ``MOE_PATHS_ARCH`` the paged and speculative paths
+    (``moe_paths_check``); for a MoE stack the train CLI's smoke run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
+    from repro_torch.models.config import MOE
     from repro_torch.training.optimizer import tree_leaves
     dev = device or torch.device("cuda")
     t_phase = time.perf_counter()
-    out, launches = {}, {"flash_attention": 0, "decode_attention": 0}
+    out, launches = {}, {"flash_attention": 0, "decode_attention": 0,
+                         "decode_attention_block": 0, "paged_decode_attention": 0,
+                         "paged_decode_attention_block": 0}
     for i, (arch, depth) in enumerate(ARCHS):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()       # the kernel cases' inputs, kept till the end
         full = get_config(arch)
         cfg = full if depth is None else full.replace(num_layers=depth)
         t0 = time.perf_counter()
@@ -1383,15 +1708,36 @@ def archs_phase(seed: int, device=None):
                 "dtype": cfg.dtype, "params": sum(p.numel() for p in leaves),
                 "weight_gb": sum(p.numel() * p.element_size() for p in leaves) / 1e9,
                 "init_s": time.perf_counter() - t0}
+        # a decode step reads every weight but the embedding (B of its rows),
+        # every expert included: the reference's form runs all E
+        read = sum(p.numel() * p.element_size() for p in leaves) - params["embed"].numel() * (
+            params["embed"].element_size()) + ARCH_BATCH * cfg.d_model * (
+            params["embed"].element_size())
         del leaves
         rng = np.random.default_rng(seed + 50 + i)
-        line["short"], _ = generate_check(model, params, rng, ARCH_BATCH, ARCH_PROMPT, ARCH_NEW)
+        line["short"], _, greedy = generate_check(model, params, rng, ARCH_BATCH, ARCH_PROMPT,
+                                                  ARCH_NEW)
+        line["decode_step_weight_read_gb"] = read / 1e9
+        line["decode_step_bound_ms"] = read / HBM_BYTES_PER_S * 1e3
         runs = [line["short"]]
+        if "moe" in params["layers"][0]:
+            line.update(experts=cfg.num_experts, experts_per_token=cfg.experts_per_token,
+                        moe_d_ff=cfg.moe_d_ff, capacity_factor=cfg.capacity_factor,
+                        dense_residual=cfg.moe_dense_residual,
+                        group_size=cfg.moe_group_size)
+            if arch == MOE_PATHS_ARCH:
+                line["paths"] = moe_paths_check(model, params, greedy, seed)
+                runs += [{"kernel_launches": r["launches"]} for k, r in line["paths"].items()
+                         if k in ("session", "spec_generate", "spec_session")]
+            else:
+                line["kernel_cases"] = ARCH_KERNEL_CASES_OF.get(arch)
+        del greedy
         if cfg.sliding_window:
             rows, prompt, steps = RING
             if prompt <= cfg.sliding_window:
                 raise AssertionError(f"archs[{arch}]: the ring prompt does not pass the window")
-            line["ring"], caches = generate_check(model, params, rng, rows, prompt, steps + 1)
+            line["ring"], caches, _ = generate_check(model, params, rng, rows, prompt,
+                                                     steps + 1)
             sp = caches["scan"][0]["slot_pos"]
             end = caches["pos"]
             cap = sp.shape[-1]
@@ -1408,10 +1754,13 @@ def archs_phase(seed: int, device=None):
             for k in launches:
                 launches[k] += run["kernel_launches"].get(k, 0)
         line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        line["seconds"] = time.perf_counter() - t0
-        out[arch] = line
+        line["memory_held_before_gb"] = held / 1e9
         del params, model
         torch.cuda.empty_cache()
+        if cfg.block_pattern == (MOE,):     # the train CLI's smoke run of the id
+            line["train_cli"] = train_cli_check(arch, get_config(arch, smoke=True).num_layers)
+        line["seconds"] = time.perf_counter() - t0
+        out[arch] = line
     return {"phase": "archs", "seconds": time.perf_counter() - t_phase, "configs": out,
             "launches": launches}
 
@@ -2936,6 +3285,8 @@ def main(argv=None) -> int:
                       launches_archs=archs["launches"]["flash_attention"])
     summary[1].update(launches_archs=archs["launches"]["decode_attention"],
                       launches_serve_cli=serve_cli["kernel_launches"]["decode_attention"])
+    for row in summary[3:6]:   # the verify and paged kernels: qwen3-moe's paths at G 16
+        row["launches_archs"] = archs["launches"][row["name"]]
     for row in summary:    # every case of the kernel, the summary's own included
         row["cases"] = [{k: c.get(k) for k in ("case", "max_abs_err", "ms", "device_ms",
                                                 "plain_ms", "bound_ms", "bound_by",

@@ -4,7 +4,7 @@ The input is ``{path: array}`` keyed as ``checkpoint.read_checkpoint`` (and
 the JAX package's own ``_flatten``) key them.  Two layouts are understood:
 
 * the decoder LM of ``repro.models.transformer``: layers stacked under
-  ``scan/0/...`` (one pattern position, ATTN-only) with ``embed``,
+  ``scan/0/...`` (one pattern position, ATTN or MOE) with ``embed``,
   ``final_norm`` and ``lm_head``;
 * the embedder of ``repro.models.embedder``: layers stacked under
   ``scan/...``; the reranker of ``repro.models.reranker`` is that layout
@@ -14,8 +14,10 @@ Attention weights come as ``w_q``/``w_k``/``w_v`` (d,h,dh) and ``w_o``
 (h,dh,d) and become ``w_qkv`` (d,(H+2Hk)*dh) and ``w_o`` (H*dh,d); QKV
 biases ``b_q``/``b_k``/``b_v`` (h,dh) become ``b_qkv`` ((H+2Hk)*dh,); a
 swiglu MLP's ``w_gate``/``w_up`` become ``w_gate_up`` (d,2f), a gelu or
-squared-ReLU MLP keeps ``w_up``/``w_down``.  Norm parameters stay fp32;
-weights take the config's dtype.
+squared-ReLU MLP keeps ``w_up``/``w_down``.  A MOE block's ``moe/w_gate`` and
+``moe/w_up`` (E,d,f) become ``w_gate_up`` (E,d,2f) beside ``w_down`` (E,f,d),
+and Arctic's ``moe/dense`` is a swiglu MLP.  Norm parameters and the MoE
+``router`` (d,E) stay fp32; the other weights take the config's dtype.
 
 ``torch_params_to_jax`` is the inverse for the decoder LM: it carries the
 port's weights back to the reference's layout (``checkpoint.save_checkpoint``
@@ -50,13 +52,23 @@ def _norm(flat, key: str, i, device):
     return out
 
 
+def _mlp(w, key: str, mlp_type: str):
+    """An MLP's numpy weights in the port's layout, read by ``w(name)``."""
+    if mlp_type == "swiglu":
+        p = {"w_gate_up": np.concatenate([w(key + "/w_gate"), w(key + "/w_up")], axis=-1)}
+    else:
+        p = {"w_up": w(key + "/w_up")}
+    p["w_down"] = w(key + "/w_down")
+    return p
+
+
 def jax_params_to_torch(flat: Dict[str, np.ndarray], cfg: ModelConfig, device="cuda"):
     """Port parameters for ``cfg`` from a flattened JAX parameter tree, on
     ``device`` (the card unless the caller asks for ``"cpu"``)."""
     device = resolve_device(device)
     if any(k.startswith("rem/") for k in flat) or any(
             k.startswith("scan/1/") for k in flat):
-        raise NotImplementedError("only single-kind (ATTN) stacks are converted")
+        raise NotImplementedError("only single-kind (ATTN or MOE) stacks are converted")
     pre = "scan/0/" if "scan/0/attn/w_q" in flat else "scan/"
     dt = torch_dtype(cfg.dtype)
     d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -69,23 +81,25 @@ def jax_params_to_torch(flat: Dict[str, np.ndarray], cfg: ModelConfig, device="c
         w_qkv = np.concatenate([w("attn/w_q").reshape(d, h * dh),
                                 w("attn/w_k").reshape(d, hk * dh),
                                 w("attn/w_v").reshape(d, hk * dh)], axis=-1)
-        if cfg.mlp_type == "swiglu":
-            mlp = {"w_gate_up": np.concatenate([w("mlp/w_gate"), w("mlp/w_up")], axis=-1)}
-        else:
-            mlp = {"w_up": w("mlp/w_up")}
-        mlp["w_down"] = w("mlp/w_down")
         attn = {"w_qkv": _tensor(w_qkv, dt, device),
                 "w_o": _tensor(w("attn/w_o").reshape(h * dh, d), dt, device)}
         if cfg.qkv_bias:
             attn["b_qkv"] = _tensor(np.concatenate(
                 [w("attn/b_q").reshape(-1), w("attn/b_k").reshape(-1),
                  w("attn/b_v").reshape(-1)]), dt, device)
-        layers.append({
-            "norm1": _norm(flat, pre + "norm1", i, device),
-            "attn": attn,
-            "norm2": _norm(flat, pre + "norm2", i, device),
-            "mlp": {k: _tensor(v, dt, device) for k, v in mlp.items()},
-        })
+        layer = {"norm1": _norm(flat, pre + "norm1", i, device), "attn": attn,
+                 "norm2": _norm(flat, pre + "norm2", i, device)}
+        if pre + "moe/router" in flat:
+            moe = {k: _tensor(v, dt, device) for k, v in _mlp(w, "moe", "swiglu").items()}
+            moe["router"] = _tensor(w("moe/router"), torch.float32, device)
+            if pre + "moe/dense/w_gate" in flat:
+                moe["dense"] = {k: _tensor(v, dt, device)
+                                for k, v in _mlp(w, "moe/dense", "swiglu").items()}
+            layer["moe"] = moe
+        else:
+            layer["mlp"] = {k: _tensor(v, dt, device)
+                            for k, v in _mlp(w, "mlp", cfg.mlp_type).items()}
+        layers.append(layer)
     params = {"embed": _tensor(flat["embed"], dt, device),
               "final_norm": _norm(flat, "final_norm", None, device),
               "layers": layers}
@@ -119,6 +133,17 @@ def jax_cache_state_to_torch(state_np: Dict[str, np.ndarray], cfg, device="cuda"
     return out
 
 
+def _mlp_leaves(key: str, stack, d_ff: int, mlp_type: str):
+    """(path, tensor) of an MLP's stacked weights under ``key``; ``stack(name)``
+    stacks one weight of every layer."""
+    if mlp_type == "swiglu":
+        gate_up = stack("w_gate_up")
+        out = [(key + "/w_gate", gate_up[..., :d_ff]), (key + "/w_up", gate_up[..., d_ff:])]
+    else:
+        out = [(key + "/w_up", stack("w_up"))]
+    return out + [(key + "/w_down", stack("w_down"))]
+
+
 def _jax_leaves(params, cfg: ModelConfig):
     """(path, tensor) of the decoder LM in the reference's layout."""
     d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -141,13 +166,17 @@ def _jax_leaves(params, cfg: ModelConfig):
         out += [("scan/0/attn/b_q", bq.reshape(-1, h, dh)),
                 ("scan/0/attn/b_k", bk.reshape(-1, hk, dh)),
                 ("scan/0/attn/b_v", bv.reshape(-1, hk, dh))]
-    if cfg.mlp_type == "swiglu":
-        gate_up = stack(lambda p: p["mlp"]["w_gate_up"])
-        out += [("scan/0/mlp/w_gate", gate_up[..., :cfg.d_ff]),
-                ("scan/0/mlp/w_up", gate_up[..., cfg.d_ff:])]
+    if "moe" in layers[0]:
+        moe = lambda name: stack(lambda p: p["moe"][name])
+        out += [("scan/0/moe/router", moe("router"))]
+        out += _mlp_leaves("scan/0/moe", moe, cfg.moe_d_ff, "swiglu")
+        if "dense" in layers[0]["moe"]:
+            out += _mlp_leaves("scan/0/moe/dense",
+                               lambda name: stack(lambda p: p["moe"]["dense"][name]),
+                               cfg.d_ff, "swiglu")
     else:
-        out.append(("scan/0/mlp/w_up", stack(lambda p: p["mlp"]["w_up"])))
-    out.append(("scan/0/mlp/w_down", stack(lambda p: p["mlp"]["w_down"])))
+        out += _mlp_leaves("scan/0/mlp", lambda name: stack(lambda p: p["mlp"][name]),
+                           cfg.d_ff, cfg.mlp_type)
     for norm in ("norm1", "norm2"):
         for leaf in layers[0][norm]:
             out.append((f"scan/0/{norm}/{leaf}", stack(lambda p: p[norm][leaf])))

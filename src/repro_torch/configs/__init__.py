@@ -2,7 +2,8 @@
 
 ``get_config(arch, smoke)`` resolves the reference's ids whose stack the port
 builds: decoder-only ATTN stacks, global or sliding-window, with or without
-QKV bias, with a swiglu, gelu or squared-ReLU MLP.  Their config modules are
+QKV bias, with a swiglu, gelu or squared-ReLU MLP, and MOE stacks (GShard
+top-k capacity dispatch, with or without Arctic's dense residual).  Their config modules are
 copies of the reference's.  Every other id raises ``NotImplementedError``
 naming what the port lacks for it; an unknown id raises ``KeyError`` as in
 the reference.
@@ -17,6 +18,8 @@ _MODULES = {
     "deepseek-coder-33b": "deepseek_coder_33b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "nemotron-4-340b": "nemotron_4_340b",
+    "arctic-480b": "arctic_480b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
 }
 
 # what each reference id needs that the port does not build yet
@@ -24,9 +27,7 @@ MISSING = {
     "whisper-tiny": "enc-dec (audio frontend, cross attention)",
     "recurrentgemma-9b": "RG-LRU and LOCAL_ATTN blocks",
     "internvl2-26b": "vision frontend (prefix embeddings)",
-    "arctic-480b": "MoE (dense residual)",
     "mamba2-130m": "SSM (Mamba-2)",
-    "qwen3-moe-235b-a22b": "MoE",
 }
 
 

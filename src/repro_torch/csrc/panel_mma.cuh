@@ -57,8 +57,9 @@
 //    shuffles); the 4 warps merge through shared memory at the end, four
 //    outputs (a float4) a thread.
 //  * Shapes: dh 64, 80, 128 and 192, and any G whose panel fits kMaxCols
-//    rows (G 7 and 12 at deepseek's and nemotron's widths: one query of G
-//    12 fills 12 of 16 columns, so a K-4 verify block runs 4 panels).  A
+//    rows (G 7, 12 and 16 at deepseek's, nemotron's and qwen3-moe's widths:
+//    one query of G 12 fills 12 of 16 columns and one of G 16 all 16, so a
+//    K-4 verify block runs 4 panels, each two n-tiles of 8).  A
 //    panel row's query and head are c / G and c % G.  S takes DH/16
 //    k-steps, whose Q fragments load two at a time; an odd count (5 at dh
 //    80) loads its last alone.  dh-80 rows sit in 128-column shared rows
@@ -513,7 +514,7 @@ int launch_dh(const void* q, const KV& kv, const panel::Geometry& geo, const Arg
 }
 
 // bf16 q/out (B,K,H,dh); dh 64, 80, 128 or 192; any G with a panel of at
-// most kMaxCols rows (ops._check_qkv admits G 1, 2, 4, 7, 8 and 12).
+// most kMaxCols rows (ops._check_qkv admits G 1, 2, 4, 7, 8, 12 and 16).
 template <class KV>
 int launch(int dh, const void* q, const KV& kv, const panel::Geometry& geo, const Args& args,
            int batch, void* out, cudaStream_t stream) {

@@ -40,9 +40,9 @@ PANEL_ROWS = 16       # (query, head) rows per fp32 panel (kMaxRows)
 WAVE_CLUSTERS = (264, 132, 79, 62, 47, 39, 32, 30)
 # The shapes each body has instances for: bf16 the tensor-core panel body
 # (panel_mma.cuh; a panel of at most MAX_COLS rows takes any G, these are the
-# configs' G); fp32 the CUDA-core bodies, the single-token one
-# (decode_attention.cu) also at dh 16.
-BF16_SHAPES = ((64, 80, 128, 192), (1, 2, 4, 7, 8, 12))
+# configs' G: G 16, qwen3-moe's, fills a panel with one query); fp32 the
+# CUDA-core bodies, the single-token one (decode_attention.cu) also at dh 16.
+BF16_SHAPES = ((64, 80, 128, 192), (1, 2, 4, 7, 8, 12, 16))
 FP32_SHAPES = ((64, 128), (1, 2, 4, 8))
 FP32_DECODE_SHAPES = ((16, 64, 128), (1, 2, 4, 8))
 

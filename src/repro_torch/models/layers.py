@@ -53,6 +53,18 @@ def apply_norm(params, x, norm_type: str, eps: float = 1e-6):
 
 # ----------------------------------------------------------------- MLPs
 
+def init_mlp(d: int, d_ff: int, mlp_type: str, dtype, generator, device):
+    """An MLP's weights, drawn as the reference draws w_gate, w_up, w_down
+    (swiglu's gate and up fused into ``w_gate_up``)."""
+    if mlp_type == "swiglu":
+        p = {"w_gate_up": torch.cat([dense_init((d, d_ff), dtype, generator, device),
+                                     dense_init((d, d_ff), dtype, generator, device)], dim=-1)}
+    else:
+        p = {"w_up": dense_init((d, d_ff), dtype, generator, device)}
+    p["w_down"] = dense_init((d_ff, d), dtype, generator, device, stddev=d_ff ** -0.5)
+    return p
+
+
 def apply_mlp(params, x, mlp_type: str):
     """``params`` holds ``w_gate_up`` (d, 2f) for swiglu (gate | up) or
     ``w_up`` (d, f) for gelu and squared_relu, and ``w_down`` (f, d).  The

@@ -1,5 +1,5 @@
 """``Model`` facade over the ported decoder-only stack (counterpart of
-``src/repro/models/model.py``, decoder-only ATTN stacks only): ``forward``
+``src/repro/models/model.py``, decoder-only ATTN and MOE stacks): ``forward``
 and ``loss`` for training, ``prefill`` and the decode steps for serving.
 
 Prefix-prefill contract (DESIGN.md §9): ``prefill_prefix`` returns the KV
@@ -9,14 +9,17 @@ concatenation.  Within the port on the CPU the match is held by the tests
 (``tests/test_torch_model.py``); on the card cuBLAS may reduce the prefix's
 K/V projection in another order at another row count, so it is held to
 the generated tokens.  Only the fixed-block ``xla_flash`` attention
-qualifies, as in the reference.
+qualifies, as in the reference.  A MOE stack takes the path too, but there
+the suffix's tokens form their own dispatch groups, so its MoE outputs
+(and the K/V of later layers) can differ from the full prefill's where
+capacity drops a pair: the reference's semantics.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from . import transformer as tf_lib
-from .config import ATTN, ModelConfig
+from .config import ATTN, MOE, ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +49,7 @@ class Model:
     def supports_prefix_prefill(self) -> bool:
         cfg = self.cfg
         return (cfg.enc_layers == 0 and cfg.sliding_window == 0
-                and set(cfg.block_pattern) == {ATTN} and cfg.num_prefix_tokens == 0
+                and set(cfg.block_pattern) <= {ATTN, MOE} and cfg.num_prefix_tokens == 0
                 and cfg.attention_impl == "xla_flash")
 
     def _require_prefix(self):
@@ -75,8 +78,8 @@ class Model:
     @property
     def supports_paged_decode(self) -> bool:
         """Decode over a paged KV pool: every cached layer a plain global KV
-        cache (a windowed ring buffer cannot be paged)."""
-        return self.cfg.sliding_window == 0 and set(self.cfg.block_pattern) == {ATTN}
+        cache, ATTN or MOE (a windowed ring buffer cannot be paged)."""
+        return self.cfg.sliding_window == 0 and set(self.cfg.block_pattern) <= {ATTN, MOE}
 
     @property
     def supports_spec_decode(self) -> bool:

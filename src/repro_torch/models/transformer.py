@@ -1,10 +1,14 @@
-"""Decoder-only LM of attention blocks (the ATTN stack of
+"""Decoder-only LM of attention blocks (the ATTN and MOE stacks of
 ``src/repro/models/transformer.py``), global or sliding-window.
 
 Parameters are a dict: ``embed`` (V,d), ``final_norm``, ``lm_head`` (d,V)
-unless tied, and ``layers``, one dict per block.  Caches keep the JAX
-package's ``{"scan", "rem", "pos"}`` structure: ``scan[0]`` stacks every
-layer's KV, ``rem`` is empty for an ATTN-only stack.  Two forms:
+unless tied, and ``layers``, one dict per block: ``norm1``, ``attn``,
+``norm2`` and the FFN, ``mlp`` in an ATTN block or ``moe`` in a MOE block
+(``models.moe``).  A stack is of one kind, ATTN or MOE: no reference config
+mixes the two, and a mixed pattern would need the reference's per-position
+cache stacks (``scan[j]``).  Caches keep the JAX package's ``{"scan", "rem",
+"pos"}`` structure: ``scan[0]`` stacks every layer's KV, ``rem`` is empty.
+Two forms:
 
 * dense (prefill's): ``k``/``v`` (L,B,T,Hk,dh), ``slot_pos`` (L,B,T), and
   ``pos`` (the tokens already in the cache) a host integer, so the dense
@@ -23,10 +27,14 @@ layer's KV, ``rem`` is empty for an ATTN-only stack.  Two forms:
   decode_step(params, token, caches, cfg)          -> (logits (B,V), caches)
   decode_block(params, tokens, caches, cfg)        -> (logits (B,k,V), caches)
 
-Decode updates the cache tensors in place (the JAX package donates them)
-and returns a new top-level dict with ``pos`` advanced.  Other block kinds
-and frontends raise, and so do the paged, block and prefix paths of a
-windowed stack, as the reference's do.
+A MOE block's output depends on the other tokens of its dispatch group
+(capacity drops), so a prefill, a decode step and a verify block each route
+the tokens they are given, as the reference's do; ``aux`` (the summed
+load-balance losses) is kept by the training forward only.  Decode updates
+the cache tensors in place (the JAX package donates them) and returns a new
+top-level dict with ``pos`` advanced.  Other block kinds and frontends
+raise, and so do the paged, block and prefix paths of a windowed stack, as
+the reference's do.
 """
 from __future__ import annotations
 
@@ -36,15 +44,17 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import torch_dtype
 
 from . import attention as attn_lib
-from .config import ATTN, ModelConfig
-from .layers import apply_mlp, apply_norm, dense_init, init_norm, truncated_normal
+from . import moe as moe_lib
+from .config import ATTN, MOE, ModelConfig
+from .layers import apply_mlp, apply_norm, init_mlp, init_norm, truncated_normal
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if (set(cfg.block_pattern) != {ATTN} or cfg.enc_layers or cfg.frontend != "none"
-            or cfg.num_prefix_tokens):
+    if (set(cfg.block_pattern) not in ({ATTN}, {MOE}) or cfg.enc_layers
+            or cfg.frontend != "none" or cfg.num_prefix_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: only decoder-only attention (ATTN) stacks are ported")
+            f"{cfg.name}: only decoder-only stacks of attention (ATTN) or MoE (MOE) "
+            f"blocks are ported")
 
 
 def cache_capacity(cfg: ModelConfig, capacity: int) -> int:
@@ -56,18 +66,18 @@ def cache_capacity(cfg: ModelConfig, capacity: int) -> int:
 # ----------------------------------------------------------------- init
 
 def init_block(cfg: ModelConfig, generator, device):
-    d, ff = cfg.d_model, cfg.d_ff
-    dt = torch_dtype(cfg.dtype)
-    if cfg.mlp_type == "swiglu":
-        mlp = {"w_gate_up": torch.cat([dense_init((d, ff), dt, generator, device),
-                                       dense_init((d, ff), dt, generator, device)], dim=-1)}
+    """One block of the stack's kind: attention, then an MLP (ATTN) or the
+    MoE (MOE)."""
+    d = cfg.d_model
+    p = {"norm1": init_norm(d, cfg.norm_type, device),
+         "attn": attn_lib.init_attention(cfg, generator, device),
+         "norm2": init_norm(d, cfg.norm_type, device)}
+    if cfg.block_pattern[0] == MOE:
+        p["moe"] = moe_lib.init_moe(cfg, generator, device)
     else:
-        mlp = {"w_up": dense_init((d, ff), dt, generator, device)}
-    mlp["w_down"] = dense_init((ff, d), dt, generator, device, stddev=ff ** -0.5)
-    return {"norm1": init_norm(d, cfg.norm_type, device),
-            "attn": attn_lib.init_attention(cfg, generator, device),
-            "norm2": init_norm(d, cfg.norm_type, device),
-            "mlp": mlp}
+        p["mlp"] = init_mlp(d, cfg.d_ff, cfg.mlp_type, torch_dtype(cfg.dtype), generator,
+                            device)
+    return p
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device):
@@ -93,8 +103,14 @@ def init_caches(batch: int, capacity: int, cfg: ModelConfig, device):
 
 # ----------------------------------------------------------------- stack
 
-def _mlp_residual(p, x, cfg: ModelConfig):
-    return x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg.norm_type), cfg.mlp_type)
+def _ffn_residual(p, x, cfg: ModelConfig):
+    """x + the block's FFN of norm2(x).  Returns (x, aux): the MoE's scaled
+    load-balance loss, None for an MLP."""
+    h = apply_norm(p["norm2"], x, cfg.norm_type)
+    if "moe" in p:
+        m, aux = moe_lib.apply_moe(p["moe"], h, cfg)
+        return x + m, aux
+    return x + apply_mlp(p["mlp"], h, cfg.mlp_type), None
 
 
 def _logits(params, x, cfg: ModelConfig):
@@ -108,23 +124,27 @@ def _logits(params, x, cfg: ModelConfig):
 
 
 def _block_train(p, x, positions, cfg: ModelConfig):
-    """One block over the full sequence, making no KV cache."""
+    """One block over the full sequence, making no KV cache: (x, aux)."""
     a, _ = attn_lib.self_attention(p["attn"], apply_norm(p["norm1"], x, cfg.norm_type),
                                    positions, cfg, window=cfg.sliding_window)
-    return _mlp_residual(p, x + a, cfg)
+    return _ffn_residual(p, x + a, cfg)
 
 
 def _run_stack_train(params, x, positions, cfg: ModelConfig):
     """The blocks in order; with ``cfg.remat`` each is recomputed in the
     backward and saves nothing but its input (the reference's
     ``nothing_saveable`` remat of each scanned period, one block here).
-    Returns (x, aux): an ATTN stack has no auxiliary loss."""
+    Returns (x, aux): the MoE blocks' losses summed in layer order (0 for
+    an ATTN stack)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["layers"]:
         if cfg.remat:
-            x = checkpoint(_block_train, p, x, positions, cfg, use_reentrant=False)
+            x, a = checkpoint(_block_train, p, x, positions, cfg, use_reentrant=False)
         else:
-            x = _block_train(p, x, positions, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _block_train(p, x, positions, cfg)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def forward(params, tokens, cfg: ModelConfig):
@@ -202,7 +222,7 @@ def prefill(params, tokens, cfg: ModelConfig, capacity: int, prefix=None):
             attn_lib.fill_kv_cache(kv, i, k[:, ring], v[:, ring], k_pos[:, ring])
         else:
             raise ValueError(f"prefill of {k.shape[1]} tokens exceeds capacity {capacity}")
-        x = _mlp_residual(p, x + a, cfg)
+        x, _ = _ffn_residual(p, x + a, cfg)
     caches["pos"] = start + s
     return _logits(params, x[:, -1:], cfg)[:, 0], caches
 
@@ -234,7 +254,7 @@ def decode_step(params, token, caches, cfg: ModelConfig):
     for i, p in enumerate(params["layers"]):
         a = attn_lib.decode_attention(p["attn"], apply_norm(p["norm1"], x, cfg.norm_type),
                                       kv, i, pos, cache_len, cfg, window=window, plan=plan)
-        x = _mlp_residual(p, x + a, cfg)
+        x, _ = _ffn_residual(p, x + a, cfg)
     return _logits(params, x, cfg)[:, 0], {"scan": caches["scan"], "rem": (), "pos": pos + 1}
 
 
@@ -256,6 +276,6 @@ def decode_block(params, tokens, caches, cfg: ModelConfig):
     for i, p in enumerate(params["layers"]):
         a = attn_lib.decode_attention_block(
             p["attn"], apply_norm(p["norm1"], x, cfg.norm_type), kv, i, pos, plan, cfg)
-        x = _mlp_residual(p, x + a, cfg)
+        x, _ = _ffn_residual(p, x + a, cfg)
     return _logits(params, x, cfg), {"scan": caches["scan"], "rem": (),
                                      "pos": pos + tokens.shape[1]}

@@ -55,14 +55,21 @@ def _profiled_kernels(fn, calls):
     """(kernel name, launches) of ``calls`` calls of ``fn`` under
     torch.profiler.  The profiler drops a kernel record whose start, on the
     host clock, falls before the session began, and the card's records can
-    land a few ms before their launch: the first call waits 20 ms."""
+    land a few ms before their launch; once the process has trained on the
+    card it drops the first few records of every session.  So the session
+    waits 20 ms, then opens with 32 sentinel kernels (``torch.cuda._sleep``,
+    left out of the result, as ``chip_smoke.device_ms`` does) and a sync."""
     from torch.autograd import DeviceType
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         time.sleep(0.02)
+        for _ in range(32):
+            torch.cuda._sleep(20_000)
+        torch.cuda.synchronize()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
 
 
 @pytest.mark.parametrize("impl", ["xla_flash", "naive"])
@@ -587,6 +594,8 @@ def test_paged_kernels_match_plain(dtype, tol, kq, page, b, h, hk, dh, cap):
     (torch.float32, 1e-5, 3, 9, 40, 4, 2, 32, 0),         # qwen2.5-3b smoke, fp32 dh 32
     (torch.float32, 1e-5, 2, 0, 50, 4, 2, 32, 12),
     (torch.float32, 1e-5, 2, 5, 40, 8, 2, 24, 0),         # nemotron-4-340b smoke, dh 24
+    (torch.bfloat16, 2e-2, 2, 0, 128, 64, 4, 128, 0),     # qwen3-moe-235b-a22b, G 16
+    (torch.bfloat16, 2e-2, 1, 45, 64, 64, 4, 128, 0),
 ])
 def test_flash_new_head_dims_and_groups_match_plain(impl, dtype, tol, b, p, s, h, hk, dh,
                                                     window):
@@ -613,6 +622,8 @@ def test_flash_new_head_dims_and_groups_match_plain(impl, dtype, tol, b, p, s, h
     (torch.bfloat16, 2e-2, 2, 32, 8, 4096, 80),     # its whole ring
     (torch.bfloat16, 2e-2, 4, 56, 8, 160, 128),     # deepseek-coder-33b, G 7
     (torch.bfloat16, 2e-2, 4, 96, 8, 160, 192),     # nemotron-4-340b, G 12
+    (torch.bfloat16, 2e-2, 4, 64, 4, 161, 128),     # qwen3-moe-235b-a22b, G 16
+    (torch.bfloat16, 2e-2, 8, 64, 4, 700, 128),     # G 16, more rows, splits merged
     (torch.float32, 1e-5, 8, 8, 4, 300, 16),        # serve-tiny's big model, dh 16
     (torch.float32, 1e-5, 3, 4, 2, 45, 16),         # its small model, one split
     (torch.float32, 1e-5, 2, 8, 1, 700, 16),        # G 8, splits merged
@@ -634,10 +645,11 @@ def test_decode_new_shapes_match_plain(dtype, tol, b, h, hk, t, dh):
 
 @pytest.mark.parametrize("kq", [1, 4])
 @pytest.mark.parametrize("b,h,hk,t,dh", [(4, 32, 8, 160, 80), (4, 56, 8, 160, 128),
-                                         (4, 96, 8, 206, 192), (2, 96, 8, 700, 192)])
+                                         (4, 96, 8, 206, 192), (2, 96, 8, 700, 192),
+                                         (4, 64, 4, 161, 128), (8, 64, 4, 300, 128)])
 def test_verify_and_paged_new_shapes_match_plain(kq, b, h, hk, t, dh):
     """The dense verify block and both paged kernels at dh 80 and 192 and G
-    7 and 12 (bf16: the panel body only), against the plain versions."""
+    7, 12 and 16 (bf16: the panel body only), against the plain versions."""
     dev = _cuda()
     q, k, v = _dense_case(dev, t + kq, b, kq, h, hk, t, dh, torch.bfloat16)
     g = torch.Generator(device=dev).manual_seed(t + kq)
@@ -686,10 +698,11 @@ def test_danube_smoke_stack_on_the_card_matches_the_cpu():
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-coder-33b", "h2o-danube-1.8b",
-                                  "nemotron-4-340b"])
+                                  "nemotron-4-340b", "arctic-480b", "qwen3-moe-235b-a22b"])
 def test_train_cli_each_arch_on_the_card(arch, capsys):
-    """The train CLI's smoke run of each dense variant on the card (fp32 flash
-    at dh 32, 16, 16 and 24): the loss falls, one flash launch a layer a step."""
+    """The train CLI's smoke run of each dense variant and MoE stack on the
+    card (fp32 flash at dh 32, 16, 16, 24, 16 and 16): the loss falls, one
+    flash launch a layer a step."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     _cuda()
@@ -698,6 +711,52 @@ def test_train_cli_each_arch_on_the_card(arch, capsys):
     out = capsys.readouterr().out
     assert rc == 0 and "(improved)" in out, out
     assert flash_ops.launches - before == 20 * get_config(arch, smoke=True).num_layers
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b"])
+def test_moe_smoke_stack_on_the_card_matches_the_cpu(arch):
+    """The MoE smoke stacks (fp32, dh 16) on the card against the CPU:
+    ``apply_moe`` alone on a group that drops pairs (the same kept set),
+    then a prefill of 4 x 24 tokens and 8 decode steps through the flash
+    and dense decode kernels, and the training forward's aux."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    dev = _cuda()
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    layer = params["layers"][0]["moe"]
+    x = torch.randn(4, 16, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    tight = cfg.replace(capacity_factor=1.0)
+    runs = []                                   # (out, aux, kept) on the CPU, then the card
+    for device in (torch.device("cpu"), dev):
+        p = _to(layer, device)
+        out, aux = moe.apply_moe(p, x.to(device), tight)
+        _, _, _, rank, cap, _ = moe.route(p, x.to(device), tight)
+        runs.append((out.cpu(), aux.cpu(), (rank < cap).cpu()))
+    (out0, aux0, kept0), (out1, aux1, kept1) = runs
+    assert torch.equal(kept1, kept0) and not bool(kept0.all())
+    torch.testing.assert_close(out1, out0, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux1, aux0, rtol=1e-5, atol=1e-6)
+    toks = torch.randint(5, cfg.vocab_size, (4, 24), generator=torch.Generator().manual_seed(2))
+    steps = torch.randint(5, cfg.vocab_size, (8, 4), generator=torch.Generator().manual_seed(3))
+    runs = []                                   # (logits of every step, aux)
+    for device in (torch.device("cpu"), dev):
+        p = _to(params, device)
+        reset_launch_counts()
+        out, caches = model.prefill(p, {"tokens": toks.to(device)}, 24 + 8)
+        seq = [out]
+        for tok in steps:
+            out, caches = model.decode_step(p, tok.to(device), caches)
+            seq.append(out)
+        runs.append((torch.stack(seq).cpu(),
+                     model.forward(p, {"tokens": toks.to(device)})[1].cpu()))
+        if device.type == "cuda":
+            counts = launch_counts()
+            assert counts["flash_attention"] == 2 * cfg.num_layers
+            assert counts["decode_attention"] == 8 * cfg.num_layers
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(runs[1][1], runs[0][1], rtol=1e-5, atol=1e-6)
 
 
 def test_serve_cli_default_stack_on_the_card(capsys):

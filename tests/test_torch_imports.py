@@ -189,3 +189,16 @@ def test_train_cli_needs_a_card_by_default():
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--steps", "1"])
+
+
+SLICE_8 = ("models/moe.py", "configs/arctic_480b.py", "configs/qwen3_moe_235b.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_8)
+def test_slice_8_modules_stand_alone(rel):
+    """The MoE block and its two configs import without JAX or the JAX
+    package (the configs are copies of the reference's)."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in _port_files()
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    importlib.import_module("repro_torch." + rel[:-3].replace("/", "."))

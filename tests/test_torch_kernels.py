@@ -332,6 +332,8 @@ def test_blockwise_is_length_invariant():
     (4, 128, 128, 56, 8, 128, torch.bfloat16, "naive", 64),       # deepseek, g 7
     (4, 128, 128, 96, 8, 192, torch.bfloat16, "naive", 64),       # nemotron, g 12, dh 192
     (8, 128, 128, 4, 2, 32, torch.float32, "naive", 128),         # qwen smoke, fp32 dh 32
+    (4, 128, 128, 64, 4, 128, torch.bfloat16, "naive", 128),      # qwen3-moe, g 16
+    (8, 16, 16, 8, 2, 16, torch.float32, "naive", 128),           # the MoE smoke configs
 ])
 def test_flash_launch_plan_covers_every_row_once(b, sq, sk, h, hk, dh, dtype, impl, block):
     """Every (b, query, head) output row belongs to exactly one block; a
@@ -402,6 +404,9 @@ def test_flash_plan_shared_memory():
     (4, 4, 160, 8, 7, 128, torch.bfloat16),    # its verify block: panels of 2 queries
     (4, 1, 160, 8, 12, 192, torch.bfloat16),   # nemotron decode, g 12, dh 192
     (4, 4, 160, 8, 12, 192, torch.bfloat16),   # its verify block: a panel a query
+    (4, 1, 161, 4, 16, 128, torch.bfloat16),   # qwen3-moe decode, g 16: all 16 columns
+    (4, 4, 161, 4, 16, 128, torch.bfloat16),   # its verify block: 4 panels of 16
+    (8, 4, 161, 4, 16, 128, torch.bfloat16),   # a spec session's 8 slots
 ])
 def test_paged_launch_plan_covers_every_slot_and_row_once(b, kq, cap, hk, g, dh, dtype):
     """Every slot of a row falls in exactly one (split, tile), every
@@ -618,6 +623,8 @@ def test_sass_opcodes_are_counted_per_kernel():
 @pytest.mark.parametrize("dtype,dh,g,single,taken", [
     (torch.bfloat16, 80, 4, True, True), (torch.bfloat16, 192, 12, False, True),
     (torch.bfloat16, 128, 7, False, True), (torch.bfloat16, 96, 4, True, False),
+    (torch.bfloat16, 128, 16, True, True), (torch.bfloat16, 128, 16, False, True),
+    (torch.bfloat16, 128, 32, True, False), (torch.float32, 128, 16, True, False),
     (torch.bfloat16, 128, 3, True, False), (torch.bfloat16, 16, 2, True, False),
     (torch.float32, 16, 2, True, True), (torch.float32, 16, 2, False, False),
     (torch.float32, 80, 4, True, False), (torch.float32, 128, 12, True, False),
@@ -625,7 +632,7 @@ def test_sass_opcodes_are_counted_per_kernel():
 def test_decode_wrappers_admit_exactly_the_instances(dtype, dh, g, single, taken):
     """The shape checks of the dense and paged wrappers admit the shapes the
     kernels have instances for: bf16 dh 64/80/128/192 at G 1, 2, 4, 7, 8,
-    12; fp32 dh 64/128, and dh 16 for the single-token kernel alone (the
+    12, 16; fp32 dh 64/128, and dh 16 for the single-token kernel alone (the
     serve CLI's tiny stack).  Anything else raises before a launch."""
     hk, t, b = 2, 20, 2
     q = torch.zeros((b, hk * g, dh) if single else (b, 4, hk * g, dh), dtype=dtype)
@@ -665,3 +672,18 @@ def test_new_shapes_fit_shared_memory():
     assert dec_ops.launch_plan(4, 4, 160, 8, 7, 128, torch.bfloat16).kq_panel == 2
     assert flash_ops.HEAD_DIMS == {torch.float32: (16, 24, 32, 64, 128),
                                    torch.bfloat16: (64, 80, 128, 192)}
+
+
+@pytest.mark.parametrize("b,kq,splits", [(4, 1, 3), (4, 4, 3), (8, 4, 2)])
+def test_g16_plan_fills_one_panel_a_query(b, kq, splits):
+    """qwen3-moe (H 64 / Hk 4, dh 128) at the archs phase's 161-slot cache:
+    one query of G 16 fills a panel's 16 columns, so a K-4 verify block runs
+    4 panels, each two n-tiles of 8 (the kernel's NT 2 instance); the
+    clusters fit one wave (8 rows x 4 KV heads x 4 panels: 128 clusters,
+    so 2 splits, not 3) and two blocks share an SM."""
+    plan = dec_ops.launch_plan(b, kq, 161, 4, 16, 128, torch.bfloat16)
+    assert plan.route == "mma" and plan.kq_panel == 1 and plan.grid[2] == kq
+    assert -(-plan.kq_panel * 16 // 8) == 2
+    assert plan.grid[0] == b * 4 and plan.splits == splits
+    assert plan.grid[0] * plan.grid[2] <= dec_ops.WAVE_CLUSTERS[plan.splits - 1]
+    assert 2 * plan.smem_bytes + 2 * 1024 <= 228 * 1024

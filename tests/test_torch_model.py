@@ -59,7 +59,8 @@ def _assert_caches(port, ref):
 
 
 @pytest.mark.parametrize("arch", ["llama-3.1-8b", "qwen2.5-3b", "deepseek-coder-33b",
-                                  "h2o-danube-1.8b", "nemotron-4-340b"])
+                                  "h2o-danube-1.8b", "nemotron-4-340b", "arctic-480b",
+                                  "qwen3-moe-235b-a22b"])
 def test_config_copies_match_reference(arch):
     port, ref = port_configs.get_arch(arch), jax_configs.get_arch(arch)
     assert port.CONFIG.__dict__ == ref.CONFIG.__dict__

@@ -210,8 +210,8 @@ def test_generate_config_validation():
         GenerateConfig(max_new_tokens=4, spec_k=8)
     with pytest.raises(ValueError, match="greedy|temperature"):
         GenerateConfig(spec_k=2, sampler=SamplerConfig(temperature=0.7))
-    # an architecture that cannot rewind (the port builds only ATTN stacks,
-    # so a stand-in says so)
+    # an architecture that cannot rewind (every stack the port builds that
+    # is not windowed can, so a stand-in says so)
     no_rewind = type("NoRewind", (), {"supports_spec_decode": False, "cfg": CFG})()
     with pytest.raises(ValueError, match="spec_k"):
         Generator(no_rewind, {"embed": torch.zeros(1)}, GenerateConfig(spec_k=2))
