@@ -12,11 +12,12 @@ Prints one JSON object per line:
           (HMMA/HGMMA), ldmatrix, cp.async and shuffle instructions from
           ``cuobjdump -sass`` (the bf16 flash kernel and every instance of the
           attention-panel body, dense and paged, must have HMMA and
-          cp.async, the panel and shortlist-kernel instances no spill bytes,
+          cp.async, the panel and shortlist-kernel instances and the dh-256
+          flash instance no spill bytes,
           and no CUDA-core attention body may be built for bf16), and how
-          many clusters of 1..8 blocks of the panel body and of the shortlist
-          kernel the card holds at once (no fewer than their launch plans
-          assume);
+          many clusters of 1..8 blocks of the panel body (dh 128, and dh 256
+          at one block a SM) and of the shortlist kernel the card holds at
+          once (no fewer than their launch plans assume);
   kernel  one line per Hopper kernel and main-path shape: max |kernel - plain|
           against its tolerance, the kernel's time per call (CUDA events over
           back-to-back calls, ``ms``; and its kernels' device time from the
@@ -55,27 +56,33 @@ Prints one JSON object per line:
           (after: real above shuffled), ms per set, flash launches, two rows
           against an fp32 CPU score (within 0.01), ``debate_batch`` big against small
           (verdict shares sum to 1, mean margin by persona);
-  archs   the dense attention variants and the MoE stacks at full width,
-          one at a time on an emptied card: qwen2.5-3b (QKV bias, 36
-          layers), h2o-danube-1.8b (sliding window 4,096, 24 layers),
-          deepseek-coder-33b (8 of 62 layers), nemotron-4-340b (squared
-          ReLU, layernorm, 2 of 96 layers), arctic-480b (128 experts top-2
-          and a dense residual, 2 of 35 layers) and qwen3-moe-235b-a22b (128
-          experts top-8, G 16, 4 of 94 layers), random weights: 4 prompts of
+  archs   the dense attention variants, the MoE stacks and the recurrent
+          stacks at full width, one at a time on an emptied card: qwen2.5-3b
+          (QKV bias, 36 layers), h2o-danube-1.8b (sliding window 4,096, 24
+          layers), deepseek-coder-33b (8 of 62 layers), nemotron-4-340b
+          (squared ReLU, layernorm, 2 of 96 layers), arctic-480b (128
+          experts top-2 and a dense residual, 2 of 35 layers),
+          qwen3-moe-235b-a22b (128 experts top-8, G 16, 4 of 94 layers),
+          mamba2-130m (24 Mamba-2 SSD layers) and recurrentgemma-9b (12
+          periods of RG-LRU, RG-LRU, local attention at dh 256 and G 16,
+          then two RG-LRU layers: 38), random weights: 4 prompts of
           128 tokens, 32 greedy tokens through ``Generator``'s fused decode
           against one teacher-forced forward under the margin rule (for a
           MoE stack over the rows where neither the prefill nor the forward
           dropped a pair), the fused tokens equal to the same steps run one
           by one (ms a step, against the step's weight-read bound), one
           flash launch a layer a prefill and one decode launch a layer a
-          step; for danube also 2 prompts of 4,160 tokens whose prefill lays
-          out the 4,096-slot ring and 64 decode steps wrap on through it;
+          step (an attention layer's; none for mamba2); for danube and
+          recurrentgemma also 2 prompts of 64 tokens past the window (4,160
+          and 2,112) whose prefill lays out the ring and 64 decode steps
+          wrap on through it, held to the forward the same way;
           for a MoE stack layer 0's MoE on the prefill's 512-token group and
           on a 4-token decode group against a literal fp32 transcription of
           the reference's one-hot einsum dispatch (the same kept pairs, 2e-2),
-          the dropped pairs, the train CLI's smoke run of the id, and for
-          qwen3-moe a paged ``DecodeSession``, the speculative Generator and
-          a speculative session, held to the Generator's tokens;
+          the dropped pairs, and for qwen3-moe a paged ``DecodeSession``,
+          the speculative Generator and a speculative session, held to the
+          Generator's tokens; for a MoE or recurrent stack the train CLI's
+          smoke run of the id;
   serve   the full-width stack (``build_stack(model="llama-3.1-8b")``, its
           embedder trained): a restored bank of random unit vectors, a few
           hundred populated pairs, then batches of 8 through
@@ -168,7 +175,8 @@ CACHE_SHARDS = 4               # shards of the sharded-bank phase, all on cuda:0
 # 6.9 GB a layer, 18.9 GB of embedding and untied head; 96 layers need ~680
 # GB).
 ARCHS = (("qwen2.5-3b", None), ("h2o-danube-1.8b", None), ("deepseek-coder-33b", 8),
-         ("nemotron-4-340b", 2), ("arctic-480b", 2), ("qwen3-moe-235b-a22b", 4))
+         ("nemotron-4-340b", 2), ("arctic-480b", 2), ("qwen3-moe-235b-a22b", 4),
+         ("mamba2-130m", None), ("recurrentgemma-9b", None))
 # The MoE stacks: arctic-480b keeps 2 of 35 layers (~55.4 GB: 27.2 GB a layer,
 # 26.8 GB of it experts; 35 layers need ~954 GB); qwen3-moe-235b-a22b 4 of 94
 # (~22.4 GB: 4.98 GB a layer; 94 layers need ~470 GB).  qwen3-moe also runs
@@ -178,7 +186,9 @@ MOE_PATHS_ARCH = "qwen3-moe-235b-a22b"
 ARCH_KERNEL_CASES_OF = {"arctic-480b": "deepseek-coder-33b-prefill, deepseek-coder-33b-decode "
                                        "(the same shapes: B 4, H 56 / Hk 8, dh 128)"}
 ARCH_BATCH, ARCH_PROMPT, ARCH_NEW = 4, 128, 32
-RING = (2, 4160, 64)     # danube: rows, a prompt past its 4,096-token window, decode steps
+# a windowed stack's ring run: rows, tokens of the prompt past the window
+# (danube 4,096 + 64, recurrentgemma 2,048 + 64), decode steps
+RING = (2, 64, 64)
 TRAIN_CLI_ARCH = "qwen2.5-3b"  # the train CLI's default --arch, as the reference's
 SERVE_CLI_QUERIES = 200        # the serve CLI's default --queries
 
@@ -292,24 +302,31 @@ def check(name: str, err: float, tol: float) -> None:
 def wave_clusters(build) -> dict:
     """{"nt1", "nt2": clusters of 1..8 blocks of the bf16 attention-panel
     body (dh 128, the main shapes' shared memory) that the card holds at
-    once}; fails where the card holds fewer than the launch plan's
-    ``WAVE_CLUSTERS`` assumes, since a call would then run a second wave."""
+    once; "dh256_nt1", "dh256_nt2": the same for the dh-256 instance at
+    recurrentgemma's ring shape, one block a SM}; fails where the card holds
+    fewer than the launch plan's ``WAVE_CLUSTERS`` (``WAVE_CLUSTERS_ONE_A_SM``)
+    assumes, since a call would then run a second wave."""
     import ctypes
     import torch
-    from repro_torch.kernels.decode_attention.ops import WAVE_CLUSTERS, launch_plan
-    smem = launch_plan(8, 1, 206, 8, 4, 128, torch.bfloat16).smem_bytes
+    from repro_torch.kernels.decode_attention.ops import (WAVE_CLUSTERS,
+                                                          WAVE_CLUSTERS_ONE_A_SM, launch_plan)
     lib, out = build.load_library(), {}
-    for nt in (1, 2):
-        got = []
-        for splits in range(1, len(WAVE_CLUSTERS) + 1):
-            n = ctypes.c_int(0)
-            build.check(lib.panel_mma_wave_clusters(nt, splits, smem, ctypes.byref(n)),
-                        "panel_mma_wave_clusters")
-            got.append(n.value)
-        if any(g < w for g, w in zip(got, WAVE_CLUSTERS)):
-            raise AssertionError(f"the card holds {got} clusters at NT {nt}, fewer than the "
-                                 f"launch plan's {list(WAVE_CLUSTERS)}")
-        out[f"nt{nt}"] = got
+    for dh, label, entry, table, plan in (
+            (128, "", "panel_mma_wave_clusters", WAVE_CLUSTERS,
+             launch_plan(8, 1, 206, 8, 4, 128, torch.bfloat16)),
+            (256, "dh256_", "panel_mma_wave_clusters_dh256", WAVE_CLUSTERS_ONE_A_SM,
+             launch_plan(ARCH_BATCH, 1, 2048, 1, 16, 256, torch.bfloat16))):
+        for nt in (1, 2):
+            got = []
+            for splits in range(1, len(table) + 1):
+                n = ctypes.c_int(0)
+                build.check(getattr(lib, entry)(nt, splits, plan.smem_bytes, ctypes.byref(n)),
+                            entry)
+                got.append(n.value)
+            if any(g < w for g, w in zip(got, table)):
+                raise AssertionError(f"the card holds {got} clusters of the dh-{dh} instance "
+                                     f"at NT {nt}, fewer than the launch plan's {list(table)}")
+            out[f"{label}nt{nt}"] = got
     return out
 
 
@@ -864,39 +881,44 @@ def kernel_phase(prefix_len: int, seed: int):
 
 
 def arch_kernel_cases(prefix_len: int, gen):
-    """The kernel instances the dense variants and the MoE stacks add, each
-    at the shape the ``archs`` phase (or a CLI run) drives: every arch's
-    prefill (B 4, 128 tokens, causal from 0) and decode (a 161-slot cache
-    mid-decode) at its head dim and G (arctic's are deepseek's), danube's
-    4,160-token windowed prefill and its full 4,096-slot ring, nemotron's
-    verify block and paged kernels (dh 192, G 12), qwen3-moe's (G 16), the
-    train CLI's default smoke flash (qwen2.5-3b smoke: fp32, dh 32; the MoE
-    smoke configs' is llama smoke's, ``train-cli-smoke-fp32``) and the serve
-    CLI's tiny stack's fp32 dh-16 decode (its big model's MISS decode and
-    its small model's TWEAK decode)."""
+    """The kernel instances the dense variants, the MoE stacks and the
+    recurrent hybrid add, each at the shape the ``archs`` phase (or a CLI
+    run) drives: every arch's prefill (B 4, 128 tokens, causal from 0) and
+    decode (a 161-slot cache mid-decode) at its head dim and G (arctic's
+    are deepseek's; mamba2 has no attention), each windowed stack's prefill
+    64 tokens past its window (danube 4,160, recurrentgemma 2,112) and its
+    full ring (4,096 and 2,048 slots; recurrentgemma at dh 256, G 16),
+    nemotron's verify block and paged kernels (dh 192, G 12), qwen3-moe's
+    (G 16), the train CLI's default smoke flash (qwen2.5-3b smoke: fp32, dh
+    32, recurrentgemma smoke's shape too; the MoE smoke configs' is llama
+    smoke's, ``train-cli-smoke-fp32``) and the serve CLI's tiny stack's
+    fp32 dh-16 decode (its big model's MISS decode and its small model's
+    TWEAK decode)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import model_configs
+    from repro_torch.models.transformer import attention_layers
     cases = []
     cap, mid = ARCH_PROMPT + ARCH_NEW + 1, ARCH_PROMPT + ARCH_NEW // 2 + 1
     for arch, _ in ARCHS:
-        if arch in ARCH_KERNEL_CASES_OF:          # another arch's cases are its shapes
-            continue
         cfg = get_config(arch)
+        n = attention_layers(cfg)
+        if arch in ARCH_KERNEL_CASES_OF or not n:  # another arch's shapes; no attention
+            continue
         h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         cases.append(flash_case(f"{arch}-prefill", ARCH_BATCH, ARCH_PROMPT, 0, h, hk, dh,
                                 cfg.flash_block_k, "naive", gen))
-        cases.append(decode_case(f"{arch}-decode", ARCH_BATCH, h, hk, dh, cap, mid,
-                                 cfg.num_layers, gen))
-    danube = get_config("h2o-danube-1.8b")
-    rows, prompt, _ = RING
-    cases.append(flash_case("h2o-danube-1.8b-long-prefill", rows, prompt, 0, danube.num_heads,
-                            danube.num_kv_heads, danube.resolved_head_dim,
-                            danube.flash_block_k, "xla_flash", gen,
-                            window=danube.sliding_window))
-    cases.append(decode_case("h2o-danube-1.8b-ring-decode", rows, danube.num_heads,
-                             danube.num_kv_heads, danube.resolved_head_dim,
-                             danube.sliding_window, danube.sliding_window,
-                             danube.num_layers, gen))
+        cases.append(decode_case(f"{arch}-decode", ARCH_BATCH, h, hk, dh, cap, mid, n, gen))
+    for arch, _ in ARCHS:
+        cfg = get_config(arch)
+        if not cfg.sliding_window:
+            continue
+        rows, past, _ = RING
+        h, hk, dh, w = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                        cfg.sliding_window)
+        cases.append(flash_case(f"{arch}-long-prefill", rows, w + past, 0, h, hk, dh,
+                                cfg.flash_block_k, "xla_flash", gen, window=w))
+        cases.append(decode_case(f"{arch}-ring-decode", rows, h, hk, dh, w, w,
+                                 attention_layers(cfg), gen))
     nem = get_config("nemotron-4-340b")
     h, hk, dh, n = nem.num_heads, nem.num_kv_heads, nem.resolved_head_dim, nem.num_layers
     cases += [
@@ -923,6 +945,13 @@ def arch_kernel_cases(prefix_len: int, gen):
     cases.append(flash_case("train-cli-default-smoke-fp32", LM_BATCH, LM_SEQ, 0,
                             smoke.num_heads, smoke.num_kv_heads, smoke.resolved_head_dim,
                             smoke.flash_block_k, "naive", gen, dtype=smoke.dtype))
+    # the train CLI's --arch recurrentgemma-9b: its smoke config's windowed
+    # fp32 flash at dh 32, G 4 (mamba2's smoke config has no attention)
+    smoke = get_config("recurrentgemma-9b", smoke=True)
+    cases.append(flash_case("train-cli-recurrentgemma-smoke-fp32", LM_BATCH, LM_SEQ, 0,
+                            smoke.num_heads, smoke.num_kv_heads, smoke.resolved_head_dim,
+                            smoke.flash_block_k, "naive", gen, dtype=smoke.dtype,
+                            window=smoke.sliding_window))
     # the serve CLI's most frequent decode calls: the big model's MISS batches
     # of 4 over a 64-token bucket, the small model's TWEAK batches of 8 over the
     # prefix and a 64-token suffix bucket, 8 new tokens
@@ -1435,7 +1464,9 @@ def generate_check(model, params, rng, b: int, s: int, mnt: int):
     """Greedy generation of ``mnt`` tokens from ``b`` random prompts of ``s``
     tokens through ``Generator``'s fused decode, held against one
     teacher-forced forward of ``[prompt | generated]`` (the prefill's
-    attention, every position's logits) under the margin rule, whose
+    attention and, in a recurrent layer, the chunked scan over the whole
+    sequence where decode carried the state step by step; every position's
+    logits) under the margin rule, whose
     tolerance is twice the largest logit difference between that forward and
     the decode steps fed the same tokens, plus 1e-3.  The decode steps are
     run again one by one from a prefill (timed: ms a step) and must give the
@@ -1454,6 +1485,7 @@ def generate_check(model, params, rng, b: int, s: int, mnt: int):
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import attention_layers
     from repro_torch.serving.generate import GenerateConfig, Generator
     from repro_torch.serving.sampler import SamplerConfig
     cfg, dev = model.cfg, params["embed"].device
@@ -1535,11 +1567,11 @@ def generate_check(model, params, rng, b: int, s: int, mnt: int):
                 "reason": "every row dropped a (token, choice) pair in the prefill or the "
                           "forward, whose groups differ: the forward is another function "
                           "there; the MoE layer check and fused = stepwise hold instead"}
-    n_layers = cfg.num_layers
+    n_layers = attention_layers(cfg)
     if counts["flash_attention"] != n_layers or counts["decode_attention"] != n_layers * (
             mnt - 1):
-        raise AssertionError(f"archs[{cfg.name}]: launches {counts}, not one flash a layer "
-                             f"and one decode a layer a step")
+        raise AssertionError(f"archs[{cfg.name}]: launches {counts}, not one flash an "
+                             f"attention layer and one decode an attention layer a step")
     if not torch.isfinite(dec).all():
         raise AssertionError(f"archs[{cfg.name}]: non-finite logits")
     top_dec = dec.topk(2, dim=-1).values
@@ -1648,7 +1680,8 @@ def moe_paths_check(model, params, greedy, seed: int):
 
 def train_cli_check(arch: str, layers: int):
     """The train CLI's smoke run of ``arch`` on the card (``--steps 20``):
-    exit 0 with the loss falling, one flash launch a layer a step."""
+    exit 0 with the loss falling, one flash launch an attention layer a
+    step (``layers`` of them)."""
     import contextlib
     import io
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -1663,26 +1696,29 @@ def train_cli_check(arch: str, layers: int):
         raise AssertionError(f"archs[{arch}]: the train CLI returned {rc}: {lines}")
     if launches != 20 * layers:
         raise AssertionError(f"archs[{arch}]: the train CLI launched flash {launches} times, "
-                             f"not once a layer a step ({layers} layers, 20 steps)")
+                             f"not once a layer a step ({layers} attention layers, 20 steps)")
     return {"rc": rc, "args": f"--steps 20 --log-every 10 --arch {arch} (its smoke config)",
             "flash_launches": launches, "first_line": lines[0], "last_line": lines[-1]}
 
 
 def archs_phase(seed: int, device=None):
-    """The dense attention variants and the MoE stacks at full width, one at
-    a time on an emptied card, each freed before the next: random weights
-    from seeds, depth cut as ``ARCHS`` says; a batch of ``ARCH_BATCH``
-    prompts of ``ARCH_PROMPT`` tokens and ``ARCH_NEW`` greedy tokens through
-    ``generate_check``; for a sliding-window stack also ``RING``: prompts
-    longer than its window, so prefill lays out the ring and decode wraps it
-    further (the ring's positions are checked to be the last ``window``
-    ones); for ``MOE_PATHS_ARCH`` the paged and speculative paths
-    (``moe_paths_check``); for a MoE stack the train CLI's smoke run."""
+    """The dense attention variants, the MoE stacks and the recurrent stacks
+    at full width, one at a time on an emptied card, each freed before the
+    next: random weights from seeds, depth cut as ``ARCHS`` says; a batch of
+    ``ARCH_BATCH`` prompts of ``ARCH_PROMPT`` tokens and ``ARCH_NEW`` greedy
+    tokens through ``generate_check``; for a sliding-window stack also
+    ``RING``: prompts longer than its window, so prefill lays out the ring
+    and decode wraps it further (the ring's positions, in the cache of the
+    first windowed attention position of the pattern, are checked to be the
+    last ``window`` ones); for ``MOE_PATHS_ARCH`` the paged and speculative
+    paths (``moe_paths_check``); for a MoE or recurrent stack the train
+    CLI's smoke run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.models.config import MOE
+    from repro_torch.models.config import MAMBA2, MOE, RGLRU
+    from repro_torch.models.transformer import KV_KINDS, RECURRENT, attention_layers
     from repro_torch.training.optimizer import tree_leaves
     dev = device or torch.device("cuda")
     t_phase = time.perf_counter()
@@ -1708,17 +1744,34 @@ def archs_phase(seed: int, device=None):
                 "dtype": cfg.dtype, "params": sum(p.numel() for p in leaves),
                 "weight_gb": sum(p.numel() * p.element_size() for p in leaves) / 1e9,
                 "init_s": time.perf_counter() - t0}
-        # a decode step reads every weight but the embedding (B of its rows),
-        # every expert included: the reference's form runs all E
-        read = sum(p.numel() * p.element_size() for p in leaves) - params["embed"].numel() * (
-            params["embed"].element_size()) + ARCH_BATCH * cfg.d_model * (
-            params["embed"].element_size())
-        del leaves
+        # a decode step reads every weight, every expert included (the
+        # reference's form runs all E), but of an untied embedding only its B
+        # rows (a tied one is the head, read whole); and it reads and writes
+        # every recurrent state once
+        emb = params["embed"]
+        read = sum(p.numel() * p.element_size() for p in leaves)
+        if not cfg.tie_embeddings:
+            read -= (emb.shape[0] - ARCH_BATCH) * emb.shape[1] * emb.element_size()
+        state = model.init_caches(ARCH_BATCH, ARCH_PROMPT + ARCH_NEW + 1, "meta")
+        state_rw = 2 * sum(t.numel() * t.element_size() for c in state["scan"] + state["rem"]
+                           for leaf, t in c.items() if leaf not in ("k", "v", "slot_pos"))
+        del leaves, state
         rng = np.random.default_rng(seed + 50 + i)
         line["short"], _, greedy = generate_check(model, params, rng, ARCH_BATCH, ARCH_PROMPT,
                                                   ARCH_NEW)
         line["decode_step_weight_read_gb"] = read / 1e9
-        line["decode_step_bound_ms"] = read / HBM_BYTES_PER_S * 1e3
+        line["decode_step_state_rw_gb"] = state_rw / 1e9
+        line["decode_step_bound_ms"] = (read + state_rw) / HBM_BYTES_PER_S * 1e3
+        kinds = set(cfg.block_pattern) | set(cfg.pattern_remainder)
+        if kinds & set(RECURRENT):
+            line.update(pattern=list(cfg.block_pattern), remainder=list(cfg.pattern_remainder),
+                        attention_layers=attention_layers(cfg))
+            if MAMBA2 in kinds:
+                line["ssm"] = {"heads": cfg.ssm_heads, "head_dim": cfg.ssm_head_dim,
+                               "state": cfg.ssm_state, "chunk": cfg.ssm_chunk,
+                               "d_inner": cfg.ssm_d_inner}
+            if RGLRU in kinds:
+                line["rnn_width"] = cfg.resolved_rnn_width
         runs = [line["short"]]
         if "moe" in params["layers"][0]:
             line.update(experts=cfg.num_experts, experts_per_token=cfg.experts_per_token,
@@ -1733,12 +1786,12 @@ def archs_phase(seed: int, device=None):
                 line["kernel_cases"] = ARCH_KERNEL_CASES_OF.get(arch)
         del greedy
         if cfg.sliding_window:
-            rows, prompt, steps = RING
-            if prompt <= cfg.sliding_window:
-                raise AssertionError(f"archs[{arch}]: the ring prompt does not pass the window")
+            rows, past, steps = RING
+            prompt = cfg.sliding_window + past
             line["ring"], caches, _ = generate_check(model, params, rng, rows, prompt,
                                                      steps + 1)
-            sp = caches["scan"][0]["slot_pos"]
+            j = next(j for j, kind in enumerate(cfg.block_pattern) if kind in KV_KINDS)
+            sp = caches["scan"][j]["slot_pos"]
             end = caches["pos"]
             cap = sp.shape[-1]
             if cap != cfg.sliding_window or not torch.equal(
@@ -1746,7 +1799,7 @@ def archs_phase(seed: int, device=None):
                     .expand_as(sp)):
                 raise AssertionError(f"archs[{arch}]: the ring does not hold the last {cap} "
                                      f"positions before {end}")
-            line["ring"].update(ring_slots=cap, last_pos=end - 1,
+            line["ring"].update(ring_slots=cap, last_pos=end - 1, ring_cache=f"scan[{j}]",
                                 wraps=(end - 1) // cap, writes_past_prompt=end - prompt)
             runs.append(line["ring"])
             del caches
@@ -1757,8 +1810,9 @@ def archs_phase(seed: int, device=None):
         line["memory_held_before_gb"] = held / 1e9
         del params, model
         torch.cuda.empty_cache()
-        if cfg.block_pattern == (MOE,):     # the train CLI's smoke run of the id
-            line["train_cli"] = train_cli_check(arch, get_config(arch, smoke=True).num_layers)
+        if cfg.block_pattern == (MOE,) or kinds & set(RECURRENT):   # the train CLI's smoke run
+            line["train_cli"] = train_cli_check(arch,
+                                                attention_layers(get_config(arch, smoke=True)))
         line["seconds"] = time.perf_counter() - t0
         out[arch] = line
     return {"phase": "archs", "seconds": time.perf_counter() - t_phase, "configs": out,
@@ -3204,7 +3258,8 @@ def main(argv=None) -> int:
         if sass and not any(k.startswith("panel_mma_kernel") and kv in k for k in sass):
             raise AssertionError(f"panel_mma_kernel: no {kv} instance was built")
     spilled = {k: v["spill_bytes"] for k, v in resources.items()
-               if k.startswith(("panel_mma_kernel", "gather_topk_kernel")) and v["spill_bytes"]}
+               if k.startswith(("panel_mma_kernel", "gather_topk_kernel",
+                                "flash_fwd_mma_kernel<256>")) and v["spill_bytes"]}
     if spilled:
         raise AssertionError(f"kernel instances that spill: {spilled}")
     simt_bf16 = [k for k in resources if k.split("<")[0] in SIMT_FP32_ONLY and "bfloat16" in k]

@@ -3,9 +3,11 @@
 The input is ``{path: array}`` keyed as ``checkpoint.read_checkpoint`` (and
 the JAX package's own ``_flatten``) key them.  Two layouts are understood:
 
-* the decoder LM of ``repro.models.transformer``: layers stacked under
-  ``scan/0/...`` (one pattern position, ATTN or MOE) with ``embed``,
-  ``final_norm`` and ``lm_head``;
+* the decoder LM of ``repro.models.transformer``: the layers at pattern
+  position j stacked over the periods under ``scan/<j>/...``, remainder
+  layer i under ``rem/<i>/...`` (unstacked), with ``embed``, ``final_norm``
+  and ``lm_head``; the port's ``layers`` list them in the reference's layer
+  order (``transformer.layer_slots``);
 * the embedder of ``repro.models.embedder``: layers stacked under
   ``scan/...``; the reranker of ``repro.models.reranker`` is that layout
   plus an fp32 ``score_head`` (d, 1).
@@ -16,8 +18,12 @@ biases ``b_q``/``b_k``/``b_v`` (h,dh) become ``b_qkv`` ((H+2Hk)*dh,); a
 swiglu MLP's ``w_gate``/``w_up`` become ``w_gate_up`` (d,2f), a gelu or
 squared-ReLU MLP keeps ``w_up``/``w_down``.  A MOE block's ``moe/w_gate`` and
 ``moe/w_up`` (E,d,f) become ``w_gate_up`` (E,d,2f) beside ``w_down`` (E,f,d),
-and Arctic's ``moe/dense`` is a swiglu MLP.  Norm parameters and the MoE
-``router`` (d,E) stay fp32; the other weights take the config's dtype.
+and Arctic's ``moe/dense`` is a swiglu MLP.  A MAMBA2 block's ``mixer/*``
+and an RGLRU block's ``rec/*`` keep the reference's names and layouts
+(``conv_w`` (C, W) included).  Norm parameters, the MoE ``router`` (d,E),
+the SSM's ``a_log``, ``d_skip`` and ``dt_bias`` and the RG-LRU's ``w_a``,
+``b_a``, ``w_i``, ``b_i`` and ``lam`` stay fp32; the other weights take the
+config's dtype.
 
 ``torch_params_to_jax`` is the inverse for the decoder LM: it carries the
 port's weights back to the reference's layout (``checkpoint.save_checkpoint``
@@ -25,13 +31,22 @@ writes them where the JAX package's ``load_checkpoint`` reads them).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import MAMBA2, RGLRU, ModelConfig
+from repro_torch.models.transformer import layer_slots
+
+# leaves of the recurrent mixers that stay fp32 whatever the model dtype
+FP32_LEAVES = {"mixer": ("a_log", "d_skip", "dt_bias"),
+               "rec": ("w_a", "b_a", "w_i", "b_i", "lam")}
+MIXER_LEAVES = {"mixer": ("w_in", "conv_w", "conv_b", "a_log", "d_skip", "dt_bias", "w_out"),
+                "rec": ("w_y", "w_x", "conv_w", "conv_b", "w_a", "b_a", "w_i", "b_i", "lam",
+                        "w_o")}
 
 
 def _f32(a: np.ndarray) -> np.ndarray:
@@ -41,15 +56,6 @@ def _f32(a: np.ndarray) -> np.ndarray:
 
 def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
     return torch.tensor(_f32(a)).to(device=device, dtype=dtype)
-
-
-def _norm(flat, key: str, i, device):
-    out = {"scale": _tensor(flat[key + "/scale"][i] if i is not None else flat[key + "/scale"],
-                            torch.float32, device)}
-    if key + "/bias" in flat:
-        b = flat[key + "/bias"]
-        out["bias"] = _tensor(b[i] if i is not None else b, torch.float32, device)
-    return out
 
 
 def _mlp(w, key: str, mlp_type: str):
@@ -62,22 +68,23 @@ def _mlp(w, key: str, mlp_type: str):
     return p
 
 
-def jax_params_to_torch(flat: Dict[str, np.ndarray], cfg: ModelConfig, device="cuda"):
-    """Port parameters for ``cfg`` from a flattened JAX parameter tree, on
-    ``device`` (the card unless the caller asks for ``"cpu"``)."""
-    device = resolve_device(device)
-    if any(k.startswith("rem/") for k in flat) or any(
-            k.startswith("scan/1/") for k in flat):
-        raise NotImplementedError("only single-kind (ATTN or MOE) stacks are converted")
-    pre = "scan/0/" if "scan/0/attn/w_q" in flat else "scan/"
+def _block(kind: str, w, has, cfg: ModelConfig, device):
+    """One block in the port's layout; ``w(name)`` reads a leaf of the
+    layer as numpy, ``has(name)`` says whether the checkpoint holds it."""
     dt = torch_dtype(cfg.dtype)
     d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    n_layers = flat[pre + "attn/w_q"].shape[0]
-    if n_layers != cfg.num_layers:
-        raise ValueError(f"checkpoint has {n_layers} layers, config {cfg.num_layers}")
-    layers = []
-    for i in range(n_layers):
-        w = lambda name, i=i: _f32(flat[pre + name][i])
+    norm = lambda key: {leaf: _tensor(w(f"{key}/{leaf}"), torch.float32, device)
+                        for leaf in ("scale", "bias") if has(f"{key}/{leaf}")}
+    layer = {"norm1": norm("norm1")}
+    mixer = {MAMBA2: "mixer", RGLRU: "rec"}.get(kind)
+    if mixer is not None:
+        layer[mixer] = {leaf: _tensor(w(f"{mixer}/{leaf}"),
+                                      torch.float32 if leaf in FP32_LEAVES[mixer] else dt,
+                                      device) for leaf in MIXER_LEAVES[mixer]}
+        if kind == MAMBA2:
+            layer[mixer]["gate_norm"] = norm("mixer/gate_norm")
+            return layer
+    else:
         w_qkv = np.concatenate([w("attn/w_q").reshape(d, h * dh),
                                 w("attn/w_k").reshape(d, hk * dh),
                                 w("attn/w_v").reshape(d, hk * dh)], axis=-1)
@@ -87,21 +94,55 @@ def jax_params_to_torch(flat: Dict[str, np.ndarray], cfg: ModelConfig, device="c
             attn["b_qkv"] = _tensor(np.concatenate(
                 [w("attn/b_q").reshape(-1), w("attn/b_k").reshape(-1),
                  w("attn/b_v").reshape(-1)]), dt, device)
-        layer = {"norm1": _norm(flat, pre + "norm1", i, device), "attn": attn,
-                 "norm2": _norm(flat, pre + "norm2", i, device)}
-        if pre + "moe/router" in flat:
-            moe = {k: _tensor(v, dt, device) for k, v in _mlp(w, "moe", "swiglu").items()}
-            moe["router"] = _tensor(w("moe/router"), torch.float32, device)
-            if pre + "moe/dense/w_gate" in flat:
-                moe["dense"] = {k: _tensor(v, dt, device)
-                                for k, v in _mlp(w, "moe/dense", "swiglu").items()}
-            layer["moe"] = moe
-        else:
-            layer["mlp"] = {k: _tensor(v, dt, device)
-                            for k, v in _mlp(w, "mlp", cfg.mlp_type).items()}
-        layers.append(layer)
+        layer["attn"] = attn
+    layer["norm2"] = norm("norm2")
+    if has("moe/router"):
+        moe = {k: _tensor(v, dt, device) for k, v in _mlp(w, "moe", "swiglu").items()}
+        moe["router"] = _tensor(w("moe/router"), torch.float32, device)
+        if has("moe/dense/w_gate"):
+            moe["dense"] = {k: _tensor(v, dt, device)
+                            for k, v in _mlp(w, "moe/dense", "swiglu").items()}
+        layer["moe"] = moe
+    else:
+        layer["mlp"] = {k: _tensor(v, dt, device)
+                        for k, v in _mlp(w, "mlp", cfg.mlp_type).items()}
+    return layer
+
+
+def _layer_readers(flat, cfg: ModelConfig):
+    """(kind, w, has) of each layer in the port's order.  The decoder LM
+    keeps pattern position j's layers stacked under ``scan/<j>/`` and
+    remainder layer i under ``rem/<i>/``; the embedder and the reranker
+    (one kind) stack every layer under ``scan/``."""
+    if "scan/0/norm1/scale" not in flat:
+        n = flat["scan/norm1/scale"].shape[0]
+        if n != cfg.num_layers:
+            raise ValueError(f"checkpoint has {n} layers, config {cfg.num_layers}")
+        return [(cfg.block_pattern[0], lambda name, i=i: _f32(flat["scan/" + name][i]),
+                 lambda name: "scan/" + name in flat) for i in range(n)]
+    periods = flat["scan/0/norm1/scale"].shape[0]
+    if periods != cfg.pattern_periods or any(f"rem/{i}/norm1/scale" not in flat
+                                             for i in range(len(cfg.pattern_remainder))):
+        raise ValueError(f"checkpoint has {periods} periods, config {cfg.pattern_periods} "
+                         f"of {len(cfg.block_pattern)} and {len(cfg.pattern_remainder)} more")
+    out = []
+    for kind, group, j, index in layer_slots(cfg):
+        pre = f"{group}/{j}/"
+        read = ((lambda name, pre=pre: _f32(flat[pre + name])) if index is None else
+                (lambda name, pre=pre, i=index: _f32(flat[pre + name][i])))
+        out.append((kind, read, lambda name, pre=pre: pre + name in flat))
+    return out
+
+
+def jax_params_to_torch(flat: Dict[str, np.ndarray], cfg: ModelConfig, device="cuda"):
+    """Port parameters for ``cfg`` from a flattened JAX parameter tree, on
+    ``device`` (the card unless the caller asks for ``"cpu"``)."""
+    device = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    layers = [_block(kind, w, has, cfg, device) for kind, w, has in _layer_readers(flat, cfg)]
     params = {"embed": _tensor(flat["embed"], dt, device),
-              "final_norm": _norm(flat, "final_norm", None, device),
+              "final_norm": {leaf: _tensor(flat[f"final_norm/{leaf}"], torch.float32, device)
+                             for leaf in ("scale", "bias") if f"final_norm/{leaf}" in flat},
               "layers": layers}
     if "lm_head" in flat:
         params["lm_head"] = _tensor(flat["lm_head"], dt, device)
@@ -133,59 +174,79 @@ def jax_cache_state_to_torch(state_np: Dict[str, np.ndarray], cfg, device="cuda"
     return out
 
 
-def _mlp_leaves(key: str, stack, d_ff: int, mlp_type: str):
-    """(path, tensor) of an MLP's stacked weights under ``key``; ``stack(name)``
-    stacks one weight of every layer."""
+def _mlp_leaves(key: str, get, d_ff: int, mlp_type: str):
+    """(path, tensor) of an MLP's weights under ``key``; ``get(name)`` reads
+    one weight of the group's layers."""
     if mlp_type == "swiglu":
-        gate_up = stack("w_gate_up")
+        gate_up = get("w_gate_up")
         out = [(key + "/w_gate", gate_up[..., :d_ff]), (key + "/w_up", gate_up[..., d_ff:])]
     else:
-        out = [(key + "/w_up", stack("w_up"))]
-    return out + [(key + "/w_down", stack("w_down"))]
+        out = [(key + "/w_up", get("w_up"))]
+    return out + [(key + "/w_down", get("w_down"))]
+
+
+def _group_leaves(pre: str, kind: str, layers, stacked: bool, cfg: ModelConfig):
+    """(path, tensor) of one group of layers of one kind under ``pre``:
+    stacked over the layers (a pattern position) or the one layer's
+    (``stacked`` False, a remainder layer)."""
+    d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    lead = (len(layers),) if stacked else ()
+
+    def leaf(*path):
+        get = lambda p: functools.reduce(dict.__getitem__, path, p).detach()
+        return torch.stack([get(p) for p in layers]) if stacked else get(layers[0])
+
+    first = layers[0]
+    out = [(f"{pre}/norm1/{n}", leaf("norm1", n)) for n in first["norm1"]]
+    if kind in (MAMBA2, RGLRU):
+        mixer = "mixer" if kind == MAMBA2 else "rec"
+        out += [(f"{pre}/{mixer}/{n}", leaf(mixer, n)) for n in MIXER_LEAVES[mixer]]
+        if kind == MAMBA2:
+            return out + [(f"{pre}/mixer/gate_norm/{n}", leaf("mixer", "gate_norm", n))
+                          for n in first["mixer"]["gate_norm"]]
+    else:
+        wq, wk, wv = leaf("attn", "w_qkv").split([h * dh, hk * dh, hk * dh], dim=-1)
+        out += [(f"{pre}/attn/w_q", wq.reshape(lead + (d, h, dh))),
+                (f"{pre}/attn/w_k", wk.reshape(lead + (d, hk, dh))),
+                (f"{pre}/attn/w_v", wv.reshape(lead + (d, hk, dh))),
+                (f"{pre}/attn/w_o", leaf("attn", "w_o").reshape(lead + (h, dh, d)))]
+        if cfg.qkv_bias:
+            bq, bk, bv = leaf("attn", "b_qkv").split([h * dh, hk * dh, hk * dh], dim=-1)
+            out += [(f"{pre}/attn/b_q", bq.reshape(lead + (h, dh))),
+                    (f"{pre}/attn/b_k", bk.reshape(lead + (hk, dh))),
+                    (f"{pre}/attn/b_v", bv.reshape(lead + (hk, dh)))]
+    out += [(f"{pre}/norm2/{n}", leaf("norm2", n)) for n in first["norm2"]]
+    if "moe" in first:
+        out += [(f"{pre}/moe/router", leaf("moe", "router"))]
+        out += _mlp_leaves(f"{pre}/moe", lambda n: leaf("moe", n), cfg.moe_d_ff, "swiglu")
+        if "dense" in first["moe"]:
+            out += _mlp_leaves(f"{pre}/moe/dense", lambda n: leaf("moe", "dense", n),
+                               cfg.d_ff, "swiglu")
+    else:
+        out += _mlp_leaves(f"{pre}/mlp", lambda n: leaf("mlp", n), cfg.d_ff, cfg.mlp_type)
+    return out
 
 
 def _jax_leaves(params, cfg: ModelConfig):
     """(path, tensor) of the decoder LM in the reference's layout."""
-    d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    layers = params["layers"]
-    stack = lambda get: torch.stack([get(p).detach() for p in layers])
-    out = [("embed", params["embed"]), ("final_norm/scale", params["final_norm"]["scale"])]
-    if "bias" in params["final_norm"]:
-        out.append(("final_norm/bias", params["final_norm"]["bias"]))
+    out = [("embed", params["embed"])]
+    out += [(f"final_norm/{n}", t) for n, t in params["final_norm"].items()]
     if "lm_head" in params:
         out.append(("lm_head", params["lm_head"]))
-    wq, wk, wv = zip(*(p["attn"]["w_qkv"].split([h * dh, hk * dh, hk * dh], dim=-1)
-                       for p in layers))
-    out += [("scan/0/attn/w_q", torch.stack(wq).reshape(-1, d, h, dh)),
-            ("scan/0/attn/w_k", torch.stack(wk).reshape(-1, d, hk, dh)),
-            ("scan/0/attn/w_v", torch.stack(wv).reshape(-1, d, hk, dh)),
-            ("scan/0/attn/w_o", stack(lambda p: p["attn"]["w_o"]).reshape(-1, h, dh, d))]
-    if cfg.qkv_bias:
-        bq, bk, bv = stack(lambda p: p["attn"]["b_qkv"]).split([h * dh, hk * dh, hk * dh],
-                                                               dim=-1)
-        out += [("scan/0/attn/b_q", bq.reshape(-1, h, dh)),
-                ("scan/0/attn/b_k", bk.reshape(-1, hk, dh)),
-                ("scan/0/attn/b_v", bv.reshape(-1, hk, dh))]
-    if "moe" in layers[0]:
-        moe = lambda name: stack(lambda p: p["moe"][name])
-        out += [("scan/0/moe/router", moe("router"))]
-        out += _mlp_leaves("scan/0/moe", moe, cfg.moe_d_ff, "swiglu")
-        if "dense" in layers[0]["moe"]:
-            out += _mlp_leaves("scan/0/moe/dense",
-                               lambda name: stack(lambda p: p["moe"]["dense"][name]),
-                               cfg.d_ff, "swiglu")
-    else:
-        out += _mlp_leaves("scan/0/mlp", lambda name: stack(lambda p: p["mlp"][name]),
-                           cfg.d_ff, cfg.mlp_type)
-    for norm in ("norm1", "norm2"):
-        for leaf in layers[0][norm]:
-            out.append((f"scan/0/{norm}/{leaf}", stack(lambda p: p[norm][leaf])))
+    slots = layer_slots(cfg)
+    for j, kind in enumerate(cfg.block_pattern):
+        layers = [p for p, s in zip(params["layers"], slots) if s[1:3] == ("scan", j)]
+        out += _group_leaves(f"scan/{j}", kind, layers, True, cfg)
+    for i, kind in enumerate(cfg.pattern_remainder):
+        layers = [p for p, s in zip(params["layers"], slots) if s[1:3] == ("rem", i)]
+        out += _group_leaves(f"rem/{i}", kind, layers, False, cfg)
     return out
 
 
 def torch_params_to_jax(params, cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """The port's decoder-LM parameters as the reference's flattened tree
-    ``{path: array}`` (layers stacked under ``scan/0/``; ``w_qkv`` split
+    ``{path: array}`` (layers stacked under ``scan/<j>/``, remainder layers
+    under ``rem/<i>/``; ``w_qkv`` split
     into ``w_q``/``w_k``/``w_v`` (d,h,dh), ``w_o`` (h,dh,d), ``b_qkv`` into
     ``b_q``/``b_k``/``b_v`` (h,dh), ``w_gate_up`` split), on the host.  A
     bf16 leaf comes back as its exact fp32 copy; ``torch_param_dtypes``

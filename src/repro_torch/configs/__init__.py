@@ -2,8 +2,9 @@
 
 ``get_config(arch, smoke)`` resolves the reference's ids whose stack the port
 builds: decoder-only ATTN stacks, global or sliding-window, with or without
-QKV bias, with a swiglu, gelu or squared-ReLU MLP, and MOE stacks (GShard
-top-k capacity dispatch, with or without Arctic's dense residual).  Their config modules are
+QKV bias, with a swiglu, gelu or squared-ReLU MLP, MOE stacks (GShard
+top-k capacity dispatch, with or without Arctic's dense residual), the
+Mamba-2 stack and the RG-LRU / local-attention hybrid.  Their config modules are
 copies of the reference's.  Every other id raises ``NotImplementedError``
 naming what the port lacks for it; an unknown id raises ``KeyError`` as in
 the reference.
@@ -20,14 +21,14 @@ _MODULES = {
     "nemotron-4-340b": "nemotron_4_340b",
     "arctic-480b": "arctic_480b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "mamba2-130m": "mamba2_130m",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 # what each reference id needs that the port does not build yet
 MISSING = {
     "whisper-tiny": "enc-dec (audio frontend, cross attention)",
-    "recurrentgemma-9b": "RG-LRU and LOCAL_ATTN blocks",
     "internvl2-26b": "vision frontend (prefix embeddings)",
-    "mamba2-130m": "SSM (Mamba-2)",
 }
 
 

@@ -16,7 +16,10 @@
 // bf16 runs the tensor-core panel body (panel_mma.cuh) with one query per
 // row, through DenseKV with shift 1 (t < cache_len): cp.async tiles of 64
 // slots, mma.sync for both products, the splits merged inside their
-// thread-block cluster; one launch, no scratch.
+// thread-block cluster; one launch, no scratch.  This entry alone also
+// takes dh 256 (recurrentgemma-9b's local attention: H 16 on one KV head,
+// G 16, over its 2,048-slot ring): a decode step of B 4 reads 8.4 MB of K/V
+// a layer, 2.5 us at 3.35 TB/s; one block a SM at that width.
 //
 // fp32 (tensor cores would mean TF32) runs the CUDA-core kernels below:
 //  * One block per (b, kv head, T split).  The g = H/Hk query heads of a
@@ -31,6 +34,8 @@
 //    dh/32 consecutive elements, the dot product is a warp shuffle
 //    reduction, and each warp keeps its own online softmax.  The warps'
 //    states are merged through shared memory at the end.
+//  * dh 32 (recurrentgemma-9b's smoke config, fp32 only): one element a
+//    lane, the general body.
 //  * dh 16 (the serve CLI's default tiny stack, fp32 only): a key's row is
 //    16 elements, one a lane, so a warp takes two keys at once, a
 //    half-warp each, with its own shuffle reduction (offsets below 16 stay
@@ -228,6 +233,7 @@ bool dispatch_dh(int dh, int g, const void* q, const void* k, const void* v,
                  cudaStream_t stream) {
   switch (dh) {
     case 16: return dispatch_g<T, 16>(g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch, tlen, hk, chunk, nsplit, scale, stream);
+    case 32: return dispatch_g<T, 32>(g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch, tlen, hk, chunk, nsplit, scale, stream);
     case 64: return dispatch_g<T, 64>(g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch, tlen, hk, chunk, nsplit, scale, stream);
     case 128: return dispatch_g<T, 128>(g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch, tlen, hk, chunk, nsplit, scale, stream);
     default: return false;
@@ -241,8 +247,9 @@ bool dispatch_dh(int dh, int g, const void* q, const void* k, const void* v,
 // out (B,H,dh).  `chunk` and `nsplit` come from ops.launch_plan.  fp32:
 // part_m/part_l (B*Hk*nsplit*g,) and part_acc (B*Hk*nsplit*g*dh,) fp32
 // scratch, read only when nsplit > 1.  bf16: `chunk` a multiple of 64 slots,
-// nsplit at most 8, q/k/v 16-byte aligned; no part_* is read.  Returns
-// cudaGetLastError() after the launches.
+// nsplit at most 8, q/k/v 16-byte aligned; no part_* is read; dh 256 (the
+// hybrid's local attention) is taken here and by no other panel entry.
+// Returns cudaGetLastError() after the launches.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* cache_len, void* out, void* part_m,
                                        void* part_l, void* part_acc, int batch, int tlen,
@@ -260,8 +267,21 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
     panel::DenseKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(k),
                                      static_cast<const __nv_bfloat16*>(v),
                                      static_cast<const int*>(cache_len), 1};
-    rc = panel_mma::launch(dh, q, kv, geo, panel_mma::Args{g, 1}, batch, out, s);
+    rc = panel_mma::launch<true>(dh, q, kv, geo, panel_mma::Args{g, 1}, batch, out, s);
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The most clusters of `splits` blocks (1-8) of the bf16 body at dh 256 with
+// `nt` n-tiles (1 or 2) and `smem` dynamic shared memory bytes that the
+// card holds at once, into *clusters: what ops.launch_plan's
+// WAVE_CLUSTERS_ONE_A_SM states.  Returns the CUDA error of the query.
+extern "C" int panel_mma_wave_clusters_dh256(int nt, int splits, int smem, int* clusters) {
+  using namespace repro_torch;
+  using KV = panel::DenseKV<__nv_bfloat16>;
+  if (splits < 1 || splits > panel_mma::kMaxSplits || (nt != 1 && nt != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return nt == 1 ? panel_mma::wave_clusters<256, 1, KV>(splits, smem, clusters)
+                 : panel_mma::wave_clusters<256, 2, KV>(splits, smem, clusters);
 }

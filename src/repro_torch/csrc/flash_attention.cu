@@ -46,13 +46,22 @@
 //    multiplied by exp(kNeg - m_real) = 0, so skipping is bit-exact for every
 //    row that has an allowed key.  A row with none (the uniform average over
 //    Sk_pad keys, as the reference gives) is recomputed from V at the end.
-//  * Head dims 64, 80, 128 and 192 (llama, qwen and deepseek at 128, danube
-//    at 80, nemotron at 192) and any G = H/Hk: the tile is cut by pairs, so
-//    G 7 and 12 only change which (query, head) a row holds.  Q and the
-//    output take DH/16 k-steps (5 at dh 80), one ldmatrix each; the dh-80
-//    rows sit in 128-column shared-memory rows (mma.cuh's row_bytes) so the
-//    swizzle stays inside them.  At dh 192 the tiles take 123 KB: one block
-//    a SM.
+//  * Head dims 64, 80, 128, 192 and 256 (llama, qwen and deepseek at 128,
+//    danube at 80, nemotron at 192, recurrentgemma's local attention at
+//    256) and any G = H/Hk: the tile is cut by pairs, so G 7 and 12 only
+//    change which (query, head) a row holds.  Q and the output take DH/16
+//    k-steps (5 at dh 80), one ldmatrix each; the dh-80 rows sit in
+//    128-column shared-memory rows (mma.cuh's row_bytes) so the swizzle
+//    stays inside them.  At dh 192 the tiles take 123 KB: one block a SM.
+//  * dh 256 (tiles of 164 KB, one block a SM): one warp's O accumulator
+//    over the whole width would be 128 fp32 registers a thread beside the
+//    scores, and the body would spill.  So each 16-row slab has two warps
+//    (8 warps a block), each holding half of the output's columns; both
+//    compute the slab's whole S = Q K^T and the same online softmax (the
+//    same arithmetic on the same inputs, so the same m and l), and each
+//    runs P V for its half.  The duplicated Q K^T is a third more tensor
+//    work than one warp would do: the price of no spills, paid in an
+//    instance bound by bytes at the main shapes.
 //
 // fp32 inputs keep the CUDA-core body (flash_fwd_simt_kernel): tensor cores
 // would mean TF32, which breaks the fp32 contract (1e-5).  fp32 appears in
@@ -179,11 +188,14 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 
 // ------------------------------------------------------------ bf16 (mma.sync)
 
-constexpr int kBM = 64;              // (query, head) rows per block: 4 warps x 16
+constexpr int kBM = 64;              // (query, head) rows per block: 4 slabs of 16
 constexpr int kBN = 64;              // keys per tile
-constexpr int kMmaWarps = kBM / 16;
-constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kSlabs = kBM / 16;
 constexpr int kKeyPadPos = 1 << 30;  // position of the keys past Sk
+
+// warps that share a 16-row slab, each holding DH / kColSplit output columns
+__host__ __device__ constexpr int col_split(int dh) { return dh > 192 ? 2 : 1; }
+__host__ __device__ constexpr int mma_threads(int dh) { return kSlabs * col_split(dh) * 32; }
 
 // Shared memory of one block: Q tile, then two (K, V) tile buffers, then the
 // key positions of both buffers, then one flag per key tile (dynamic).
@@ -200,10 +212,10 @@ struct MmaSmem {
   static size_t bytes(int ntiles) { return kFlags + ((ntiles + 15) / 16) * 16; }
 };
 
-// Two blocks a SM up to dh 128; at dh 192 a block's tiles (123 KB) leave
-// room for one, which may then take every register it needs.
+// Two blocks a SM up to dh 128; at dh 192 and 256 a block's tiles (123 and
+// 164 KB) leave room for one, which may then take every register it needs.
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads, DH > 128 ? 1 : 2)
+__global__ void __launch_bounds__(mma_threads(DH), DH > 128 ? 1 : 2)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_pos,
                      const int* __restrict__ k_pos, __nv_bfloat16* __restrict__ out, int sq,
@@ -211,6 +223,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                      float scale) {
   using L = MmaSmem<DH>;
   constexpr int kChunks = DH / 8;      // 16-byte chunks per row
+  constexpr int kMmaThreads = mma_threads(DH);
+  constexpr int kCols = DH / col_split(DH);   // output columns of one warp
   extern __shared__ __align__(128) unsigned char smem[];
   int* sKp = reinterpret_cast<int*>(smem + L::kKpos);
   unsigned char* sFlag = smem + L::kFlags;
@@ -224,6 +238,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int slab = warp % kSlabs;      // the warp's 16 rows
+  const int col0 = warp / kSlabs * kCols;   // and its first output column
   const int ntiles = (sk_pad + kBN - 1) / kBN;
 
   // --- the Q tile, in flight while the tile flags are worked out (it joins
@@ -296,8 +312,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   if (t < ntiles) load_tile(t, 0);
   cp_async_commit();
 
-  // this lane's two rows of the warp's 16 (mma accumulator layout)
-  const int r_lo = warp * 16 + lane / 4;
+  // this lane's two rows of the slab's 16 (mma accumulator layout)
+  const int r_lo = slab * 16 + lane / 4;
   const int r_hi = r_lo + 8;
   const int qp_lo = p0 + r_lo < pairs ? q_pos[(size_t)b * sq + (p0 + r_lo) / g] : -1;
   const int qp_hi = p0 + r_hi < pairs ? q_pos[(size_t)b * sq + (p0 + r_hi) / g] : -1;
@@ -305,12 +321,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   // the Q tile's A fragments stay in registers for the whole loop up to dh
   // 128; at dh 192 they would spill (48 registers beside the 96 of acc), so
-  // each k-step rereads its own from the Q tile
+  // each k-step rereads its own from the Q tile, as at dh 256
   constexpr bool kQRegs = DH <= 128;
   uint32_t qf[kQRegs ? DH / 16 : 1][4];
-  float acc[DH / 8][4];
+  float acc[kCols / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < kCols / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m_lo = kNeg, m_hi = kNeg, l_lo = 0.f, l_hi = 0.f;
   int visited = 0;
 
@@ -330,7 +346,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       if (it == 0) {
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk)
-          ldsm_x4(smem_u32(sQ + swz<DH>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4))),
+          ldsm_x4(smem_u32(sQ + swz<DH>(slab * 16 + (lane & 15), 2 * kk + (lane >> 4))),
                   qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
       }
     }
@@ -348,7 +364,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         qa[2] = qf[kk][2];
         qa[3] = qf[kk][3];
       } else {
-        ldsm_x4(smem_u32(sQ + swz<DH>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4))),
+        ldsm_x4(smem_u32(sQ + swz<DH>(slab * 16 + (lane & 15), 2 * kk + (lane >> 4))),
                 qa[0], qa[1], qa[2], qa[3]);
       }
 #pragma unroll
@@ -400,14 +416,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     l_lo = l_lo * c_lo + ps_lo;
     l_hi = l_hi * c_hi + ps_hi;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
+    for (int n = 0; n < kCols / 8; ++n) {
       acc[n][0] *= c_lo;
       acc[n][1] *= c_lo;
       acc[n][2] *= c_hi;
       acc[n][3] *= c_hi;
     }
 
-    // O += P V: P from the accumulators (bf16), V through ldmatrix.trans
+    // O += P V over this warp's columns: P from the accumulators (bf16), V
+    // through ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
       const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
@@ -416,9 +433,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
       const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
 #pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
+      for (int dp = 0; dp < kCols / 16; ++dp) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(smem_u32(sV + swz<DH>(key, 2 * dp + (lane >> 4))), b0, b1, b2, b3);
+        ldsm_x4_t(smem_u32(sV + swz<DH>(key, col0 / 8 + 2 * dp + (lane >> 4))), b0, b1, b2,
+                  b3);
         mma_bf16(acc[2 * dp], pa, b0, b1);
         mma_bf16(acc[2 * dp + 1], pa, b2, b3);
       }
@@ -442,11 +460,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       const float mrow = half ? m_hi : m_lo;
       if (mrow != kNeg) continue;
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n) {
+      for (int n = 0; n < kCols / 8; ++n) {
         float a0 = 0.f, a1 = 0.f;
         for (int j = 0; j < sk; ++j) {
           const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
-              vbase + (size_t)j * hk * DH + n * 8 + 2 * tq);
+              vbase + (size_t)j * hk * DH + col0 + n * 8 + 2 * tq);
           a0 += __low2float(x);
           a1 += __high2float(x);
         }
@@ -463,10 +481,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   unsigned char* sO = smem + L::kQ;
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(sO + swz<DH>(r_lo, n) + 4 * tq) =
+  for (int n = 0; n < kCols / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(sO + swz<DH>(r_lo, col0 / 8 + n) + 4 * tq) =
         pack_bf16(acc[n][0] * inv_lo, acc[n][1] * inv_lo);
-    *reinterpret_cast<uint32_t*>(sO + swz<DH>(r_hi, n) + 4 * tq) =
+    *reinterpret_cast<uint32_t*>(sO + swz<DH>(r_hi, col0 / 8 + n) + 4 * tq) =
         pack_bf16(acc[n][2] * inv_hi, acc[n][3] * inv_hi);
   }
   __syncthreads();
@@ -503,7 +521,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* q_pos,
   cudaError_t err = raise_smem_limit(flash_fwd_mma_kernel<DH>, smem, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((sq * (h / hk) + kBM - 1) / kBM, hk, batch);
-  flash_fwd_mma_kernel<DH><<<grid, kMmaThreads, smem, stream>>>(
+  flash_fwd_mma_kernel<DH><<<grid, mma_threads(DH), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_pos),
       static_cast<const int*>(k_pos), static_cast<__nv_bfloat16*>(out), sq, sk, sk_pad, h, hk,
@@ -531,7 +549,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
          : dh == 64 ? launch_simt<64> : dh == 128 ? launch_simt<128> : nullptr;
   } else if (dtype == kBFloat16) {
     mma = dh == 64 ? launch_mma<64> : dh == 80 ? launch_mma<80> : dh == 128 ? launch_mma<128>
-        : dh == 192 ? launch_mma<192> : nullptr;
+        : dh == 192 ? launch_mma<192> : dh == 256 ? launch_mma<256> : nullptr;
   }
   if (!simt && !mma) return static_cast<int>(cudaErrorInvalidValue);
   int rc = 0;

@@ -56,14 +56,18 @@
 //    warp sit in the 8 lanes of one lane-in-quad, so the max takes 3
 //    shuffles); the 4 warps merge through shared memory at the end, four
 //    outputs (a float4) a thread.
-//  * Shapes: dh 64, 80, 128 and 192, and any G whose panel fits kMaxCols
+//  * Shapes: dh 64, 80, 128 and 192 (and 256, for dense single-token decode
+//    only: recurrentgemma's local attention, G 16), and any G whose panel fits kMaxCols
 //    rows (G 7, 12 and 16 at deepseek's, nemotron's and qwen3-moe's widths:
 //    one query of G 12 fills 12 of 16 columns and one of G 16 all 16, so a
 //    K-4 verify block runs 4 panels, each two n-tiles of 8).  A
 //    panel row's query and head are c / G and c % G.  S takes DH/16
 //    k-steps, whose Q fragments load two at a time; an odd count (5 at dh
 //    80) loads its last alone.  dh-80 rows sit in 128-column shared rows
-//    (mma.cuh's row_bytes); at dh 192 a block takes ~105 KB, still two a SM.
+//    (mma.cuh's row_bytes); at dh 192 a block takes ~105 KB, still two a SM;
+//    at dh 256 ~141 KB, one a SM (ops.launch_plan's WAVE_CLUSTERS_ONE_A_SM),
+//    and with two n-tiles (G 16) the O^T accumulators take 128 registers a
+//    thread, beside Q fragments reread from shared memory each k-step.
 //  * Splits: with one split the block writes the output.  Otherwise the
 //    splits of a (row, KV head, panel) run as one thread-block cluster
 //    (at most 8): each block leaves its state (m, l, acc) in shared memory,
@@ -124,7 +128,7 @@ __device__ __forceinline__ void fma4(float4& a, float w, const float4& x) {
 // Smem<DH>::bytes dynamic.  q/out (B,K,H,dh) bf16; q and the cache 16-byte
 // aligned (cp.async).
 template <int DH, int NT, class KV>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, DH > 192 ? 1 : 2)
 panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo, Args args,
                  __nv_bfloat16* __restrict__ out) {
   using L = Smem<DH>;
@@ -209,8 +213,9 @@ panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo
       sRow[buf * kTile + tid] = row;
     }
     __syncthreads();
-    // unrolled whole up to dh 128; at dh 192 (24 copies a thread) a whole
-    // unroll computes every source address up front and the body spills
+    // unrolled whole up to dh 128; at dh 192 and 256 (24 and 32 copies a
+    // thread) a whole unroll computes every source address up front and the
+    // body spills
 #pragma unroll (DH > 128 ? 4 : 2 * kTile * kChunks / kThreads)
     for (int j = 0; j < 2 * kTile * kChunks / kThreads; ++j) {
       const int c = j * kThreads + tid;
@@ -230,8 +235,9 @@ panel_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv, panel::Geometry geo
   };
 
   // B fragments of S = K Q^T, from the Q panel: held in registers for the
-  // whole loop, except at dh 192 with two n-tiles, where the 48 registers
-  // they take would spill; there each tile rereads them (ldmatrix) instead
+  // whole loop, except at dh 192 and 256 with two n-tiles, where the 48 or
+  // 64 registers they take would spill; there each tile rereads them
+  // (ldmatrix) instead
   constexpr bool kQRegs = KS * NT <= 16;
   uint32_t qf[kQRegs ? NT : 1][kQRegs ? KS : 1][2];
   float acc[KS][NT][4];
@@ -513,9 +519,11 @@ int launch_dh(const void* q, const KV& kv, const panel::Geometry& geo, const Arg
                    : launch_nt<DH, 2, KV>(q, kv, geo, args, batch, out, stream);
 }
 
-// bf16 q/out (B,K,H,dh); dh 64, 80, 128 or 192; any G with a panel of at
-// most kMaxCols rows (ops._check_qkv admits G 1, 2, 4, 7, 8, 12 and 16).
-template <class KV>
+// bf16 q/out (B,K,H,dh); dh 64, 80, 128 or 192, and 256 where the caller
+// instantiates it (kDh256: dense single-token decode only); any G with a
+// panel of at most kMaxCols rows (ops._check_qkv admits G 1, 2, 4, 7, 8, 12
+// and 16).
+template <bool kDh256 = false, class KV>
 int launch(int dh, const void* q, const KV& kv, const panel::Geometry& geo, const Args& args,
            int batch, void* out, cudaStream_t stream) {
   switch (dh) {
@@ -523,6 +531,9 @@ int launch(int dh, const void* q, const KV& kv, const panel::Geometry& geo, cons
     case 80: return launch_dh<80, KV>(q, kv, geo, args, batch, out, stream);
     case 128: return launch_dh<128, KV>(q, kv, geo, args, batch, out, stream);
     case 192: return launch_dh<192, KV>(q, kv, geo, args, batch, out, stream);
+    case 256:
+      if constexpr (kDh256) return launch_dh<256, KV>(q, kv, geo, args, batch, out, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

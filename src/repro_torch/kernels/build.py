@@ -45,6 +45,7 @@ SIGNATURES = {
     "decode_attention_block_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "panel_mma_wave_clusters": (_I, _I, _I, _P),
+    "panel_mma_wave_clusters_dh256": (_I, _I, _I, _P),
     "paged_decode_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "paged_decode_attention_block_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -38,13 +38,19 @@ PANEL_ROWS = 16       # (query, head) rows per fp32 panel (kMaxRows)
 # (cudaOccupancyMaxActiveClusters; chip_smoke.py checks them on the card).
 # More clusters than that run a second wave, which doubles a call's time.
 WAVE_CLUSTERS = (264, 132, 79, 62, 47, 39, 32, 30)
+# The same at dh 256, whose ~141 KB of shared memory leave one block a SM
+# (chip_smoke.py checks them too).
+WAVE_CLUSTERS_ONE_A_SM = (132, 66, 39, 30, 22, 17, 15, 15)
 # The shapes each body has instances for: bf16 the tensor-core panel body
 # (panel_mma.cuh; a panel of at most MAX_COLS rows takes any G, these are the
-# configs' G: G 16, qwen3-moe's, fills a panel with one query); fp32 the
-# CUDA-core bodies, the single-token one (decode_attention.cu) also at dh 16.
+# configs' G: G 16, qwen3-moe's and recurrentgemma's, fills a panel with one
+# query), dh 256 (recurrentgemma's) in the dense single-token kernel only;
+# fp32 the CUDA-core bodies, the single-token one (decode_attention.cu) also
+# at dh 16 and 32.
 BF16_SHAPES = ((64, 80, 128, 192), (1, 2, 4, 7, 8, 12, 16))
+BF16_DECODE_SHAPES = ((64, 80, 128, 192, 256), BF16_SHAPES[1])
 FP32_SHAPES = ((64, 128), (1, 2, 4, 8))
-FP32_DECODE_SHAPES = ((16, 64, 128), (1, 2, 4, 8))
+FP32_DECODE_SHAPES = ((16, 32, 64, 128), (1, 2, 4, 8))
 
 
 def split_plan(batch: int, hk: int, tlen: int):
@@ -101,15 +107,17 @@ def launch_plan(b: int, kq: int, cap: int, hk: int, g: int, dh: int, dtype) -> L
     bf16: ~TARGET_BLOCKS blocks, each split a whole number of ``TILE``-slot
     tiles counted from slot 0, panels of ``min(K, MAX_COLS // G)`` queries,
     and no more clusters (one per (row, KV head, panel)) than
-    ``WAVE_CLUSTERS`` holds at once for their split count.  The cut does not
+    ``WAVE_CLUSTERS`` (``WAVE_CLUSTERS_ONE_A_SM`` at dh 256) holds at once
+    for their split count.  The cut does not
     depend on the page size: tiles are counted in slots."""
     if dtype == torch.bfloat16:
         ntiles = -(-cap // TILE)
         kqp = min(kq, MAX_COLS // g)
         panels = -(-kq // kqp)
         clusters = b * hk * panels
+        waves = WAVE_CLUSTERS if dh <= 192 else WAVE_CLUSTERS_ONE_A_SM
         splits = min(ntiles, -(-TARGET_BLOCKS // clusters), MAX_SPLITS)
-        while splits > 1 and clusters > WAVE_CLUSTERS[splits - 1]:
+        while splits > 1 and clusters > waves[splits - 1]:
             splits -= 1
         per_split = -(-ntiles // splits)
         splits = -(-ntiles // per_split)
@@ -153,9 +161,10 @@ def check_aligned(name, q, *cache):
 
 def shapes_taken(dtype, single: bool):
     """(head dims, groups H/Hk) the kernels take for ``dtype``; ``single``:
-    the dense single-token kernel, whose fp32 body also takes dh 16."""
+    the dense single-token kernel, whose fp32 body also takes dh 16 and 32
+    and whose bf16 body also takes dh 256."""
     if dtype == torch.bfloat16:
-        return BF16_SHAPES
+        return BF16_DECODE_SHAPES if single else BF16_SHAPES
     return FP32_DECODE_SHAPES if single else FP32_SHAPES
 
 

@@ -34,8 +34,9 @@ KEY_TILE = 64        # keys per tile of the tensor-core body (kBN)
 SIMT_QUERIES = 16    # query rows per fp32 block (kBQ)
 SIMT_KEY_TILE = 32   # keys per fp32 tile (kBK)
 # head dims of the kernel's instances: the CUDA-core body in fp32, the
-# tensor-core body in bf16 (any G = H/Hk)
-HEAD_DIMS = {torch.float32: (16, 24, 32, 64, 128), torch.bfloat16: (64, 80, 128, 192)}
+# tensor-core body in bf16 (any G = H/Hk; at dh 256 two warps share each
+# 16-row slab, 256 threads a block)
+HEAD_DIMS = {torch.float32: (16, 24, 32, 64, 128), torch.bfloat16: (64, 80, 128, 192, 256)}
 
 
 @dataclass(frozen=True)

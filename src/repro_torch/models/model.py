@@ -1,6 +1,13 @@
 """``Model`` facade over the ported decoder-only stack (counterpart of
-``src/repro/models/model.py``, decoder-only ATTN and MOE stacks): ``forward``
-and ``loss`` for training, ``prefill`` and the decode steps for serving.
+``src/repro/models/model.py``, decoder-only stacks of attention, MoE and
+recurrent blocks): ``forward`` and ``loss`` for training, ``prefill`` and
+the decode steps for serving.
+
+The capability flags read the block kinds of ``pattern`` and its remainder,
+as the reference's do: a recurrent state (Mamba-2, RG-LRU) cannot be built
+from a stored prefix, paged or rewound, and a windowed ring cannot be paged
+or rewound, so those stacks report False for all three and their callers
+use the full prefill and the dense decode step.
 
 Prefix-prefill contract (DESIGN.md §9): ``prefill_prefix`` returns the KV
 state of a shared prompt prefix and ``prefill_with_prefix`` prefills only
@@ -20,6 +27,12 @@ import dataclasses
 
 from . import transformer as tf_lib
 from .config import ATTN, MOE, ModelConfig
+
+
+def _kv_stack(cfg: ModelConfig) -> bool:
+    """Every layer a global-attention KV layer (ATTN or MOE, no window)."""
+    kinds = set(cfg.block_pattern) | set(cfg.pattern_remainder)
+    return cfg.sliding_window == 0 and kinds <= {ATTN, MOE}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +61,7 @@ class Model:
     @property
     def supports_prefix_prefill(self) -> bool:
         cfg = self.cfg
-        return (cfg.enc_layers == 0 and cfg.sliding_window == 0
-                and set(cfg.block_pattern) <= {ATTN, MOE} and cfg.num_prefix_tokens == 0
+        return (cfg.enc_layers == 0 and _kv_stack(cfg) and cfg.num_prefix_tokens == 0
                 and cfg.attention_impl == "xla_flash")
 
     def _require_prefix(self):
@@ -79,7 +91,7 @@ class Model:
     def supports_paged_decode(self) -> bool:
         """Decode over a paged KV pool: every cached layer a plain global KV
         cache, ATTN or MOE (a windowed ring buffer cannot be paged)."""
-        return self.cfg.sliding_window == 0 and set(self.cfg.block_pattern) <= {ATTN, MOE}
+        return _kv_stack(self.cfg)
 
     @property
     def supports_spec_decode(self) -> bool:

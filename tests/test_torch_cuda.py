@@ -35,6 +35,7 @@ from repro_torch.kernels.paged_attention.ref import (paged_decode_attention_bloc
 from repro_torch.launch.serve import model_configs
 from repro_torch.models import build_model
 from repro_torch.models.embedder import init_embedder
+from repro_torch.models.transformer import attention_layers
 from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.tokenizer import HashWordTokenizer
@@ -596,6 +597,9 @@ def test_paged_kernels_match_plain(dtype, tol, kq, page, b, h, hk, dh, cap):
     (torch.float32, 1e-5, 2, 5, 40, 8, 2, 24, 0),         # nemotron-4-340b smoke, dh 24
     (torch.bfloat16, 2e-2, 2, 0, 128, 64, 4, 128, 0),     # qwen3-moe-235b-a22b, G 16
     (torch.bfloat16, 2e-2, 1, 45, 64, 64, 4, 128, 0),
+    (torch.bfloat16, 2e-2, 2, 0, 128, 16, 1, 256, 0),     # recurrentgemma-9b, G 16, dh 256
+    (torch.bfloat16, 2e-2, 1, 0, 300, 16, 1, 256, 64),    # ... inside a window
+    (torch.bfloat16, 2e-2, 2, 45, 70, 16, 1, 256, 0),     # ... over a prefix
 ])
 def test_flash_new_head_dims_and_groups_match_plain(impl, dtype, tol, b, p, s, h, hk, dh,
                                                     window):
@@ -627,6 +631,10 @@ def test_flash_new_head_dims_and_groups_match_plain(impl, dtype, tol, b, p, s, h
     (torch.float32, 1e-5, 8, 8, 4, 300, 16),        # serve-tiny's big model, dh 16
     (torch.float32, 1e-5, 3, 4, 2, 45, 16),         # its small model, one split
     (torch.float32, 1e-5, 2, 8, 1, 700, 16),        # G 8, splits merged
+    (torch.bfloat16, 2e-2, 4, 16, 1, 2048, 256),    # recurrentgemma-9b's ring, G 16
+    (torch.bfloat16, 2e-2, 3, 16, 1, 300, 256),     # ... fewer splits
+    (torch.bfloat16, 2e-2, 32, 16, 1, 2048, 256),   # 32 rows: the one-a-SM wave cut
+    (torch.float32, 1e-5, 3, 4, 1, 45, 32),         # recurrentgemma-9b smoke, fp32 dh 32
 ])
 def test_decode_new_shapes_match_plain(dtype, tol, b, h, hk, t, dh):
     """Ragged lengths, a full row and a row at cache_len 0 (the uniform
@@ -698,11 +706,13 @@ def test_danube_smoke_stack_on_the_card_matches_the_cpu():
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-coder-33b", "h2o-danube-1.8b",
-                                  "nemotron-4-340b", "arctic-480b", "qwen3-moe-235b-a22b"])
+                                  "nemotron-4-340b", "arctic-480b", "qwen3-moe-235b-a22b",
+                                  "mamba2-130m", "recurrentgemma-9b"])
 def test_train_cli_each_arch_on_the_card(arch, capsys):
-    """The train CLI's smoke run of each dense variant and MoE stack on the
-    card (fp32 flash at dh 32, 16, 16, 24, 16 and 16): the loss falls, one
-    flash launch a layer a step."""
+    """The train CLI's smoke run of each dense variant, MoE stack and
+    recurrent stack on the card (fp32 flash at dh 32, 16, 16, 24, 16, 16,
+    none and 32): the loss falls, one flash launch an attention layer a
+    step."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     _cuda()
@@ -710,7 +720,50 @@ def test_train_cli_each_arch_on_the_card(arch, capsys):
     rc = train.main(["--steps", "20", "--arch", arch])
     out = capsys.readouterr().out
     assert rc == 0 and "(improved)" in out, out
-    assert flash_ops.launches - before == 20 * get_config(arch, smoke=True).num_layers
+    assert flash_ops.launches - before == 20 * attention_layers(get_config(arch, smoke=True))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])
+def test_recurrent_smoke_stack_on_the_card_matches_the_cpu(arch):
+    """The recurrent smoke stacks (fp32) on the card against the CPU: a
+    24-token prompt (past recurrentgemma's 16-slot ring) and 12 decode
+    steps, the SSM / RG-LRU states and the local attention's KV updated in
+    place; recurrentgemma's one attention layer through the flash kernel
+    and the dense decode kernel (fp32, dh 32, G 4)."""
+    from repro_torch.configs import get_config
+    dev = _cuda()
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(5, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(1))
+    steps = torch.randint(5, cfg.vocab_size, (12, 2), generator=torch.Generator().manual_seed(2))
+    runs = []
+    for device in (torch.device("cpu"), dev):
+        p = _to(params, device)
+        reset_launch_counts()
+        out, caches = model.prefill(p, {"tokens": toks.to(device)}, 24 + 12)
+        seq = [out]
+        for tok in steps:
+            out, caches = model.decode_step(p, tok.to(device), caches)
+            seq.append(out)
+        runs.append((torch.stack(seq).cpu(), [t.cpu() for c in caches["scan"] + caches["rem"]
+                                              for t in c.values()]))
+        if device.type == "cuda":
+            counts, n = launch_counts(), attention_layers(cfg)
+            assert counts["flash_attention"] == n and counts["decode_attention"] == 12 * n
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-4, atol=1e-4)
+    for got, want in zip(runs[1][1], runs[0][1]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_dh256_is_refused_by_the_verify_and_paged_kernels():
+    """Only the dense single-token kernel has a dh-256 instance: recurrent
+    and windowed stacks neither speculate nor page."""
+    dev = _cuda()
+    q, k, v = _dense_case(dev, 3, 2, 2, 16, 1, 128, 256, torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        dec_ops.decode_attention_block(q, k, v, torch.full((2,), 64, device=dev,
+                                                           dtype=torch.int32))
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b"])

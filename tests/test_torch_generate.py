@@ -148,10 +148,12 @@ def test_zero_budget_and_off_slice_options():
     fins = sorted(sess.drain(), key=lambda f: f["slot"])
     assert np.array_equal(np.stack([f["tokens"] for f in fins]), plain[0])
     assert sess.spec_stats["accepted"] > 0
-    # what stays off the slice: other block kinds; a windowed stack builds
-    # but neither pages nor speculates, as in the reference
-    with pytest.raises(NotImplementedError):
-        build_model(PortModelConfig(block_pattern=("mamba2",)))
+    # what stays off the slice: encoder-decoder stacks and frontends; a
+    # windowed stack builds but neither pages nor speculates, as in the
+    # reference
+    for unported in (PortModelConfig(enc_layers=2), PortModelConfig(frontend="vision_stub")):
+        with pytest.raises(NotImplementedError):
+            build_model(unported)
     windowed = build_model(PortModelConfig(sliding_window=16))
     assert not windowed.supports_paged_decode and not windowed.supports_spec_decode
     assert not windowed.supports_prefix_prefill

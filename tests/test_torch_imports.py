@@ -202,3 +202,18 @@ def test_slice_8_modules_stand_alone(rel):
     assert path in _port_files()
     assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     importlib.import_module("repro_torch." + rel[:-3].replace("/", "."))
+
+
+SLICE_9 = ("models/ssm.py", "models/rglru.py", "models/transformer.py",
+           "checkpoint/convert.py", "configs/mamba2_130m.py", "configs/recurrentgemma_9b.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_9)
+def test_slice_9_modules_stand_alone(rel):
+    """The recurrent blocks, the mixed-pattern stack, the converter of its
+    layout and the two configs import without JAX or the JAX package (the
+    configs are copies of the reference's)."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in _port_files()
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    importlib.import_module("repro_torch." + rel[:-3].replace("/", "."))

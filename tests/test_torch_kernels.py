@@ -671,7 +671,7 @@ def test_new_shapes_fit_shared_memory():
     assert dec_ops.launch_plan(4, 4, 160, 8, 12, 192, torch.bfloat16).kq_panel == 1
     assert dec_ops.launch_plan(4, 4, 160, 8, 7, 128, torch.bfloat16).kq_panel == 2
     assert flash_ops.HEAD_DIMS == {torch.float32: (16, 24, 32, 64, 128),
-                                   torch.bfloat16: (64, 80, 128, 192)}
+                                   torch.bfloat16: (64, 80, 128, 192, 256)}
 
 
 @pytest.mark.parametrize("b,kq,splits", [(4, 1, 3), (4, 4, 3), (8, 4, 2)])
@@ -687,3 +687,29 @@ def test_g16_plan_fills_one_panel_a_query(b, kq, splits):
     assert plan.grid[0] == b * 4 and plan.splits == splits
     assert plan.grid[0] * plan.grid[2] <= dec_ops.WAVE_CLUSTERS[plan.splits - 1]
     assert 2 * plan.smem_bytes + 2 * 1024 <= 228 * 1024
+
+
+def test_dh256_instances_plans_and_shapes():
+    """recurrentgemma-9b's local attention (H 16 on one KV head, dh 256,
+    bf16): the flash tiles take 164 KB and the decode panel ~141 KB, one
+    block a SM each; 4 rows over the 2,048-slot ring cut into 8 splits of
+    4 tiles (4 clusters of 8), and at 32 rows the one-a-SM wave table cuts
+    the splits to 3 (32 clusters of 4 would pass the 30 it holds).  dh 256
+    is taken by the dense single-token kernel only, and fp32 dh 32 (its
+    smoke config's) by the single-token kernel too."""
+    for impl, sk in (("naive", 128), ("xla_flash", 2112), ("xla_flash", 131_072)):
+        plan = flash_ops.launch_plan(4, 128, sk, 16, 1, 256, torch.bfloat16, impl, 128)
+        assert plan.route == "mma" and plan.grid == (32, 1, 4)
+        assert build.SMEM_PER_BLOCK // 2 < plan.smem_bytes <= build.SMEM_PER_BLOCK
+    assert build.smem_row_bytes(256) == 512
+    ring = dec_ops.launch_plan(4, 1, 2048, 1, 16, 256, torch.bfloat16)
+    assert ring.grid == (4, 8, 1) and ring.chunk == 256 and ring.kq_panel == 1
+    assert ring.smem_bytes == 4 * 64 * 512 + 2 * 64 * 12 + 16 * 512 + 16
+    assert 2 * ring.smem_bytes > 228 * 1024
+    wide = dec_ops.launch_plan(32, 1, 2048, 1, 16, 256, torch.bfloat16)
+    assert wide.splits == 3 and 32 <= dec_ops.WAVE_CLUSTERS_ONE_A_SM[2]
+    assert dec_ops.launch_plan(32, 1, 2048, 1, 16, 192, torch.bfloat16).splits == 7
+    assert 256 in dec_ops.shapes_taken(torch.bfloat16, single=True)[0]
+    assert 256 not in dec_ops.shapes_taken(torch.bfloat16, single=False)[0]
+    assert 32 in dec_ops.shapes_taken(torch.float32, single=True)[0]
+    assert 32 not in dec_ops.shapes_taken(torch.float32, single=False)[0]
