@@ -24,7 +24,11 @@ Prints one JSON object per line:
           profiler, ``device_ms``), the plain version's, one PyTorch library
           call's (a yardstick, never used by the port) and the least time the
           card could take (bytes / 3.35 TB/s or operations / peak rate,
-          whichever is larger); the flash suffix case also holds the suffix
+          whichever is larger); a case that keeps every key (non-causal
+          flash, a full cross cache) is held to 4 bf16 ulps of its largest
+          output and must lie nearer its own form than the one where the zero
+          keys padding it to a whole tile take weight, or do not
+          (``form_check``); the flash suffix case also holds the suffix
           over the stored prefix bit for bit against the inline prefill, and
           the ``train-backward`` cases (bf16, fp32) time forward + backward
           through the flash autograd wrapper (kernel forward, plain
@@ -65,14 +69,19 @@ Prints one JSON object per line:
           qwen3-moe-235b-a22b (128 experts top-8, G 16, 4 of 94 layers),
           mamba2-130m (24 Mamba-2 SSD layers) and recurrentgemma-9b (12
           periods of RG-LRU, RG-LRU, local attention at dh 256 and G 16,
-          then two RG-LRU layers: 38), random weights: 4 prompts of
+          then two RG-LRU layers: 38), whisper-tiny (4 encoder and 4
+          decoder layers over 1,500 random frames, cross attention decoded
+          through the dense decode kernel) and internvl2-26b (48 of 48
+          layers, G 6, behind 256 random prefix embeddings), random
+          weights: 4 prompts of
           128 tokens, 32 greedy tokens through ``Generator``'s fused decode
           against one teacher-forced forward under the margin rule (for a
           MoE stack over the rows where neither the prefill nor the forward
           dropped a pair), the fused tokens equal to the same steps run one
           by one (ms a step, against the step's weight-read bound), one
           flash launch a layer a prefill and one decode launch a layer a
-          step (an attention layer's; none for mamba2); for danube and
+          step (an attention layer's; none for mamba2; whisper's encoder
+          layers one flash, its decoder layers two of each); for danube and
           recurrentgemma also 2 prompts of 64 tokens past the window (4,160
           and 2,112) whose prefill lays out the ring and 64 decode steps
           wrap on through it, held to the forward the same way;
@@ -81,8 +90,10 @@ Prints one JSON object per line:
           the reference's one-hot einsum dispatch (the same kept pairs, 2e-2),
           the dropped pairs, and for qwen3-moe a paged ``DecodeSession``,
           the speculative Generator and a speculative session, held to the
-          Generator's tokens; for a MoE or recurrent stack the train CLI's
-          smoke run of the id;
+          Generator's tokens; for internvl2 the paged, the speculative and
+          the paged speculative Generator with its prefix and a paged
+          ``DecodeSession`` over the prompts alone, held the same way; for a
+          MoE, recurrent or frontend stack the train CLI's smoke run of the id;
   serve   the full-width stack (``build_stack(model="llama-3.1-8b")``, its
           embedder trained): a restored bank of random unit vectors, a few
           hundred populated pairs, then batches of 8 through
@@ -144,8 +155,11 @@ Prints one JSON object per line:
   kernels the ported kernels with their launches on the path that runs
           them (serve for the dense kernels, paged, spec, ivf; flash also
           its launches in lm_train and judge);
-  wall    the script's wall time, and how many ``device_ms`` profiler
-          sessions were whole and how many lost records and were repeated;
+  wall    the script's wall time, the seconds before each phase's line
+          (``phase_s``: ``kernel_cases`` the cases' checks, ``kernel`` their
+          profiled device times, ``wall`` the summary), and how many
+          ``device_ms`` profiler sessions were whole and how many lost
+          records and were repeated;
 
 then the raw nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero without the last
@@ -176,7 +190,8 @@ CACHE_SHARDS = 4               # shards of the sharded-bank phase, all on cuda:0
 # GB).
 ARCHS = (("qwen2.5-3b", None), ("h2o-danube-1.8b", None), ("deepseek-coder-33b", 8),
          ("nemotron-4-340b", 2), ("arctic-480b", 2), ("qwen3-moe-235b-a22b", 4),
-         ("mamba2-130m", None), ("recurrentgemma-9b", None))
+         ("mamba2-130m", None), ("recurrentgemma-9b", None), ("whisper-tiny", None),
+         ("internvl2-26b", None))
 # The MoE stacks: arctic-480b keeps 2 of 35 layers (~55.4 GB: 27.2 GB a layer,
 # 26.8 GB of it experts; 35 layers need ~954 GB); qwen3-moe-235b-a22b 4 of 94
 # (~22.4 GB: 4.98 GB a layer; 94 layers need ~470 GB).  qwen3-moe also runs
@@ -184,7 +199,16 @@ ARCHS = (("qwen2.5-3b", None), ("h2o-danube-1.8b", None), ("deepseek-coder-33b",
 # attention shapes are deepseek-coder-33b's, whose kernel cases stand for it.
 MOE_PATHS_ARCH = "qwen3-moe-235b-a22b"
 ARCH_KERNEL_CASES_OF = {"arctic-480b": "deepseek-coder-33b-prefill, deepseek-coder-33b-decode "
-                                       "(the same shapes: B 4, H 56 / Hk 8, dh 128)"}
+                                       "(the same shapes: B 4, H 56 / Hk 8, dh 128)",
+                        "whisper-tiny": "whisper-encoder, whisper-cross-prefill, "
+                                        "whisper-decoder-prefill, whisper-self, whisper-cross, "
+                                        "train-cli-whisper-fp32",
+                        "internvl2-26b": "internvl2-prefill, internvl2, internvl2-K4 (verify "
+                                         "and paged), train-cli-internvl2-fp32"}
+# The frontend stacks, whisper-tiny (4 + 4 layers, 1,500 frames; 73 MB) and
+# internvl2-26b (48 of 48 layers, 256 prefix positions; 39.8 GB), both at full
+# depth, take the train CLI's random frontend inputs (``launch.train.
+# frontend_inputs``).
 ARCH_BATCH, ARCH_PROMPT, ARCH_NEW = 4, 128, 32
 # a windowed stack's ring run: rows, tokens of the prompt past the window
 # (danube 4,096 + 64, recurrentgemma 2,048 + 64), decode steps
@@ -193,7 +217,20 @@ TRAIN_CLI_ARCH = "qwen2.5-3b"  # the train CLI's default --arch, as the referenc
 SERVE_CLI_QUERIES = 200        # the serve CLI's default --queries
 
 
+PHASE_S = {}                   # seconds spent before each phase's line (the wall line)
+_LAST_MARK = [time.perf_counter()]
+
+
+def mark(name: str) -> None:
+    """Add the seconds since the last mark to ``PHASE_S[name]``."""
+    now = time.perf_counter()
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + now - _LAST_MARK[0]
+    _LAST_MARK[0] = now
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        mark(obj["phase"])
     print(json.dumps(obj), flush=True)
 
 
@@ -299,6 +336,32 @@ def check(name: str, err: float, tol: float) -> None:
         raise AssertionError(f"{name}: max abs error {err} exceeds tolerance {tol}")
 
 
+def every_key_tol(want) -> float:
+    """The bf16 limit of a case that keeps every key (non-causal flash, a
+    decode whose cache is full): its output is a mean over all of them, small
+    at 1,500 keys (max |out| ~0.2), so the limit follows its size: 4 bf16
+    ulps of max |want|, and at most the usual 2e-2."""
+    import math
+    top = want.abs().max().item()
+    return min(2e-2, 4 * 2.0 ** (math.floor(math.log2(top)) - 7)) if top > 0 else 2e-2
+
+
+def form_check(name: str, got, want, other) -> dict:
+    """The kernel's output must lie nearer the function it computes than the
+    other form of the same case (the zero keys that pad the keys to a whole
+    tile taking weight, or not): L2 distance to ``want`` below half the
+    distance between the two forms.  A padding fault shifts every element by
+    ~1.4% of its size at 1,500 keys, below a max-abs limit but not below
+    this one."""
+    import torch
+    err = torch.linalg.vector_norm(got.float() - want).item()
+    gap = torch.linalg.vector_norm(want - other).item()
+    if not err < 0.5 * gap:
+        raise AssertionError(f"{name}: L2 distance {err} to its form is not below half the "
+                             f"{gap} between the padded and unpadded forms")
+    return {"form_l2_err": err, "form_l2_gap": gap}
+
+
 def wave_clusters(build) -> dict:
     """{"nt1", "nt2": clusters of 1..8 blocks of the bf16 attention-panel
     body (dh 128, the main shapes' shared memory) that the card holds at
@@ -364,46 +427,63 @@ def mma_plan(name: str, label: str, plan) -> dict:
 # ------------------------------------------------------------------ kernels
 
 def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen, dtype="bfloat16",
-               window=0):
+               window=0, causal=True, sk=None):
     """The prefill kernel at one main-path shape: queries at [prefix,
     prefix+sq) over keys [0, prefix+sq), bf16 (or fp32, the CUDA-core
     body, as the train CLI's smoke config runs it), within ``window``
-    positions when it is > 0 (a sliding-window stack's prefill)."""
+    positions when it is > 0 (a sliding-window stack's prefill).  With
+    ``causal`` False, every key is kept: ``sk`` keys (``sq`` by default,
+    whisper's encoder, positions from 0), or, when ``sk`` differs from
+    ``sq``, a cross attention's, every position 0."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     dev = torch.device("cuda")
-    sk = prefix + sq
+    sk = sk or prefix + sq
     dt = getattr(torch, dtype)
     q = torch.randn(b, sq, h, dh, device=dev, generator=gen, dtype=dt)
     k = torch.randn(b, sk, hk, dh, device=dev, generator=gen, dtype=dt)
     v = torch.randn(b, sk, hk, dh, device=dev, generator=gen, dtype=dt)
-    q_pos = torch.arange(prefix, sk, device=dev, dtype=torch.int32).expand(b, sq).contiguous()
-    k_pos = torch.arange(sk, device=dev, dtype=torch.int32).expand(b, sk).contiguous()
-    run = lambda: ops.flash_attention(q, k, v, q_pos, k_pos, causal=True, window=window,
+    q_pos = torch.arange(prefix, prefix + sq, device=dev, dtype=torch.int32)
+    k_pos = torch.arange(sk, device=dev, dtype=torch.int32)
+    if sk != prefix + sq:      # cross attention: no positions
+        q_pos, k_pos = torch.zeros_like(q_pos), torch.zeros_like(k_pos)
+    q_pos, k_pos = q_pos.expand(b, sq).contiguous(), k_pos.expand(b, sk).contiguous()
+    run = lambda: ops.flash_attention(q, k, v, q_pos, k_pos, causal=causal, window=window,
                                       block_q=block, block_k=block, impl=impl)
     out = run()
     if impl == "naive":
-        plain = lambda: ref.attend_naive(q, k, v, q_pos, k_pos, True, window)
-        want = ref.attend_naive(q.float(), k.float(), v.float(), q_pos, k_pos, True, window)
+        plain = lambda: ref.attend_naive(q, k, v, q_pos, k_pos, causal, window)
+        want = ref.attend_naive(q.float(), k.float(), v.float(), q_pos, k_pos, causal, window)
     else:
-        plain = lambda: ref.attend_blockwise(q, k, v, q_pos, k_pos, True, window, block,
+        plain = lambda: ref.attend_blockwise(q, k, v, q_pos, k_pos, causal, window, block,
                                              block)
-        want = ref.attend_blockwise(q.float(), k.float(), v.float(), q_pos, k_pos, True,
+        want = ref.attend_blockwise(q.float(), k.float(), v.float(), q_pos, k_pos, causal,
                                     window, block, block)
     err = (out.float() - want).abs().max().item()
     # bf16 output (ulp 2^-8 near 1) against an fp32 evaluation; fp32 against
     # fp32 differs only in the order of the sums
-    tol = 1e-5 if dt == torch.float32 else 2e-2
+    tol = 1e-5 if dt == torch.float32 else 2e-2 if causal else every_key_tol(want)
     check(f"flash_attention[{label}]", err, tol)
+    form = {}
+    if not causal and sk % block:   # the padded zero keys take weight under xla_flash only
+        f = (q.float(), k.float(), v.float(), q_pos, k_pos, causal, window)
+        other = (ref.attend_blockwise(*f, block, block) if impl == "naive"
+                 else ref.attend_naive(*f))
+        form = form_check(f"flash_attention[{label}]", out, want, other)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    mask = (k_pos[0][None, :] <= q_pos[0][:, None])
+    mask = (k_pos[0][None, :] <= q_pos[0][:, None]) | (not causal)
     if window:
         mask &= k_pos[0][None, :] > q_pos[0][:, None] - window
-    if prefix or window:   # the mask is not SDPA's own causal one
+    if not causal:   # every key kept: SDPA without a mask
+        kind = "sdpa, no mask"
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+    elif prefix or window:   # the mask is not SDPA's own causal one
+        kind = "sdpa, explicit mask"
         library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                          enable_gqa=True)
     else:           # positions from 0 on both sides: SDPA's causal path is the same function
+        kind = "sdpa, is_causal"
         library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                          enable_gqa=True)
     pairs = b * h * int(mask.sum().item())          # allowed (query, key) pairs
@@ -411,11 +491,12 @@ def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen, dtype="bfloat1
     bms, by = bound(moved, 4.0 * pairs * dh, "fp32" if dt == torch.float32 else "bf16")
     row = {"phase": "kernel", "name": "flash_attention", "case": label,
            "shape": {"B": b, "Sq": sq, "Sk": sk, "H": h, "Hk": hk, "dh": dh,
-                     "block": block, "impl": impl, "dtype": dtype, "window": window},
-           "library": "sdpa, explicit mask" if prefix or window else "sdpa, is_causal",
+                     "block": block, "impl": impl, "dtype": dtype, "window": window,
+                     "causal": causal},
+           "library": kind,
            "max_abs_err": err, "tolerance": tol, "ms": time_ms(run),
            "plain_ms": time_ms(plain, reps=5), "library_ms": time_ms(library),
-           "bound_ms": bms, "bound_by": by}
+           "bound_ms": bms, "bound_by": by, **form}
     if prefix:
         row["suffix_bitwise_equal"] = suffix_bitwise_check(q, k, v, prefix, block, impl)
     return row, (run, library, 10)
@@ -532,8 +613,15 @@ def decode_case(label, b, h, hk, dh, t, cache_len, layers, gen, dtype="bfloat16"
     out = ops.decode_attention(q, ks[0], vs[0], lens)
     want = ref.decode_attention_ref(q.float(), ks[0].float(), vs[0].float(), lens)
     err = (out.float() - want).abs().max().item()
-    tol = 1e-5 if dt == torch.float32 else 2e-2
+    full = cache_len == t       # every slot kept: only the bound T masks the last tile
+    tol = 1e-5 if dt == torch.float32 else every_key_tol(want) if full else 2e-2
     check(f"decode_attention[{label}]", err, tol)
+    form = {}
+    if full and t % ops.TILE:    # the other form: zero slots padding T to a whole tile kept
+        pad = ops.TILE - t % ops.TILE
+        kp, vp = (F.pad(x[0].float(), (0, 0, 0, 0, 0, pad)) for x in (ks, vs))
+        other = ref.decode_attention_ref(q.float(), kp, vp, lens + pad)
+        form = form_check(f"decode_attention[{label}]", out, want, other)
     step = [0]
 
     def run():
@@ -565,7 +653,7 @@ def decode_case(label, b, h, hk, dh, t, cache_len, layers, gen, dtype="bfloat16"
                       **plan, "dtype": dtype},
             "max_abs_err": err, "tolerance": tol, "ms": time_ms(run, reps=layers),
             "plain_ms": time_ms(plain), "library_ms": time_ms(library, reps=layers),
-            "bound_ms": bms, "bound_by": by}, (run, library, layers)
+            "bound_ms": bms, "bound_by": by, **form}, (run, library, layers)
 
 
 def cosine_case(label, b, n, d, k, block_n, gen):
@@ -902,7 +990,7 @@ def arch_kernel_cases(prefix_len: int, gen):
     for arch, _ in ARCHS:
         cfg = get_config(arch)
         n = attention_layers(cfg)
-        if arch in ARCH_KERNEL_CASES_OF or not n:  # another arch's shapes; no attention
+        if arch in ARCH_KERNEL_CASES_OF or not n:  # cases named below; no attention
             continue
         h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         cases.append(flash_case(f"{arch}-prefill", ARCH_BATCH, ARCH_PROMPT, 0, h, hk, dh,
@@ -941,6 +1029,7 @@ def arch_kernel_cases(prefix_len: int, gen):
         paged_case(f"{MOE_PATHS_ARCH}-paged-verify-k4", 8, SPEC_K, h, hk, dh, PAGE, cap, mid,
                    0, n, gen, block=True),
     ]
+    cases += frontend_kernel_cases(gen)
     smoke = get_config(TRAIN_CLI_ARCH, smoke=True)
     cases.append(flash_case("train-cli-default-smoke-fp32", LM_BATCH, LM_SEQ, 0,
                             smoke.num_heads, smoke.num_kv_heads, smoke.resolved_head_dim,
@@ -964,6 +1053,56 @@ def arch_kernel_cases(prefix_len: int, gen):
                              prefix_len + 64 + 8 + 1, prefix_len + 64 + 4, small.num_layers,
                              gen, dtype=small.dtype))
     return cases
+
+
+def frontend_kernel_cases(gen):
+    """The instances whisper-tiny and internvl2-26b add, at the shapes the
+    ``archs`` phase and their train CLI runs drive.  whisper (B 4, H 6 / 6,
+    dh 64, G 1): the encoder over its 1,500 frames and the cross prefill of
+    128 queries over them (non-causal, bf16), the decoder's causal prefill,
+    the self decode (161 slots) and the cross decode over every one of the
+    1,500 frames, a layer's caches apart for each of the 4 layers; its train
+    CLI's smoke cross attention (fp32 dh 32, 128 queries over 16 frames).
+    internvl2 (H 48 / 8, G 6, dh 128) behind its 256 prefix positions: the
+    prefill of 384 positions, the dense decode, the K-4 verify block and the
+    paged decode and verify over 417 slots (the Generator's capacity with
+    the prefix), its train CLI's smoke flash (fp32 dh 16, G 4, 136
+    positions)."""
+    from repro_torch.configs import get_config
+    cap, mid = ARCH_PROMPT + ARCH_NEW + 1, ARCH_PROMPT + ARCH_NEW // 2 + 1
+    wh, ws = get_config("whisper-tiny"), get_config("whisper-tiny", smoke=True)
+    h, hk, dh, f, n = (wh.num_heads, wh.num_kv_heads, wh.resolved_head_dim, wh.enc_frames,
+                       wh.num_layers)
+    block = wh.flash_block_k
+    cases = [
+        flash_case("whisper-encoder", ARCH_BATCH, f, 0, h, hk, dh, block, "naive", gen,
+                   causal=False),
+        flash_case("whisper-cross-prefill", ARCH_BATCH, ARCH_PROMPT, 0, h, hk, dh, block,
+                   "naive", gen, causal=False, sk=f),
+        flash_case("whisper-decoder-prefill", ARCH_BATCH, ARCH_PROMPT, 0, h, hk, dh, block,
+                   "naive", gen),
+        decode_case("whisper-self", ARCH_BATCH, h, hk, dh, cap, mid, n, gen),
+        decode_case("whisper-cross", ARCH_BATCH, h, hk, dh, f, f, n, gen),
+        flash_case("train-cli-whisper-fp32", LM_BATCH, LM_SEQ, 0, ws.num_heads,
+                   ws.num_kv_heads, ws.resolved_head_dim, ws.flash_block_k, "naive", gen,
+                   dtype=ws.dtype, causal=False, sk=ws.enc_frames),
+    ]
+    iv, ism = get_config("internvl2-26b"), get_config("internvl2-26b", smoke=True)
+    h, hk, dh, n, p = (iv.num_heads, iv.num_kv_heads, iv.resolved_head_dim, iv.num_layers,
+                       iv.num_prefix_tokens)
+    return cases + [
+        flash_case("internvl2-prefill", ARCH_BATCH, p + ARCH_PROMPT, 0, h, hk, dh,
+                   iv.flash_block_k, "naive", gen),
+        decode_case("internvl2", ARCH_BATCH, h, hk, dh, p + cap, p + mid, n, gen),
+        block_case("internvl2-K4", ARCH_BATCH, SPEC_K, h, hk, dh, p + cap, p + mid, n, gen),
+        paged_case("internvl2", ARCH_BATCH, 1, h, hk, dh, PAGE, p + cap, p + mid + 1, 0, n,
+                   gen, block=False),
+        paged_case("internvl2-K4", ARCH_BATCH, SPEC_K, h, hk, dh, PAGE, p + cap, p + mid, 0,
+                   n, gen, block=True),
+        flash_case("train-cli-internvl2-fp32", LM_BATCH, ism.num_prefix_tokens + LM_SEQ, 0,
+                   ism.num_heads, ism.num_kv_heads, ism.resolved_head_dim,
+                   ism.flash_block_k, "naive", gen, dtype=ism.dtype),
+    ]
 
 
 # ------------------------------------------------------------------ train
@@ -1460,9 +1599,22 @@ def moe_layer_check(p, x, cfg, label: str):
             "aux_abs_err": aux_err, "same_experts": True, "same_kept_set": True}
 
 
-def generate_check(model, params, rng, b: int, s: int, mnt: int):
+def attention_calls(cfg):
+    """(flash launches a prefill, decode launches a step) of a stack: one
+    each an attention layer; an encoder-decoder's encoder layers launch
+    flash once, its decoder layers flash and decode twice (self, cross)."""
+    from repro_torch.models import encdec
+    from repro_torch.models.transformer import attention_layers
+    if cfg.enc_layers:
+        return encdec.attention_calls(cfg)
+    n = attention_layers(cfg)
+    return n, n
+
+
+def generate_check(model, params, rng, b: int, s: int, mnt: int, extra=None):
     """Greedy generation of ``mnt`` tokens from ``b`` random prompts of ``s``
-    tokens through ``Generator``'s fused decode, held against one
+    tokens (after the prefix embeddings, or over the frames, in ``extra``)
+    through ``Generator``'s fused decode, held against one
     teacher-forced forward of ``[prompt | generated]`` (the prefill's
     attention and, in a recurrent layer, the chunked scan over the whole
     sequence where decode carried the state step by step; every position's
@@ -1485,27 +1637,28 @@ def generate_check(model, params, rng, b: int, s: int, mnt: int):
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models.transformer import attention_layers
     from repro_torch.serving.generate import GenerateConfig, Generator
     from repro_torch.serving.sampler import SamplerConfig
     cfg, dev = model.cfg, params["embed"].device
     vocab = cfg.vocab_size
-    is_moe = "moe" in params["layers"][0]
+    extra = extra or {}
+    off = extra["prefix_embeds"].shape[1] if "prefix_embeds" in extra else 0
+    is_moe = "moe" in params.get("layers", [{}])[0]
     toks = torch.as_tensor(rng.integers(5, vocab, (b, s)), device=dev).long()
     gen = Generator(model, params, GenerateConfig(max_new_tokens=mnt,
                                                   sampler=SamplerConfig(vocab_size=vocab)))
     with torch.no_grad():
-        gen.generate_with_lengths({"tokens": toks[:, :16]}, max_new_tokens=2)   # warm-up
+        gen.generate_with_lengths({"tokens": toks[:, :16], **extra}, max_new_tokens=2)  # warm-up
         _sync(dev)
         reset_launch_counts()
         t0 = time.perf_counter()
-        tokens, lengths, _ = gen.generate_with_lengths({"tokens": toks})
+        tokens, lengths, _ = gen.generate_with_lengths({"tokens": toks, **extra})
         generate_ms = (time.perf_counter() - t0) * 1e3
         counts = launch_counts()
         fed = torch.as_tensor(tokens, device=dev).long()
         _sync(dev)
         t0 = time.perf_counter()
-        logits, caches = model.prefill(params, {"tokens": toks}, s + mnt + 1)
+        logits, caches = model.prefill(params, {"tokens": toks, **extra}, off + s + mnt + 1)
         _sync(dev)
         prefill_ms = (time.perf_counter() - t0) * 1e3
         dec = [logits[:, :vocab].float()]
@@ -1517,8 +1670,9 @@ def generate_check(model, params, rng, b: int, s: int, mnt: int):
         step_ms = (time.perf_counter() - t0) * 1e3 / (mnt - 1)
         dec = torch.stack(dec, 1)                                        # (B, mnt, V)
         with MoeProbe() as fwd_probe:
-            full, _ = model.forward(params, {"tokens": torch.cat([toks, fed[:, :-1]], 1)})
-        teach = full[:, s - 1:, :vocab].float()
+            full, _ = model.forward(params, {"tokens": torch.cat([toks, fed[:, :-1]], 1),
+                                             **extra})
+        teach = full[:, off + s - 1:, :vocab].float()
         del full
         if is_moe:
             with MoeProbe(capture=True) as pre_probe:
@@ -1567,11 +1721,10 @@ def generate_check(model, params, rng, b: int, s: int, mnt: int):
                 "reason": "every row dropped a (token, choice) pair in the prefill or the "
                           "forward, whose groups differ: the forward is another function "
                           "there; the MoE layer check and fused = stepwise hold instead"}
-    n_layers = attention_layers(cfg)
-    if counts["flash_attention"] != n_layers or counts["decode_attention"] != n_layers * (
-            mnt - 1):
-        raise AssertionError(f"archs[{cfg.name}]: launches {counts}, not one flash an "
-                             f"attention layer and one decode an attention layer a step")
+    pre, step = attention_calls(cfg)
+    if counts["flash_attention"] != pre or counts["decode_attention"] != step * (mnt - 1):
+        raise AssertionError(f"archs[{cfg.name}]: launches {counts}, not {pre} flash a "
+                             f"prefill and {step} decode a step")
     if not torch.isfinite(dec).all():
         raise AssertionError(f"archs[{cfg.name}]: non-finite logits")
     top_dec = dec.topk(2, dim=-1).values
@@ -1678,10 +1831,97 @@ def moe_paths_check(model, params, greedy, seed: int):
     return out
 
 
+def frontend_paths_check(model, params, greedy, extra, seed: int):
+    """A frontend stack (internvl2-26b, G 6) through the paged and the
+    speculative paths on ``generate_check``'s prompts and prefix
+    embeddings, whose dense greedy tokens are the reference: the paged
+    Generator (paged decode), the speculative Generator with those tokens
+    as drafts (dense verify blocks) and the paged speculative Generator
+    (paged verify blocks), each capacity counting the 256 prefix positions;
+    then a paged ``DecodeSession(slots=8)`` over the token prompts alone (a
+    session takes no frontend input, as the reference's has none), held to
+    plain greedy decode of the same prompts.  Tokens are held under the
+    margin rule at ``path_noise``'s tolerance (taken with the prefix); no
+    page may leak, and each path's kernel must launch."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.continuous import DecodeSession, leaked_pages
+    from repro_torch.serving.generate import GenerateConfig, Generator
+    from repro_torch.serving.sampler import SamplerConfig
+    toks, ref, margins = greedy
+    b, mnt = ref.shape
+    name = model.cfg.name
+    sampler = SamplerConfig(vocab_size=model.cfg.vocab_size)
+    gcfg = GenerateConfig(max_new_tokens=mnt, sampler=sampler)
+    drafts = (ref, np.full(b, mnt, np.int32))
+    runs = {"paged_generate": (dict(paged=True, page_size=PAGE), None),
+            "spec_generate": (dict(spec_k=SPEC_K), drafts),
+            "paged_spec_generate": (dict(paged=True, page_size=PAGE, spec_k=SPEC_K), drafts)}
+    want = {"paged_generate": "paged_decode_attention",
+            "spec_generate": "decode_attention_block",
+            "paged_spec_generate": "paged_decode_attention_block",
+            "session": "paged_decode_attention"}
+    out = {}
+    with torch.no_grad():
+        noise = path_noise(model, params, sampler, toks, extra=extra)
+        for run_name, (changes, d) in runs.items():
+            gen = Generator(model, params, dataclasses.replace(gcfg, **changes))
+            reset_launch_counts()
+            t = time.perf_counter()
+            got = gen.generate_with_lengths({"tokens": toks, **extra}, drafts=d)[0]
+            _sync(toks.device)
+            run = {"ms": (time.perf_counter() - t) * 1e3,
+                   "launches": {k: v for k, v in launch_counts().items() if v}}
+            if d is not None:
+                run.update(gen.last_spec_stats, host_syncs=gen.last_spec_syncs)
+            if gen.pool is not None:
+                run["capacity_pages"] = gen.pool.pages_per_seq(toks.shape[1] + mnt + 1
+                                                               + model.cfg.num_prefix_tokens)
+                if gen.pool.live_pages:
+                    raise AssertionError(f"archs[{name}].{run_name}: {gen.pool.live_pages} "
+                                         f"pages leaked")
+            run["margin_rule"] = margin_rule(f"archs[{name}].{run_name}",
+                                             [(ref, margins, got)], noise["tol"])
+            out[run_name] = run
+        cap = toks.shape[1] + mnt + 1
+        logits, caches = model.prefill(params, {"tokens": toks}, cap)
+        plain, plain_margins = traced_greedy(model, params, sampler, logits, caches, mnt)
+        del caches
+        paged = Generator(model, params, dataclasses.replace(gcfg, paged=True, page_size=PAGE))
+        reset_launch_counts()
+        t = time.perf_counter()
+        sess = DecodeSession(paged, slots=8, capacity=cap, seed=seed)
+        sess.admit(toks.cpu().numpy(), tags=list(range(b)))
+        done = sorted(sess.drain(), key=lambda f: f["tag"])
+        got = np.stack([f["tokens"] for f in done])
+        leaked = leaked_pages(sess) + sess.pool.live_pages
+        if leaked:
+            raise AssertionError(f"archs[{name}].session: {leaked} pages leaked")
+        del sess
+        _sync(toks.device)
+        out["session"] = {"ms": (time.perf_counter() - t) * 1e3,
+                          "launches": {k: v for k, v in launch_counts().items() if v},
+                          "prompts": "tokens alone (no prefix embeddings)",
+                          "margin_rule": margin_rule(f"archs[{name}].session",
+                                                     [(plain, plain_margins, got)],
+                                                     noise["tol"])}
+    if toks.device.type == "cuda":
+        for run_name, kernel in want.items():
+            if not out[run_name]["launches"].get(kernel):
+                raise AssertionError(f"archs[{name}].{run_name}: {kernel} never launched: "
+                                     f"{out[run_name]['launches']}")
+    out["path_noise"] = noise
+    out["leaked_pages"] = 0
+    return out
+
+
 def train_cli_check(arch: str, layers: int):
     """The train CLI's smoke run of ``arch`` on the card (``--steps 20``):
-    exit 0 with the loss falling, one flash launch an attention layer a
-    step (``layers`` of them)."""
+    exit 0 with the loss falling, ``layers`` flash launches a step (one an
+    attention layer; an encoder-decoder's ``attention_calls``).  A
+    multimodal id prints the reference's note line first."""
     import contextlib
     import io
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -1692,13 +1932,16 @@ def train_cli_check(arch: str, layers: int):
         rc = train_cli.main(["--steps", "20", "--log-every", "10", "--arch", arch])
     launches = flash_ops.launches - n0
     lines = out.getvalue().strip().splitlines()
+    notes = [line for line in lines if line.startswith("note: ")]
+    lines = lines[len(notes):]
     if rc != 0 or not lines[0].startswith(f"arch={arch} "):
         raise AssertionError(f"archs[{arch}]: the train CLI returned {rc}: {lines}")
     if launches != 20 * layers:
         raise AssertionError(f"archs[{arch}]: the train CLI launched flash {launches} times, "
-                             f"not once a layer a step ({layers} attention layers, 20 steps)")
+                             f"not {layers} a step for 20 steps")
     return {"rc": rc, "args": f"--steps 20 --log-every 10 --arch {arch} (its smoke config)",
-            "flash_launches": launches, "first_line": lines[0], "last_line": lines[-1]}
+            "flash_launches": launches, "notes": notes, "first_line": lines[0],
+            "last_line": lines[-1]}
 
 
 def archs_phase(seed: int, device=None):
@@ -1711,11 +1954,15 @@ def archs_phase(seed: int, device=None):
     and decode wraps it further (the ring's positions, in the cache of the
     first windowed attention position of the pattern, are checked to be the
     last ``window`` ones); for ``MOE_PATHS_ARCH`` the paged and speculative
-    paths (``moe_paths_check``); for a MoE or recurrent stack the train
-    CLI's smoke run."""
+    paths (``moe_paths_check``); for a frontend stack its stub input drawn
+    from the seed (whisper's frames, internvl2's prefix embeddings) in every
+    run, and for internvl2 the paged and speculative paths
+    (``frontend_paths_check``); for a MoE, recurrent or frontend stack the
+    train CLI's smoke run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.launch.train import frontend_inputs
     from repro_torch.models import build_model
     from repro_torch.models.config import MAMBA2, MOE, RGLRU
     from repro_torch.models.transformer import KV_KINDS, RECURRENT, attention_layers
@@ -1746,22 +1993,35 @@ def archs_phase(seed: int, device=None):
                 "init_s": time.perf_counter() - t0}
         # a decode step reads every weight, every expert included (the
         # reference's form runs all E), but of an untied embedding only its B
-        # rows (a tied one is the head, read whole); and it reads and writes
-        # every recurrent state once
+        # rows (a tied one is the head, read whole) and not the frontend's
+        # projection (a prefill's); it reads and writes every recurrent state
+        # once, and an encoder-decoder reads its cross K/V once a step
         emb = params["embed"]
         read = sum(p.numel() * p.element_size() for p in leaves)
         if not cfg.tie_embeddings:
             read -= (emb.shape[0] - ARCH_BATCH) * emb.shape[1] * emb.element_size()
+        if "frontend_proj" in params:
+            read -= params["frontend_proj"].numel() * params["frontend_proj"].element_size()
         state = model.init_caches(ARCH_BATCH, ARCH_PROMPT + ARCH_NEW + 1, "meta")
-        state_rw = 2 * sum(t.numel() * t.element_size() for c in state["scan"] + state["rem"]
-                           for leaf, t in c.items() if leaf not in ("k", "v", "slot_pos"))
+        size = lambda t: t.numel() * t.element_size()
+        if model.is_encdec:
+            state_rw = size(state["cross_k"]) + size(state["cross_v"])
+        else:
+            state_rw = 2 * sum(size(t) for c in state["scan"] + state["rem"]
+                               for leaf, t in c.items() if leaf not in ("k", "v", "slot_pos"))
         del leaves, state
         rng = np.random.default_rng(seed + 50 + i)
+        extra = frontend_inputs(cfg, ARCH_BATCH, rng, dev)
         line["short"], _, greedy = generate_check(model, params, rng, ARCH_BATCH, ARCH_PROMPT,
-                                                  ARCH_NEW)
+                                                  ARCH_NEW, extra)
         line["decode_step_weight_read_gb"] = read / 1e9
-        line["decode_step_state_rw_gb"] = state_rw / 1e9
+        line["decode_step_cross_kv_read_gb" if model.is_encdec
+             else "decode_step_state_rw_gb"] = state_rw / 1e9
         line["decode_step_bound_ms"] = (read + state_rw) / HBM_BYTES_PER_S * 1e3
+        if extra:
+            line["frontend"] = {k: list(x.shape) for k, x in extra.items()}
+            line.update(enc_layers=cfg.enc_layers, frontend_dim=cfg.frontend_dim,
+                        prefix_tokens=cfg.num_prefix_tokens, tied=cfg.tie_embeddings)
         kinds = set(cfg.block_pattern) | set(cfg.pattern_remainder)
         if kinds & set(RECURRENT):
             line.update(pattern=list(cfg.block_pattern), remainder=list(cfg.pattern_remainder),
@@ -1773,7 +2033,15 @@ def archs_phase(seed: int, device=None):
             if RGLRU in kinds:
                 line["rnn_width"] = cfg.resolved_rnn_width
         runs = [line["short"]]
-        if "moe" in params["layers"][0]:
+        if cfg.frontend == "vision_stub":
+            line["paths"] = frontend_paths_check(model, params, greedy, extra, seed)
+            runs += [{"kernel_launches": r["launches"]} for k, r in line["paths"].items()
+                     if isinstance(r, dict) and "launches" in r]
+            line["kernel_cases"] = ARCH_KERNEL_CASES_OF[arch]
+        elif model.is_encdec:
+            line["kernel_cases"] = ARCH_KERNEL_CASES_OF[arch]
+        del extra
+        if "moe" in params.get("layers", [{}])[0]:
             line.update(experts=cfg.num_experts, experts_per_token=cfg.experts_per_token,
                         moe_d_ff=cfg.moe_d_ff, capacity_factor=cfg.capacity_factor,
                         dense_residual=cfg.moe_dense_residual,
@@ -1810,9 +2078,9 @@ def archs_phase(seed: int, device=None):
         line["memory_held_before_gb"] = held / 1e9
         del params, model
         torch.cuda.empty_cache()
-        if cfg.block_pattern == (MOE,) or kinds & set(RECURRENT):   # the train CLI's smoke run
-            line["train_cli"] = train_cli_check(arch,
-                                                attention_layers(get_config(arch, smoke=True)))
+        if cfg.block_pattern == (MOE,) or kinds & set(RECURRENT) or "frontend" in line:
+            line["train_cli"] = train_cli_check(    # the train CLI's smoke run
+                arch, attention_calls(get_config(arch, smoke=True))[0])
         line["seconds"] = time.perf_counter() - t0
         out[arch] = line
     return {"phase": "archs", "seconds": time.perf_counter() - t_phase, "configs": out,
@@ -2141,30 +2409,34 @@ def traced_greedy(model, params, sampler, logits, caches, mnt: int):
             torch.stack(margins, 1).float().cpu().numpy())
 
 
-def path_noise(model, params, sampler, tokens, steps: int = SPEC_K):
+def path_noise(model, params, sampler, tokens, steps: int = SPEC_K, extra=None):
     """Largest |logit difference| between the dense decode step and the paged
     step, a dense verify block of ``steps`` and a paged one, all fed the
     dense path's greedy tokens from one prefill (computed, then discarded),
     at the batch of ``tokens`` and at every smaller batch bucket down to 1
     (cuBLAS may reduce in another order at another row count); ``tol`` is
-    the margin rule's: twice the largest, plus 1e-3."""
+    the margin rule's: twice the largest, plus 1e-3.  ``extra`` holds the
+    prefix embeddings of a frontend stack, cut to each bucket."""
     out = {}
     b = tokens.shape[0]
     while b >= 1:
-        for k, v in _path_noise_at(model, params, sampler, tokens[:b], steps).items():
+        cut = {k: x[:b] for k, x in (extra or {}).items()}
+        for k, v in _path_noise_at(model, params, sampler, tokens[:b], steps, cut).items():
             out[f"{k}_b{b}"] = v
         b //= 2
     out["tol"] = 2 * max(out.values()) + 1e-3
     return out
 
 
-def _path_noise_at(model, params, sampler, tokens, steps):
+def _path_noise_at(model, params, sampler, tokens, steps, extra):
     import torch
     from repro_torch.serving import paged_kv
     from repro_torch.serving.sampler import greedy_ids, mask_vocab
     b, s = tokens.shape
-    cap = s + steps + 2
+    pre = extra["prefix_embeds"].shape[1] if "prefix_embeds" in extra else 0
+    cap = pre + s + steps + 2
     vocab = sampler.vocab_size or model.cfg.vocab_size
+    batch = {"tokens": tokens, **extra}
 
     def paged(caches):
         pool = paged_kv.PagePool(model, paged_kv.PagePoolConfig(PAGE, b * -(-cap // PAGE)),
@@ -2174,7 +2446,7 @@ def _path_noise_at(model, params, sampler, tokens, steps):
                                     torch.as_tensor(tbl, device=tokens.device),
                                     torch.as_tensor(wr, device=tokens.device))
 
-    logits, caches = model.prefill(params, {"tokens": tokens}, cap)
+    logits, caches = model.prefill(params, batch, cap)
     fed = [greedy_ids(mask_vocab(logits, sampler))]
     dense = []
     for _ in range(steps):
@@ -2183,17 +2455,17 @@ def _path_noise_at(model, params, sampler, tokens, steps):
         fed.append(greedy_ids(mask_vocab(logits, sampler)))
     dense = torch.stack(dense, 1)                                   # (B,steps,V)
     out = {}
-    pc = paged(model.prefill(params, {"tokens": tokens}, cap)[1])
+    pc = paged(model.prefill(params, batch, cap)[1])
     got = []
     for j in range(steps):
         logits, pc = model.decode_step(params, fed[j], pc)
         got.append(logits[..., :vocab].float())
     out["paged_step"] = (torch.stack(got, 1) - dense).abs().max().item()
     block = torch.stack(fed[:steps], 1)
-    dc = paged_kv.row_pos_caches(model.prefill(params, {"tokens": tokens}, cap)[1], b)
+    dc = paged_kv.row_pos_caches(model.prefill(params, batch, cap)[1], b)
     out["dense_block"] = (model.decode_block(params, block, dc)[0][..., :vocab].float()
                           - dense).abs().max().item()
-    pc = paged(model.prefill(params, {"tokens": tokens}, cap)[1])
+    pc = paged(model.prefill(params, batch, cap)[1])
     out["paged_block"] = (model.decode_block(params, block, pc)[0][..., :vocab].float()
                           - dense).abs().max().item()
     return out
@@ -3268,6 +3540,7 @@ def main(argv=None) -> int:
 
     prefix_len = len(tweak_lib.tweak_prefix_ids(HashWordTokenizer(128256)))
     checked = kernel_phase(prefix_len, args.seed)
+    mark("kernel_cases")
     serve_cli = serve_cli_phase()
     emit(serve_cli)
     train, reranker = train_phase("llama-3.1-8b", torch.device("cuda"), args.seed)
@@ -3347,7 +3620,7 @@ def main(argv=None) -> int:
                                                 "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms", "library_device_ms")}
                         for c in cases if c["name"] == row["name"]]
-    emit({"phase": "wall", "script_s": time.perf_counter() - t_start,
+    emit({"phase": "wall", "script_s": time.perf_counter() - t_start, "phase_s": PHASE_S,
           "kernel_build_s": build.build_seconds, "profiler_sessions": profiler_sessions})
     print(smi, flush=True)
     emit({"kernels": summary})

@@ -8,6 +8,13 @@ the JAX package's own ``_flatten``) key them.  Two layouts are understood:
   layer i under ``rem/<i>/...`` (unstacked), with ``embed``, ``final_norm``
   and ``lm_head``; the port's ``layers`` list them in the reference's layer
   order (``transformer.layer_slots``);
+* the encoder-decoder of ``repro.models.encdec``: encoder layers stacked
+  under ``enc_scan/...`` (``norm1``, ``attn``, ``norm2``, ``mlp``), decoder
+  layers under ``dec_scan/...`` (``norm1``, ``self_attn``, ``norm2``,
+  ``cross_attn``, ``norm3``, ``mlp``), with ``embed`` (the tied head),
+  ``enc_norm`` and ``final_norm``; the port lists them in ``enc_layers`` and
+  ``dec_layers``.  A frontend LM's ``frontend_proj`` (frontend_dim, d) is
+  carried as it is;
 * the embedder of ``repro.models.embedder``: layers stacked under
   ``scan/...``; the reranker of ``repro.models.reranker`` is that layout
   plus an fp32 ``score_head`` (d, 1).
@@ -25,7 +32,8 @@ the SSM's ``a_log``, ``d_skip`` and ``dt_bias`` and the RG-LRU's ``w_a``,
 ``b_a``, ``w_i``, ``b_i`` and ``lam`` stay fp32; the other weights take the
 config's dtype.
 
-``torch_params_to_jax`` is the inverse for the decoder LM: it carries the
+``torch_params_to_jax`` is the inverse for the decoder LM and the
+encoder-decoder: it carries the
 port's weights back to the reference's layout (``checkpoint.save_checkpoint``
 writes them where the JAX package's ``load_checkpoint`` reads them).
 """
@@ -68,13 +76,33 @@ def _mlp(w, key: str, mlp_type: str):
     return p
 
 
+def _attention(w, key: str, cfg: ModelConfig, device):
+    """The attention weights under ``key`` (``attn``, ``self_attn`` or
+    ``cross_attn``) in the port's layout."""
+    dt = torch_dtype(cfg.dtype)
+    d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    w_qkv = np.concatenate([w(f"{key}/w_q").reshape(d, h * dh),
+                            w(f"{key}/w_k").reshape(d, hk * dh),
+                            w(f"{key}/w_v").reshape(d, hk * dh)], axis=-1)
+    attn = {"w_qkv": _tensor(w_qkv, dt, device),
+            "w_o": _tensor(w(f"{key}/w_o").reshape(h * dh, d), dt, device)}
+    if cfg.qkv_bias:
+        attn["b_qkv"] = _tensor(np.concatenate(
+            [w(f"{key}/b_q").reshape(-1), w(f"{key}/b_k").reshape(-1),
+             w(f"{key}/b_v").reshape(-1)]), dt, device)
+    return attn
+
+
+def _norm_reader(w, has, device):
+    return lambda key: {leaf: _tensor(w(f"{key}/{leaf}"), torch.float32, device)
+                        for leaf in ("scale", "bias") if has(f"{key}/{leaf}")}
+
+
 def _block(kind: str, w, has, cfg: ModelConfig, device):
     """One block in the port's layout; ``w(name)`` reads a leaf of the
     layer as numpy, ``has(name)`` says whether the checkpoint holds it."""
     dt = torch_dtype(cfg.dtype)
-    d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    norm = lambda key: {leaf: _tensor(w(f"{key}/{leaf}"), torch.float32, device)
-                        for leaf in ("scale", "bias") if has(f"{key}/{leaf}")}
+    norm = _norm_reader(w, has, device)
     layer = {"norm1": norm("norm1")}
     mixer = {MAMBA2: "mixer", RGLRU: "rec"}.get(kind)
     if mixer is not None:
@@ -85,16 +113,7 @@ def _block(kind: str, w, has, cfg: ModelConfig, device):
             layer[mixer]["gate_norm"] = norm("mixer/gate_norm")
             return layer
     else:
-        w_qkv = np.concatenate([w("attn/w_q").reshape(d, h * dh),
-                                w("attn/w_k").reshape(d, hk * dh),
-                                w("attn/w_v").reshape(d, hk * dh)], axis=-1)
-        attn = {"w_qkv": _tensor(w_qkv, dt, device),
-                "w_o": _tensor(w("attn/w_o").reshape(h * dh, d), dt, device)}
-        if cfg.qkv_bias:
-            attn["b_qkv"] = _tensor(np.concatenate(
-                [w("attn/b_q").reshape(-1), w("attn/b_k").reshape(-1),
-                 w("attn/b_v").reshape(-1)]), dt, device)
-        layer["attn"] = attn
+        layer["attn"] = _attention(w, "attn", cfg, device)
     layer["norm2"] = norm("norm2")
     if has("moe/router"):
         moe = {k: _tensor(v, dt, device) for k, v in _mlp(w, "moe", "swiglu").items()}
@@ -134,18 +153,48 @@ def _layer_readers(flat, cfg: ModelConfig):
     return out
 
 
+def _encdec_layers(flat, group: str, n: int, cfg: ModelConfig, device):
+    """The layers stacked under ``enc_scan`` or ``dec_scan`` in the port's
+    layout: an encoder layer's ``attn``, a decoder layer's ``self_attn`` and
+    ``cross_attn``, the gelu MLP."""
+    if flat[f"{group}/norm1/scale"].shape[0] != n:
+        raise ValueError(f"checkpoint has {flat[f'{group}/norm1/scale'].shape[0]} "
+                         f"{group} layers, config {n}")
+    dt = torch_dtype(cfg.dtype)
+    out = []
+    for i in range(n):
+        w = lambda name, i=i: _f32(flat[f"{group}/{name}"][i])
+        norm = _norm_reader(w, lambda name: f"{group}/{name}" in flat, device)
+        attns = ("attn",) if group == "enc_scan" else ("self_attn", "cross_attn")
+        layer = {"norm1": norm("norm1")}
+        for j, key in enumerate(attns):
+            layer[key] = _attention(w, key, cfg, device)
+            layer[f"norm{j + 2}"] = norm(f"norm{j + 2}")
+        layer["mlp"] = {k: _tensor(v, dt, device)
+                        for k, v in _mlp(w, "mlp", cfg.mlp_type).items()}
+        out.append(layer)
+    return out
+
+
 def jax_params_to_torch(flat: Dict[str, np.ndarray], cfg: ModelConfig, device="cuda"):
     """Port parameters for ``cfg`` from a flattened JAX parameter tree, on
     ``device`` (the card unless the caller asks for ``"cpu"``)."""
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
-    layers = [_block(kind, w, has, cfg, device) for kind, w, has in _layer_readers(flat, cfg)]
-    params = {"embed": _tensor(flat["embed"], dt, device),
-              "final_norm": {leaf: _tensor(flat[f"final_norm/{leaf}"], torch.float32, device)
-                             for leaf in ("scale", "bias") if f"final_norm/{leaf}" in flat},
-              "layers": layers}
+    norm = lambda key: {leaf: _tensor(flat[f"{key}/{leaf}"], torch.float32, device)
+                        for leaf in ("scale", "bias") if f"{key}/{leaf}" in flat}
+    params = {"embed": _tensor(flat["embed"], dt, device), "final_norm": norm("final_norm")}
+    if "enc_scan/norm1/scale" in flat:          # the encoder-decoder (models.encdec)
+        params["enc_norm"] = norm("enc_norm")
+        params["enc_layers"] = _encdec_layers(flat, "enc_scan", cfg.enc_layers, cfg, device)
+        params["dec_layers"] = _encdec_layers(flat, "dec_scan", cfg.num_layers, cfg, device)
+        return params
+    params["layers"] = [_block(kind, w, has, cfg, device)
+                        for kind, w, has in _layer_readers(flat, cfg)]
     if "lm_head" in flat:
         params["lm_head"] = _tensor(flat["lm_head"], dt, device)
+    if "frontend_proj" in flat:
+        params["frontend_proj"] = _tensor(flat["frontend_proj"], dt, device)
     if "score_head" in flat:
         params["score_head"] = _tensor(flat["score_head"], torch.float32, device)
     return params
@@ -185,16 +234,39 @@ def _mlp_leaves(key: str, get, d_ff: int, mlp_type: str):
     return out + [(key + "/w_down", get("w_down"))]
 
 
+def _attn_leaves(key: str, get, lead, cfg: ModelConfig):
+    """(path, tensor) of the attention weights under ``key`` in the
+    reference's layout; ``get(name)`` reads ``w_qkv``, ``w_o`` or ``b_qkv``
+    with the leading dims ``lead``."""
+    d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    wq, wk, wv = get("w_qkv").split([h * dh, hk * dh, hk * dh], dim=-1)
+    out = [(f"{key}/w_q", wq.reshape(lead + (d, h, dh))),
+           (f"{key}/w_k", wk.reshape(lead + (d, hk, dh))),
+           (f"{key}/w_v", wv.reshape(lead + (d, hk, dh))),
+           (f"{key}/w_o", get("w_o").reshape(lead + (h, dh, d)))]
+    if cfg.qkv_bias:
+        bq, bk, bv = get("b_qkv").split([h * dh, hk * dh, hk * dh], dim=-1)
+        out += [(f"{key}/b_q", bq.reshape(lead + (h, dh))),
+                (f"{key}/b_k", bk.reshape(lead + (hk, dh))),
+                (f"{key}/b_v", bv.reshape(lead + (hk, dh)))]
+    return out
+
+
+def _stacked(layers, stacked: bool = True):
+    """``leaf(*path)``: that leaf of every layer of ``layers``, stacked (or
+    the one layer's, ``stacked`` False)."""
+    def leaf(*path):
+        get = lambda p: functools.reduce(dict.__getitem__, path, p).detach()
+        return torch.stack([get(p) for p in layers]) if stacked else get(layers[0])
+    return leaf
+
+
 def _group_leaves(pre: str, kind: str, layers, stacked: bool, cfg: ModelConfig):
     """(path, tensor) of one group of layers of one kind under ``pre``:
     stacked over the layers (a pattern position) or the one layer's
     (``stacked`` False, a remainder layer)."""
-    d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     lead = (len(layers),) if stacked else ()
-
-    def leaf(*path):
-        get = lambda p: functools.reduce(dict.__getitem__, path, p).detach()
-        return torch.stack([get(p) for p in layers]) if stacked else get(layers[0])
+    leaf = _stacked(layers, stacked)
 
     first = layers[0]
     out = [(f"{pre}/norm1/{n}", leaf("norm1", n)) for n in first["norm1"]]
@@ -205,16 +277,7 @@ def _group_leaves(pre: str, kind: str, layers, stacked: bool, cfg: ModelConfig):
             return out + [(f"{pre}/mixer/gate_norm/{n}", leaf("mixer", "gate_norm", n))
                           for n in first["mixer"]["gate_norm"]]
     else:
-        wq, wk, wv = leaf("attn", "w_qkv").split([h * dh, hk * dh, hk * dh], dim=-1)
-        out += [(f"{pre}/attn/w_q", wq.reshape(lead + (d, h, dh))),
-                (f"{pre}/attn/w_k", wk.reshape(lead + (d, hk, dh))),
-                (f"{pre}/attn/w_v", wv.reshape(lead + (d, hk, dh))),
-                (f"{pre}/attn/w_o", leaf("attn", "w_o").reshape(lead + (h, dh, d)))]
-        if cfg.qkv_bias:
-            bq, bk, bv = leaf("attn", "b_qkv").split([h * dh, hk * dh, hk * dh], dim=-1)
-            out += [(f"{pre}/attn/b_q", bq.reshape(lead + (h, dh))),
-                    (f"{pre}/attn/b_k", bk.reshape(lead + (hk, dh))),
-                    (f"{pre}/attn/b_v", bv.reshape(lead + (hk, dh)))]
+        out += _attn_leaves(f"{pre}/attn", lambda n: leaf("attn", n), lead, cfg)
     out += [(f"{pre}/norm2/{n}", leaf("norm2", n)) for n in first["norm2"]]
     if "moe" in first:
         out += [(f"{pre}/moe/router", leaf("moe", "router"))]
@@ -227,12 +290,36 @@ def _group_leaves(pre: str, kind: str, layers, stacked: bool, cfg: ModelConfig):
     return out
 
 
+def _encdec_leaves(params, cfg: ModelConfig):
+    """(path, tensor) of the encoder-decoder's layers under ``enc_scan`` and
+    ``dec_scan``, each leaf stacked over the layers, and ``enc_norm``."""
+    out = [(f"enc_norm/{n}", t) for n, t in params["enc_norm"].items()]
+    for group, key in (("enc_scan", "enc_layers"), ("dec_scan", "dec_layers")):
+        layers = params[key]
+        leaf = _stacked(layers)
+        for name, sub in layers[0].items():
+            if name == "mlp":
+                out += _mlp_leaves(f"{group}/mlp", lambda n: leaf("mlp", n), cfg.d_ff,
+                                   cfg.mlp_type)
+            elif name.startswith("norm"):
+                out += [(f"{group}/{name}/{n}", leaf(name, n)) for n in sub]
+            else:
+                out += _attn_leaves(f"{group}/{name}", lambda n, a=name: leaf(a, n),
+                                    (len(layers),), cfg)
+    return out
+
+
 def _jax_leaves(params, cfg: ModelConfig):
-    """(path, tensor) of the decoder LM in the reference's layout."""
+    """(path, tensor) of the decoder LM or the encoder-decoder in the
+    reference's layout."""
     out = [("embed", params["embed"])]
     out += [(f"final_norm/{n}", t) for n, t in params["final_norm"].items()]
+    if "enc_layers" in params:
+        return out + _encdec_leaves(params, cfg)
     if "lm_head" in params:
         out.append(("lm_head", params["lm_head"]))
+    if "frontend_proj" in params:
+        out.append(("frontend_proj", params["frontend_proj"]))
     slots = layer_slots(cfg)
     for j, kind in enumerate(cfg.block_pattern):
         layers = [p for p, s in zip(params["layers"], slots) if s[1:3] == ("scan", j)]
@@ -244,9 +331,10 @@ def _jax_leaves(params, cfg: ModelConfig):
 
 
 def torch_params_to_jax(params, cfg: ModelConfig) -> Dict[str, np.ndarray]:
-    """The port's decoder-LM parameters as the reference's flattened tree
-    ``{path: array}`` (layers stacked under ``scan/<j>/``, remainder layers
-    under ``rem/<i>/``; ``w_qkv`` split
+    """The port's decoder-LM or encoder-decoder parameters as the
+    reference's flattened tree ``{path: array}`` (layers stacked under
+    ``scan/<j>/``, remainder layers under ``rem/<i>/``, or under
+    ``enc_scan/`` and ``dec_scan/``; ``w_qkv`` split
     into ``w_q``/``w_k``/``w_v`` (d,h,dh), ``w_o`` (h,dh,d), ``b_qkv`` into
     ``b_q``/``b_k``/``b_v`` (h,dh), ``w_gate_up`` split), on the host.  A
     bf16 leaf comes back as its exact fp32 copy; ``torch_param_dtypes``

@@ -1,11 +1,13 @@
 """Architecture registry of the port (counterpart of ``src/repro/configs``).
 
 ``get_config(arch, smoke)`` resolves the reference's ids whose stack the port
-builds: decoder-only ATTN stacks, global or sliding-window, with or without
-QKV bias, with a swiglu, gelu or squared-ReLU MLP, MOE stacks (GShard
-top-k capacity dispatch, with or without Arctic's dense residual), the
-Mamba-2 stack and the RG-LRU / local-attention hybrid.  Their config modules are
-copies of the reference's.  Every other id raises ``NotImplementedError``
+builds, which since the encoder-decoder and the vision prefix are all ten:
+decoder-only ATTN stacks, global or sliding-window, with or without QKV
+bias, with a swiglu, gelu or squared-ReLU MLP, MOE stacks (GShard top-k
+capacity dispatch, with or without Arctic's dense residual), the Mamba-2
+stack, the RG-LRU / local-attention hybrid, whisper's encoder-decoder and
+internvl2's prefix-embedding frontend.  Their config modules are copies of
+the reference's.  An id in ``MISSING`` would raise ``NotImplementedError``
 naming what the port lacks for it; an unknown id raises ``KeyError`` as in
 the reference.
 """
@@ -23,13 +25,12 @@ _MODULES = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
     "mamba2-130m": "mamba2_130m",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "whisper-tiny": "whisper_tiny",
+    "internvl2-26b": "internvl2_26b",
 }
 
-# what each reference id needs that the port does not build yet
-MISSING = {
-    "whisper-tiny": "enc-dec (audio frontend, cross attention)",
-    "internvl2-26b": "vision frontend (prefix embeddings)",
-}
+# what each reference id needs that the port does not build yet (none now)
+MISSING: dict = {}
 
 
 def get_arch(arch_id: str):

@@ -521,8 +521,8 @@ int launch_dh(const void* q, const KV& kv, const panel::Geometry& geo, const Arg
 
 // bf16 q/out (B,K,H,dh); dh 64, 80, 128 or 192, and 256 where the caller
 // instantiates it (kDh256: dense single-token decode only); any G with a
-// panel of at most kMaxCols rows (ops._check_qkv admits G 1, 2, 4, 7, 8, 12
-// and 16).
+// panel of at most kMaxCols rows (ops._check_qkv admits G 1, 2, 4, 6, 7, 8,
+// 12 and 16).
 template <bool kDh256 = false, class KV>
 int launch(int dh, const void* q, const KV& kv, const panel::Geometry& geo, const Args& args,
            int batch, void* out, cudaStream_t stream) {

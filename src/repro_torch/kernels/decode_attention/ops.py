@@ -44,10 +44,10 @@ WAVE_CLUSTERS_ONE_A_SM = (132, 66, 39, 30, 22, 17, 15, 15)
 # The shapes each body has instances for: bf16 the tensor-core panel body
 # (panel_mma.cuh; a panel of at most MAX_COLS rows takes any G, these are the
 # configs' G: G 16, qwen3-moe's and recurrentgemma's, fills a panel with one
-# query), dh 256 (recurrentgemma's) in the dense single-token kernel only;
+# query; G 6, internvl2's, takes two queries a panel of a K-4 verify block), dh 256 (recurrentgemma's) in the dense single-token kernel only;
 # fp32 the CUDA-core bodies, the single-token one (decode_attention.cu) also
 # at dh 16 and 32.
-BF16_SHAPES = ((64, 80, 128, 192), (1, 2, 4, 7, 8, 12, 16))
+BF16_SHAPES = ((64, 80, 128, 192), (1, 2, 4, 6, 7, 8, 12, 16))
 BF16_DECODE_SHAPES = ((64, 80, 128, 192, 256), BF16_SHAPES[1])
 FP32_SHAPES = ((64, 128), (1, 2, 4, 8))
 FP32_DECODE_SHAPES = ((16, 32, 64, 128), (1, 2, 4, 8))

@@ -8,24 +8,44 @@ lines and exits 0 when the loss improved.
   PYTHONPATH=src python -m repro_torch.launch.train --steps 50 --batch 8 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --steps 20 --device cpu --ckpt-dir ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny --device cpu
 
-``--arch`` defaults to qwen2.5-3b, as the reference's does.
+``--arch`` defaults to qwen2.5-3b, as the reference's does.  An audio or
+encoder-decoder id (whisper-tiny) trains on random ``frames`` and a vision
+stub (internvl2-26b) on random ``prefix_embeds`` beside the token stream,
+drawn from ``np.random.default_rng(0)`` in the reference's order and shapes.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_checkpoint, torch_param_dtypes, torch_params_to_jax
 from repro_torch.configs import get_config
 from repro_torch.data import token_stream_batches
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models.model import build_model
 from repro_torch.tokenizer import HashWordTokenizer
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 from repro_torch.training.optimizer import tree_leaves
+
+
+def frontend_inputs(cfg, b: int, rng, device) -> dict:
+    """The stub frontend's random inputs of ``b`` rows in the model dtype,
+    drawn from ``rng`` in the reference's order and shapes: ``frames`` (B,
+    F, d) for an audio or encoder-decoder id, ``prefix_embeds`` (B, P,
+    frontend_dim) for a vision stub; none for a text-only stack."""
+    random = lambda *shape: torch.as_tensor(rng.standard_normal(shape)).to(
+        device=device, dtype=torch_dtype(cfg.dtype))
+    out = {}
+    if cfg.family in ("audio", "encdec"):
+        out["frames"] = random(b, cfg.enc_frames, cfg.d_model)
+    if cfg.frontend == "vision_stub":
+        out["prefix_embeds"] = random(b, cfg.num_prefix_tokens, cfg.frontend_dim)
+    return out
 
 
 def main(argv=None):
@@ -45,6 +65,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=not args.full)
+    if cfg.family in ("audio", "encdec", "vlm"):
+        print(f"note: {args.arch} takes stub multimodal inputs; training on "
+              "text-token stream with random frontend embeddings")
     model = build_model(cfg)
     tok = HashWordTokenizer(cfg.vocab_size)
     params = model.init(torch.Generator(device=device).manual_seed(0), device)
@@ -58,10 +81,12 @@ def main(argv=None):
     opt = init_opt_state(params)
     stream = token_stream_batches(tok, args.batch, args.seq)
 
+    rng = np.random.default_rng(0)
     t0 = time.time()
     first = last = None
     for step in range(args.steps):
         batch = {k: torch.as_tensor(v).to(device) for k, v in next(stream).items()}
+        batch.update(frontend_inputs(cfg, args.batch, rng, device))
         params, opt, metrics = step_fn(params, opt, batch)
         loss = metrics["loss"]
         if first is None:

@@ -6,6 +6,9 @@
   through a block table against a paged one (``serving.paged_kv``).
 * ``decode_attention_block`` — a (B, K) speculative verify block against
   a dense or a paged cache, at per-row positions.
+* ``cross_attention``, ``cross_decode_attention`` — an encoder-decoder's
+  decoder queries over the encoder memory's K/V (``cross_kv``), in prefill
+  and in one decode step.
 
 Prefill attention goes through ``kernels.flash_attention``, decode through
 ``kernels.decode_attention`` and ``kernels.paged_attention``: the
@@ -87,9 +90,12 @@ def attend(q, k, v, q_pos, k_pos, *, causal: bool, window: int, impl: str,
                                      block_k=block_k, impl=impl)
 
 
-def self_attention(p, x, positions, cfg: ModelConfig, *, window: int = 0,
-                   prefix=None):
-    """Causal self attention.  Returns (out, (k, v, k_pos)).
+def self_attention(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
+                   window: int = 0, use_rope: bool = True, prefix=None):
+    """Self attention over the sequence, causal unless ``causal`` is False
+    (whisper's encoder), with rotary embeddings unless ``use_rope`` is False
+    (whisper adds sinusoidal positions to its inputs instead).  Returns
+    (out, (k, v, k_pos)).
 
     ``prefix`` is one layer's stored prefix KV (``{"k", "v", "slot_pos"}``,
     rope already applied); the queries, whose positions start after it,
@@ -97,14 +103,17 @@ def self_attention(p, x, positions, cfg: ModelConfig, *, window: int = 0,
     to lay out slots ``[0, P+S)`` as an inline prefill would.
     """
     q, k, v = project_qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    else:       # the kernel reads dense (B,S,H,dh) rows; q and k are views into y
+        q, k = q.contiguous(), k.contiguous()
     k_pos = positions
     if prefix is not None:
         k = torch.cat([prefix["k"].to(k.dtype), k], dim=1)
         v = torch.cat([prefix["v"].to(v.dtype), v], dim=1)
         k_pos = torch.cat([prefix["slot_pos"], positions], dim=1)
-    ctx = attend(q, k, v, positions, k_pos, causal=True, window=window,
+    ctx = attend(q, k, v, positions, k_pos, causal=causal, window=window,
                  impl=cfg.attention_impl, block_q=cfg.flash_block_q,
                  block_k=cfg.flash_block_k)
     b, s = x.shape[:2]
@@ -134,7 +143,7 @@ def fill_kv_cache(cache, layer: int, k, v, positions):
 
 
 def decode_attention(p, x, cache, layer: int, pos, cache_len, cfg: ModelConfig,
-                     *, window: int = 0, plan=None):
+                     *, window: int = 0, plan=None, use_rope: bool = True):
     """One token x (B,1,d) against one layer's cache, updated in place (the
     JAX package donates the buffer).
 
@@ -163,16 +172,19 @@ def decode_attention(p, x, cache, layer: int, pos, cache_len, cfg: ModelConfig,
     holds for every written slot of the caches the serving paths build
     (``rewind_kv`` empties every slot at or past ``pos``), which the tests
     check.  The dense cache is never built.
+
+    ``use_rope`` False (whisper's decoder) leaves q and k unrotated.
     """
     if window > 0 and "kp" in cache:
         raise NotImplementedError("paged KV decode is global-attention only; windowed "
                                   "stacks must use the dense ring-buffered cache")
     b = x.shape[0]
     q, k, v = project_qkv(p, x, cfg)
-    cur = (torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-           if plan is None else plan["cur"])
-    q = apply_rope(q, cur, cfg.rope_theta)
-    k = apply_rope(k, cur, cfg.rope_theta)
+    if use_rope:
+        cur = (torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+               if plan is None else plan["cur"])
+        q = apply_rope(q, cur, cfg.rope_theta)
+        k = apply_rope(k, cur, cfg.rope_theta)
     if "kp" in cache:
         cache["kp"][layer, plan["page"], plan["off"]] = k.to(cache["kp"].dtype)
         cache["vp"][layer, plan["page"], plan["off"]] = v.to(cache["vp"].dtype)
@@ -278,6 +290,72 @@ def decode_attention_block(p, x, cache, layer: int, pos, plan, cfg: ModelConfig)
         ctx = decode_ops.decode_attention_block(q.contiguous(), cache["k"][layer],
                                                 cache["v"][layer], pos)
     return ctx.reshape(b, kblk, -1) @ p["w_o"]
+
+
+# ------------------------------------------------------------- cross attn
+
+def init_cross_attention(cfg: ModelConfig, generator, device):
+    """A decoder layer's cross-attention weights, in ``init_attention``'s
+    layout and draws (the reference's ``init_cross_attention`` is its
+    ``init_attention``)."""
+    return init_attention(cfg, generator, device)
+
+
+def _cross_weights(p, cfg: ModelConfig, part: str):
+    """(weight, bias or None) of the query ("q") or key-value ("kv") columns
+    of ``w_qkv`` / ``b_qkv``."""
+    hd = cfg.num_heads * cfg.resolved_head_dim
+    cols = slice(None, hd) if part == "q" else slice(hd, None)
+    b = p.get("b_qkv")
+    return p["w_qkv"][:, cols], None if b is None else b[cols]
+
+
+def cross_query(p, x, cfg: ModelConfig):
+    """x (B,S,d) -> cross-attention queries (B,S,H,dh), contiguous."""
+    w, bias = _cross_weights(p, cfg, "q")
+    q = x @ w
+    if bias is not None:
+        q = q + bias
+    return q.reshape(*x.shape[:2], cfg.num_heads, cfg.resolved_head_dim)
+
+
+def cross_kv(p, memory, cfg: ModelConfig):
+    """memory (B,F,d) -> one layer's cross K and V (B,F,Hk,dh), contiguous:
+    projected once a prefill, for its attention and for the decode caches
+    (the reference projects them twice, in ``cross_attention`` and in
+    ``encdec._cross_kv``)."""
+    w, bias = _cross_weights(p, cfg, "kv")
+    kv = memory @ w
+    if bias is not None:
+        kv = kv + bias
+    hk, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    k, v = kv.split(hk * dh, dim=-1)
+    shape = (*memory.shape[:2], hk, dh)
+    return k.reshape(shape).contiguous(), v.reshape(shape).contiguous()
+
+
+def cross_attention(p, x, k, v, cfg: ModelConfig):
+    """Decoder queries x (B,S,d) over one layer's cross K/V (no rope, no
+    mask): the prefill kernel, non-causal, every position 0, and impl
+    "naive" as the reference fixes it (its padded "xla_flash" form would
+    let the zero keys that pad F to a whole block take weight)."""
+    b, s = x.shape[:2]
+    q = cross_query(p, x, cfg)
+    zeros = lambda n: torch.zeros((b, n), dtype=torch.int32, device=x.device)
+    ctx = flash_ops.flash_attention(q, k, v, zeros(s), zeros(k.shape[1]), causal=False,
+                                    window=0, block_q=cfg.flash_block_q,
+                                    block_k=cfg.flash_block_k, impl="naive")
+    return ctx.reshape(b, s, -1) @ p["w_o"]
+
+
+def cross_decode_attention(p, x, k, v, enc_len, cfg: ModelConfig):
+    """One token x (B,1,d) over one layer's stored cross K/V (B,F,Hk,dh):
+    the dense decode kernel with ``enc_len`` (B,) int32 = F on every row, so
+    every key is kept, the function of the reference's naive composite at
+    positions 0 without a causal mask."""
+    q = cross_query(p, x, cfg)
+    ctx = decode_ops.decode_attention(q[:, 0].contiguous(), k, v, enc_len)
+    return ctx.reshape(x.shape[0], 1, -1) @ p["w_o"]
 
 
 def encoder_attention(p, x, positions, valid, cfg: ModelConfig):

@@ -103,3 +103,22 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- sinusoid
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_div(d: int, device: torch.device):
+    """exp(-ln(10000) * i / d) for even i, float64, computed as the
+    reference computes it (numpy) and copied to ``device`` once."""
+    return torch.from_numpy(np.exp(-np.log(10000.0) * np.arange(0, d, 2) / d)).to(device)
+
+
+def sinusoidal_positions(positions, d: int):
+    """The rows of the reference's ``sinusoidal_positions(length, d)`` table
+    at ``positions`` (any shape, int): (..., d) float32, sin in the even
+    columns and cos in the odd ones.  The values are computed in float64,
+    as the reference's numpy table is, then rounded to float32; only the
+    rows asked for are built (whisper's table would hold 524,296 rows)."""
+    ang = positions[..., None].double() * _sinusoid_div(d, positions.device)
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).flatten(-2).float()

@@ -31,9 +31,10 @@ its KV, in one of two forms:
   advance by different amounts (``paged_kv.row_pos_caches`` converts).
   Only ATTN and MOE stacks without a window take this form.
 
-  forward(params, tokens, cfg)                     -> (logits (B,S,V), aux)  (training)
-  loss_fn(params, tokens, targets, mask, cfg)      -> (loss, metrics)
-  prefill(params, tokens, cfg, capacity[, prefix]) -> (last logits (B,V), caches)
+  forward(params, tokens, cfg[, prefix_embeds])    -> (logits (B,S,V), aux)  (training)
+  loss_fn(params, tokens, targets, mask, cfg[, prefix_embeds]) -> (loss, metrics)
+  prefill(params, tokens, cfg, capacity[, prefix | prefix_embeds])
+                                                   -> (last logits (B,V), caches)
   decode_step(params, token, caches, cfg)          -> (logits (B,V), caches)
   decode_block(params, tokens, caches, cfg)        -> (logits (B,k,V), caches)
 
@@ -44,9 +45,15 @@ load-balance losses) is kept by the training forward only.  Decode updates
 the KV and the recurrent states in place (the JAX package donates them)
 and returns a new top-level dict with ``pos`` advanced.  The decode step of
 an ATTN or MOE stack keeps its own loop, with no per-layer dispatch on the
-block kind.  Encoder-decoder stacks and frontends raise, and so do the
-paged, block and prefix paths of a windowed or recurrent stack, as the
-reference's do.
+block kind.  The paged, block and prefix paths of a windowed or recurrent
+stack raise, as the reference's do; encoder-decoder configs are built by
+``models.encdec``.
+
+A frontend config (``cfg.frontend != "none"``, internvl2's vision stub)
+has ``frontend_proj`` (frontend_dim, d): ``forward``, ``loss_fn`` and
+``prefill`` take ``prefix_embeds`` (B,P,frontend_dim), projected and put in
+front of the token embeddings at positions [0, P) (the tokens at [P, P+S));
+the loss drops the first P logits.
 """
 from __future__ import annotations
 
@@ -70,11 +77,12 @@ RECURRENT = (MAMBA2, RGLRU)             # blocks whose cache is a state
 
 def check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.block_pattern) | set(cfg.pattern_remainder)
-    if (not kinds <= set(KV_KINDS + RECURRENT) or cfg.enc_layers
-            or cfg.frontend != "none" or cfg.num_prefix_tokens):
+    if not kinds <= set(KV_KINDS + RECURRENT):
         raise NotImplementedError(
-            f"{cfg.name}: only decoder-only stacks of ATTN, LOCAL_ATTN, MOE, MAMBA2 and "
-            f"RGLRU blocks are ported (no encoder, no frontend)")
+            f"{cfg.name}: only stacks of ATTN, LOCAL_ATTN, MOE, MAMBA2 and RGLRU blocks "
+            f"are ported")
+    if cfg.enc_layers:
+        raise ValueError(f"{cfg.name}: an encoder-decoder config is built by models.encdec")
 
 
 def cache_capacity(cfg: ModelConfig, capacity: int) -> int:
@@ -152,6 +160,10 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device):
     if not cfg.tie_embeddings:
         params["lm_head"] = truncated_normal((cfg.d_model, cfg.padded_vocab),
                                              cfg.d_model ** -0.5, dt, generator, device)
+    if cfg.frontend != "none":
+        params["frontend_proj"] = truncated_normal((cfg.frontend_dim, cfg.d_model),
+                                                   cfg.frontend_dim ** -0.5, dt, generator,
+                                                   device)
     params["layers"] = [init_block(kind, cfg, generator, device)
                         for kind, *_ in layer_slots(cfg)]
     return params
@@ -247,11 +259,24 @@ def _run_stack_train(params, x, positions, cfg: ModelConfig):
     return x, aux
 
 
-def forward(params, tokens, cfg: ModelConfig):
-    """Training forward: tokens (B,S) -> (fp32 logits (B,S,V_padded), aux)."""
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-    x, aux = _run_stack_train(params, params["embed"][tokens], positions.contiguous(), cfg)
+def _embed_inputs(params, tokens, cfg: ModelConfig, prefix_embeds=None, start: int = 0):
+    """(x (B,P+S,d), positions (B,P+S) int32 from ``start``): the token
+    embeddings, after ``prefix_embeds`` (B,P,frontend_dim) cast to the model
+    dtype and projected by ``frontend_proj`` when given."""
+    x = params["embed"][tokens]
+    if prefix_embeds is not None:
+        pe = prefix_embeds.to(x.dtype) @ params["frontend_proj"]
+        x = torch.cat([pe, x], dim=1)
+    b, s = x.shape[:2]
+    positions = torch.arange(start, start + s, dtype=torch.int32, device=x.device)
+    return x, positions.expand(b, s).contiguous()
+
+
+def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None):
+    """Training forward: tokens (B,S) [and prefix_embeds (B,P,e)] -> (fp32
+    logits (B,P+S,V_padded), aux)."""
+    x, positions = _embed_inputs(params, tokens, cfg, prefix_embeds)
+    x, aux = _run_stack_train(params, x, positions, cfg)
     return _logits(params, x, cfg), aux
 
 
@@ -272,10 +297,13 @@ def cross_entropy(logits, targets, mask, vocab_size: int):
     return torch.sum((lse - tgt) * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def loss_fn(params, tokens, targets, mask, cfg: ModelConfig):
-    """Next-token CE in fp32 over the exact (unpadded) vocabulary.
-    Returns (loss, {"ce", "aux", "tokens"})."""
-    logits, aux = forward(params, tokens, cfg)
+def loss_fn(params, tokens, targets, mask, cfg: ModelConfig, prefix_embeds=None):
+    """Next-token CE in fp32 over the exact (unpadded) vocabulary, over the
+    token positions (the prefix's logits dropped).  Returns (loss, {"ce",
+    "aux", "tokens"})."""
+    logits, aux = forward(params, tokens, cfg, prefix_embeds)
+    if prefix_embeds is not None:
+        logits = logits[:, prefix_embeds.shape[1]:]
     ce = cross_entropy(logits, targets, mask, cfg.vocab_size)
     return ce + aux, {"ce": ce, "aux": aux, "tokens": torch.sum(mask).to(torch.int32)}
 
@@ -303,8 +331,12 @@ def _block_prefill(kind: str, p, x, positions, cache, cfg: ModelConfig, ring, pr
     return _ffn_residual(p, x + a, cfg)[0]
 
 
-def prefill(params, tokens, cfg: ModelConfig, capacity: int, prefix=None):
+def prefill(params, tokens, cfg: ModelConfig, capacity: int, prefix=None,
+            prefix_embeds=None):
     """tokens (B,S) -> (last-token logits (B,V) fp32, caches).
+
+    With ``prefix_embeds`` (B,P,frontend_dim) the projected embeddings come
+    first, at positions [0, P), and the caches cover P+S positions.
 
     With ``prefix`` (the caches of a prefix-only prefill), ``tokens`` are
     the suffix: positions continue from ``prefix["pos"]``, every layer
@@ -321,18 +353,18 @@ def prefill(params, tokens, cfg: ModelConfig, capacity: int, prefix=None):
     if prefix is not None and (window > 0 or not kv_only(cfg)):
         raise NotImplementedError("prefix-cached prefill is global-attention only; windowed "
                                   "and recurrent stacks must fall back to full prefill")
-    b, s = tokens.shape
-    device = tokens.device
+    if prefix is not None and prefix_embeds is not None:
+        raise NotImplementedError("prefix-cached prefill with frontend prefix_embeds")
     start = 0 if prefix is None else prefix["pos"]
-    positions = (torch.arange(s, dtype=torch.int32, device=device) + start).expand(b, s)
-    positions = positions.contiguous()
+    x, positions = _embed_inputs(params, tokens, cfg, prefix_embeds, start)
+    b, s = x.shape[:2]
+    device = tokens.device
     caches = init_caches(b, capacity, cfg, device)
     cap = cache_capacity(cfg, capacity)
     ring = None
     if window > 0 and s > cap:     # the token index each slot keeps
         first = s - cap
         ring = first + (torch.arange(cap, device=device) - first) % cap
-    x = params["embed"][tokens]
     for p, slot in zip(params["layers"], layer_slots(cfg)):
         layer_prefix = None
         if prefix is not None:

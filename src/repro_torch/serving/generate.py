@@ -193,6 +193,9 @@ class Generator:
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Returns (tokens (B,T_new) int32, lengths (B,), ended (B,)) on the host.
 
+        ``batch`` holds ``tokens`` (B,S), and ``frames`` (an encoder-decoder)
+        or ``prefix_embeds`` (a frontend config) where the model takes them.
+
         ``lengths`` counts each row's real generated tokens, its EOS included
         when ``ended``.  With ``prefix_cache``, ``batch["tokens"]`` is only the
         suffix and the call matches generating from ``[prefix | suffix]``.
@@ -226,8 +229,14 @@ class Generator:
             logits, caches = self.model.prefill_with_prefix(
                 self.params, {"tokens": tokens}, capacity, prefix_cache.caches)
         else:
-            capacity = s + mnt + 1
-            logits, caches = self.model.prefill(self.params, {"tokens": tokens}, capacity)
+            # the frontend's prefix positions come first (the reference counts
+            # them whether or not the batch holds prefix_embeds)
+            capacity = s + mnt + 1 + self.model.cfg.num_prefix_tokens
+            inputs = {"tokens": tokens}
+            for key in ("frames", "prefix_embeds"):
+                if key in batch:
+                    inputs[key] = to_device(batch[key], self.device)
+            logits, caches = self.model.prefill(self.params, inputs, capacity)
         lease = None
         if self.cfg.paged:
             if not self.model.supports_paged_decode:

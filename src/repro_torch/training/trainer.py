@@ -28,18 +28,27 @@ def value_and_grad(model: Model, params, batch):
     """(loss, metrics, grads) of ``model.loss`` at ``params`` on ``batch``;
     ``grads`` is shaped as ``params``, each leaf in its parameter's dtype.
     Every parameter of the stack reaches the loss, so a leaf without a
-    gradient raises (autograd's unused-input error): a kernel whose output
-    dropped out of the graph cannot train silently."""
+    gradient raises: a kernel whose output dropped out of the graph cannot
+    train silently.  The leaves ``model.unread_params`` names for this batch
+    get the zero gradient JAX gives an unused input."""
     leaves = tree_leaves(params)
     try:
         for p in leaves:
             p.requires_grad_(True)
         with torch.enable_grad():
             loss, metrics = model.loss(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
+    unread = {id(p) for p in model.unread_params(params, batch)}
+    grads = list(grads)
+    for i, (p, g) in enumerate(zip(leaves, grads)):
+        if g is None:
+            if id(p) not in unread:
+                raise RuntimeError(f"a parameter of shape {tuple(p.shape)} got no gradient: "
+                                   f"it does not reach the loss")
+            grads[i] = torch.zeros_like(p)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, _like(params, grads)
 

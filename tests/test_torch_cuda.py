@@ -676,6 +676,161 @@ def test_verify_and_paged_new_shapes_match_plain(kq, b, h, hk, t, dh):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dtype,tol,b,sq,sk,h,hk,dh,impl", [
+    (torch.bfloat16, 2e-2, 4, 1500, 1500, 6, 6, 64, "naive"),    # whisper-tiny's encoder
+    (torch.bfloat16, 2e-2, 4, 128, 1500, 6, 6, 64, "naive"),     # its cross prefill
+    (torch.bfloat16, 2e-2, 2, 1500, 1500, 6, 6, 64, "xla_flash"),  # padded keys admitted
+    (torch.float32, 1e-5, 4, 16, 16, 4, 4, 32, "naive"),         # whisper smoke, fp32 dh 32
+    (torch.float32, 1e-5, 4, 64, 16, 4, 4, 32, "naive"),         # ... its cross attention
+])
+def test_flash_non_causal_new_shapes_match_plain(dtype, tol, b, sq, sk, h, hk, dh, impl):
+    """Non-causal flash at whisper's shapes: the bidirectional encoder over
+    1,500 frames and the cross attention (positions all 0) over them,
+    against the plain versions; under "xla_flash" the zero keys padding Sk
+    to a whole block take weight, as in the reference."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(sq + sk + dh)
+    q = torch.randn(b, sq, h, dh, device=dev, generator=g).to(dtype)
+    k = torch.randn(b, sk, hk, dh, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, sk, hk, dh, device=dev, generator=g).to(dtype)
+    if sq == sk:
+        q_pos = torch.arange(sq, device=dev, dtype=torch.int32).expand(b, sq).contiguous()
+        k_pos = q_pos
+    else:
+        q_pos = torch.zeros(b, sq, device=dev, dtype=torch.int32)
+        k_pos = torch.zeros(b, sk, device=dev, dtype=torch.int32)
+    before = flash_ops.launches
+    out = flash_ops.flash_attention(q, k, v, q_pos, k_pos, causal=False, window=0,
+                                    block_q=128, block_k=128, impl=impl)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    f = [x.float() for x in (q, k, v)]
+    want = (attend_naive(*f, q_pos, k_pos, False, 0) if impl == "naive" else
+            attend_blockwise(*f, q_pos, k_pos, False, 0, 128, 128))
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+    # the padded form is another function: its zero keys shift every output by
+    # ~1.4% at Sk 1,500, within ``tol``, so the kernel must also lie nearer its
+    # own form than the other, by less than half the L2 gap between the two
+    other = (attend_blockwise(*f, q_pos, k_pos, False, 0, 128, 128) if impl == "naive" else
+             attend_naive(*f, q_pos, k_pos, False, 0))
+    assert _l2(out.float() - want) < 0.5 * _l2(want - other)
+
+
+def _l2(x) -> float:
+    return torch.linalg.vector_norm(x).item()
+
+
+@pytest.mark.parametrize("dtype,tol,b,lens", [
+    (torch.bfloat16, 2e-2, 4, (1500, 1500, 1500, 1500)),    # whisper's cross decode
+    (torch.bfloat16, 2e-2, 4, (1500, 700, 1, 0)),           # ragged, a row at 0
+    (torch.float32, 1e-5, 4, (16, 16, 16, 16)),             # whisper smoke, fp32 dh 32
+])
+def test_decode_over_a_1500_slot_cross_cache_matches_plain(dtype, tol, b, lens):
+    """The dense decode kernel as whisper's cross attention runs it: every
+    slot of the encoder's 1,500 (or the smoke config's 16) kept, H 6 / 6 at
+    dh 64 (4 / 4 at dh 32 in fp32), one launch a call."""
+    dev = _cuda()
+    h, dh, t = (6, 64, 1500) if dtype == torch.bfloat16 else (4, 32, 16)
+    q, k, v = _dense_case(dev, t, b, 0, h, h, t, dh, dtype)
+    lens = torch.tensor(lens, device=dev, dtype=torch.int32)
+    before = dec_ops.launches
+    out, ref = _dense_both(q, k, v, lens, 0)
+    torch.cuda.synchronize()
+    assert dec_ops.launches == before + 1
+    torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+    if bool((lens == t).all()):   # no row masks the last tile but the bound T itself
+        pad = dec_ops.TILE - t % dec_ops.TILE
+        kp, vp = (torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad)) for x in (k, v))
+        other = decode_attention_ref(q.float(), kp, vp, lens + pad)
+        assert _l2(out.float() - ref) < 0.5 * _l2(ref - other)
+
+
+@pytest.mark.parametrize("dh", [64, 80, 128, 192])
+@pytest.mark.parametrize("kq", [1, 4])
+def test_panel_kernels_at_g6_match_plain(kq, dh):
+    """internvl2-26b's G 6 (48 heads on 8) in the four panel kernels: the
+    dense single-token decode and verify block, both paged kernels (a K-4
+    block takes two queries a panel), against the plain versions."""
+    dev = _cuda()
+    b, h, hk, t = 4, 48, 8, 417
+    q, k, v = _dense_case(dev, t + kq + dh, b, kq, h, hk, t, dh, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(t + kq + dh)
+    lens = torch.randint(0, t - kq + 1, (b,), device=dev, generator=g, dtype=torch.int32)
+    lens[0] = t - kq
+    out, ref = _dense_both(q, k, v, lens, kq)
+    torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
+    if kq == 1:
+        out, ref = _dense_both(q[:, 0].contiguous(), k, v, lens + 1, 0)
+        torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
+        plan = dec_ops.launch_plan(b, 4, t, hk, h // hk, dh, torch.bfloat16)
+        assert plan.kq_panel == 2 and plan.grid[2] == 2
+    q, kp, vp, tbl, sp, qpos = _paged_case(dev, g, b, kq, h, hk, dh, 16, t, torch.bfloat16)
+    f = [x.float() for x in (q, kp, vp)]
+    out = paged_ops.paged_decode_attention_block(q, kp, vp, tbl, sp, qpos)
+    ref = paged_decode_attention_block_ref(f[0], f[1], f[2], tbl, sp, qpos)
+    torch.testing.assert_close(out[:-1].float(), ref[:-1], rtol=2e-2, atol=2e-2)
+    one = paged_ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, tbl, sp)
+    ref1 = paged_decode_attention_ref(f[0][:, 0], f[1], f[2], tbl, sp)
+    torch.testing.assert_close(one[:-1].float(), ref1[:-1], rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-26b"])
+def test_frontend_smoke_stacks_on_the_card_match_the_cpu(arch):
+    """whisper-tiny's and internvl2-26b's smoke stacks (fp32) on the card
+    against the CPU: prefill with frames or prefix embeddings, 12 decode
+    steps; whisper's cross decode through the dense decode kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    dev = _cuda()
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(5, cfg.vocab_size, (2, 20), generator=gen)
+    steps = torch.randint(5, cfg.vocab_size, (12, 2), generator=gen)
+    extra = ({"frames": torch.randn(2, cfg.enc_frames, cfg.d_model, generator=gen)}
+             if model.is_encdec else
+             {"prefix_embeds": torch.randn(2, cfg.num_prefix_tokens, cfg.frontend_dim,
+                                           generator=gen)})
+    runs = []
+    for device in (torch.device("cpu"), dev):
+        p = _to(params, device)
+        reset_launch_counts()
+        batch = {"tokens": toks.to(device), **{k: x.to(device) for k, x in extra.items()}}
+        out, caches = model.prefill(p, batch, 20 + 12 + cfg.num_prefix_tokens)
+        seq = [out]
+        for tok in steps:
+            out, caches = model.decode_step(p, tok.to(device), caches)
+            seq.append(out)
+        runs.append(torch.stack(seq).cpu())
+        if device.type == "cuda":
+            pre, step = (encdec.attention_calls(cfg) if model.is_encdec else
+                         (cfg.num_layers, cfg.num_layers))
+            counts = launch_counts()
+            assert counts["flash_attention"] == pre and counts["decode_attention"] == 12 * step
+    torch.testing.assert_close(runs[1], runs[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-26b"])
+def test_train_cli_frontend_archs_on_the_card(arch, capsys):
+    """The train CLI's smoke run of whisper-tiny (fp32 flash at dh 32:
+    encoder, decoder and cross attention) and internvl2-26b (dh 16, G 4,
+    over 8 prefix positions): the loss falls, the flash launches a step are
+    the forward's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import encdec
+    _cuda()
+    cfg = get_config(arch, smoke=True)
+    before = flash_ops.launches
+    rc = train.main(["--steps", "20", "--arch", arch])
+    out = capsys.readouterr().out
+    assert rc == 0 and "(improved)" in out, out
+    per_step = encdec.attention_calls(cfg)[0] if cfg.enc_layers else cfg.num_layers
+    assert flash_ops.launches - before == 20 * per_step
+
+
 def test_danube_smoke_stack_on_the_card_matches_the_cpu():
     """h2o-danube-1.8b's smoke stack (fp32, dh 16, window 16) on the card
     against the CPU: a 24-token prompt laid out in the 16-slot ring, then 20

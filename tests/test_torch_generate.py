@@ -1,6 +1,7 @@
 """Port generation: greedy tokens, lengths and ended flags equal to the JAX
 package's for the same weights (with and without a prefix cache), and the
 port's fused decode equal to its host-loop oracle."""
+import dataclasses
 import types
 
 import jax
@@ -79,7 +80,7 @@ class _Script:
 
     def __init__(self, script):
         self.script = torch.as_tensor(script)
-        self.cfg = types.SimpleNamespace(max_seq_len=256)
+        self.cfg = types.SimpleNamespace(max_seq_len=256, num_prefix_tokens=0)
 
     def _logits(self, step):
         idx = min(step, self.script.shape[1] - 1)
@@ -148,12 +149,15 @@ def test_zero_budget_and_off_slice_options():
     fins = sorted(sess.drain(), key=lambda f: f["slot"])
     assert np.array_equal(np.stack([f["tokens"] for f in fins]), plain[0])
     assert sess.spec_stats["accepted"] > 0
-    # what stays off the slice: encoder-decoder stacks and frontends; a
-    # windowed stack builds but neither pages nor speculates, as in the
-    # reference
-    for unported in (PortModelConfig(enc_layers=2), PortModelConfig(frontend="vision_stub")):
-        with pytest.raises(NotImplementedError):
-            build_model(unported)
+    # an encoder-decoder builds and neither pages nor speculates; a frontend
+    # stack pages and speculates but has no prefix path: the reference's flags
+    for cfg in (PortModelConfig(enc_layers=2),
+                PortModelConfig(frontend="vision_stub", num_prefix_tokens=4, frontend_dim=8)):
+        got, want = build_model(cfg), jax_build_model(JaxModelConfig(**dataclasses.asdict(cfg)))
+        assert got.is_encdec == want.is_encdec == bool(cfg.enc_layers)
+        for flag in ("supports_prefix_prefill", "supports_paged_decode", "supports_spec_decode"):
+            on = not cfg.enc_layers and flag != "supports_prefix_prefill"
+            assert getattr(got, flag) is getattr(want, flag) is on
     windowed = build_model(PortModelConfig(sliding_window=16))
     assert not windowed.supports_paged_decode and not windowed.supports_spec_decode
     assert not windowed.supports_prefix_prefill

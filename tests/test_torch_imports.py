@@ -39,11 +39,14 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(files) > 20 and all(f.exists() for f in files)
     names = {f.relative_to(ROOT / "src").as_posix() for f in files[:-1]}
     configs = {f"repro_torch/configs/{m}.py" for m in (
-        "qwen2_5_3b", "deepseek_coder_33b", "h2o_danube_1_8b", "nemotron_4_340b")}
+        "qwen2_5_3b", "deepseek_coder_33b", "h2o_danube_1_8b", "nemotron_4_340b",
+        "whisper_tiny", "internvl2_26b")}
     assert {"repro_torch/core/distributed.py", "repro_torch/launch/mesh.py",
-            "repro_torch/serving/scheduler.py", "repro_torch/serving/continuous.py"} <= names
+            "repro_torch/serving/scheduler.py", "repro_torch/serving/continuous.py",
+            "repro_torch/models/encdec.py"} <= names
     assert configs <= names
     for mod in ("repro_torch.core.distributed", "repro_torch.launch.mesh",
+                "repro_torch.models.encdec",
                 *(n.removesuffix(".py").replace("/", ".") for n in sorted(configs))):
         importlib.import_module(mod)
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imported_modules(f)

@@ -506,6 +506,22 @@ def test_dense_plan_at_the_main_shapes(t, kq, chunk, nt):
     assert dec_ops.launch_plan(8, kq, t, 8, 4, 128, torch.float32).route == "panel"
 
 
+@pytest.mark.parametrize("kq,panel,panels", [(1, 1, 1), (4, 2, 2)])
+def test_g6_plan_at_internvl2_shapes(kq, panel, panels):
+    """internvl2-26b (B 4, H 48 / Hk 8, dh 128) over its 417 slots: G 6 is
+    admitted by every panel kernel; a K-4 verify block takes two queries a
+    panel (12 of the 16 columns), so two panels; the clusters stay within
+    one wave."""
+    assert 6 in dec_ops.BF16_SHAPES[1] and 6 in dec_ops.BF16_DECODE_SHAPES[1]
+    assert 6 in dec_ops.shapes_taken(torch.bfloat16, single=False)[1]
+    plan = dec_ops.launch_plan(4, kq, 417, 8, 6, 128, torch.bfloat16)
+    assert plan.route == "mma" and plan.kq_panel == panel and plan.grid[2] == panels
+    assert plan.kq_panel * 6 <= dec_ops.MAX_COLS
+    clusters = 4 * 8 * panels
+    assert clusters <= dec_ops.WAVE_CLUSTERS[plan.splits - 1]
+    assert plan.chunk * plan.splits >= 417 and plan.smem_bytes <= build.SMEM_PER_BLOCK
+
+
 @pytest.mark.parametrize("b,h,hk,t,dh", [(3, 8, 2, 45, 64), (2, 32, 8, 206, 128)])
 def test_single_token_decode_is_the_block_at_cache_len_minus_one(b, h, hk, t, dh):
     """What the single-token route relies on: decode over ``t < len`` is the

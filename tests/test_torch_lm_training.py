@@ -366,23 +366,23 @@ def test_train_cli_smoke_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("arch", sorted(jax_configs._MODULES))
 def test_config_registry(arch):
-    """The reference's ids: those the port builds resolve to copies of the
-    reference's configs; the rest raise, naming what they lack."""
-    if arch in configs.MISSING:
-        with pytest.raises(NotImplementedError, match=arch):
-            configs.get_config(arch)
-        with pytest.raises(NotImplementedError):
-            configs.skip_reason(arch, "long_500k")
-        return
+    """Every reference id resolves to a copy of the reference's config, field
+    by field, full and smoke, and the port builds it: a decoder through
+    ``transformer`` (``check_supported``), an encoder-decoder through
+    ``encdec``, as the reference's ``Model.is_encdec`` dispatches."""
     for smoke in (False, True):
         got, want = configs.get_config(arch, smoke), jax_configs.get_config(arch, smoke)
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
-        tf.check_supported(got)
+        model = build_model(got)
+        assert model.is_encdec == jax_build_model(want).is_encdec == bool(got.enc_layers)
+        if not got.enc_layers:
+            tf.check_supported(got)
     assert configs.skip_reason(arch, "long_500k") == jax_configs.skip_reason(arch, "long_500k")
 
 
 def test_config_registry_covers_the_reference():
     assert set(configs._MODULES) | set(configs.MISSING) == set(jax_configs._MODULES)
     assert not set(configs._MODULES) & set(configs.MISSING)
+    assert configs.MISSING == {}
     with pytest.raises(KeyError):
         configs.get_config("gpt-5")
