@@ -94,6 +94,22 @@ Prints one JSON object per line:
           the paged speculative Generator with its prefix and a paged
           ``DecodeSession`` over the prompts alone, held the same way; for a
           MoE, recurrent or frontend stack the train CLI's smoke run of the id;
+  shapes  the reference's assigned input shapes at its per-card batch, one
+          case at a time on an emptied card, through
+          ``launch.dryrun.run_one(..., device="cuda")``: llama-3.1-8b's
+          prefill_32k (B 2 x 32,768) and decode_32k (B 8 from caches filled at
+          random, pos 32,768: 32,769 live slots of 33,024), qwen2.5-3b's
+          train_4k (B 16 as 4 microbatches of 4 x 4,096, depth as the
+          dry-run's one-card plan cuts it) and the long_500k decode (B 1 at
+          pos 524,288) of h2o-danube-1.8b, recurrentgemma-9b and mamba2-130m;
+          a line each with the plan (batch, microbatches, layers), ms a step,
+          ``max_memory_allocated`` against the reckoned peak (under 80 GB),
+          kernel launches; a decode takes 8 greedy steps twice from the same
+          cache, bitwise equal and finite; then the kernel cases at these
+          shapes (``shape_kernel_cases``: the 32k flash held on its first
+          and last 128 query rows, whose plain version fits, the 4k flash,
+          the 32,769-slot decode and both rings at B 1), rows with thousands
+          of keys held to 4 bf16 ulps of their largest output;
   serve   the full-width stack (``build_stack(model="llama-3.1-8b")``, its
           embedder trained): a restored bank of random unit vectors, a few
           hundred populated pairs, then batches of 8 through
@@ -336,6 +352,9 @@ def check(name: str, err: float, tol: float) -> None:
         raise AssertionError(f"{name}: max abs error {err} exceeds tolerance {tol}")
 
 
+MANY_KEYS = 1024   # a decode row over this many keys has |out| of a few thousandths
+
+
 def every_key_tol(want) -> float:
     """The bf16 limit of a case that keeps every key (non-causal flash, a
     decode whose cache is full): its output is a mean over all of them, small
@@ -502,6 +521,57 @@ def flash_case(label, b, sq, prefix, h, hk, dh, block, impl, gen, dtype="bfloat1
     return row, (run, library, 10)
 
 
+def flash_rows_case(label, b, s, h, hk, dh, block, gen, rows: int = 128, reps: int = 3):
+    """The prefill kernel on a causal prompt of ``s`` tokens from position 0
+    (bf16, "xla_flash" as the model runs it past 2,048), held on a slice of
+    its rows: the first and the last ``rows`` queries of each row over
+    every key, since an output row depends on its own query alone and the
+    plain version of the whole (B, H, S, S) fp32 scores may not fit the
+    card.  Each slice is held to 4 bf16 ulps of its own largest output: the
+    last rows average thousands of keys to a few thousandths.  ``plain_ms``
+    times the plain version on the last ``rows`` queries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    dev = torch.device("cuda")
+    q = torch.randn(b, s, h, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+    k = torch.randn(b, s, hk, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+    v = torch.randn(b, s, hk, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+    pos = torch.arange(s, device=dev, dtype=torch.int32).expand(b, s).contiguous()
+    run = lambda: ops.flash_attention(q, k, v, pos, pos, causal=True, window=0,
+                                      block_q=block, block_k=block, impl="xla_flash")
+    out = run()
+    errs, tols = {}, {}
+    for part, sl in (("first", slice(0, rows)), ("last", slice(s - rows, s))):
+        want = ref.attend_naive(q[:, sl].float(), k.float(), v.float(), pos[:, sl], pos,
+                                True, 0)
+        errs[part] = (out[:, sl].float() - want).abs().max().item()
+        tols[part] = every_key_tol(want)
+        check(f"flash_attention[{label}] {part} {rows} rows", errs[part], tols[part])
+        del want
+    del out
+    last = slice(s - rows, s)
+    plain = lambda: ref.attend_blockwise(q[:, last], k, v, pos[:, last], pos, True, 0, block,
+                                         block)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                     enable_gqa=True)
+    pairs = b * h * s * (s + 1) // 2
+    moved = q.element_size() * (q.numel() * 2 + k.numel() + v.numel()) + 4 * 2 * s * b
+    bms, by = bound(moved, 4.0 * pairs * dh, "bf16")
+    row = {"phase": "kernel", "name": "flash_attention", "case": label,
+           "shape": {"B": b, "Sq": s, "Sk": s, "H": h, "Hk": hk, "dh": dh, "block": block,
+                     "impl": "xla_flash", "dtype": "bfloat16", "window": 0, "causal": True},
+           "library": "sdpa, is_causal", "checked_rows": {"first": rows, "last": rows},
+           "max_abs_err": max(errs.values()), "tolerance": min(tols.values()),
+           "slice_err": errs, "slice_tol": tols,
+           "ms": time_ms(run, reps=reps, warmup=1),
+           "plain_ms": time_ms(plain, reps=reps, warmup=1), "plain_rows": rows,
+           "library_ms": time_ms(library, reps=reps, warmup=1),
+           "bound_ms": bms, "bound_by": by}
+    return row, (run, library, reps)
+
+
 def suffix_bitwise_check(q, k, v, prefix, block, impl) -> bool:
     """The TWEAK suffix over a stored prefix against the inline prefill of
     the whole prompt: queries [P, P+S) over keys [0, P+S) must give bit for
@@ -614,7 +684,8 @@ def decode_case(label, b, h, hk, dh, t, cache_len, layers, gen, dtype="bfloat16"
     want = ref.decode_attention_ref(q.float(), ks[0].float(), vs[0].float(), lens)
     err = (out.float() - want).abs().max().item()
     full = cache_len == t       # every slot kept: only the bound T masks the last tile
-    tol = 1e-5 if dt == torch.float32 else every_key_tol(want) if full else 2e-2
+    many = full or cache_len >= MANY_KEYS
+    tol = 1e-5 if dt == torch.float32 else every_key_tol(want) if many else 2e-2
     check(f"decode_attention[{label}]", err, tol)
     form = {}
     if full and t % ops.TILE:    # the other form: zero slots padding T to a whole tile kept
@@ -1386,9 +1457,9 @@ def lm_train_phase(device, seed: int, sets):
             batch = _to_device(next(stream), device)
         _sync(device)
         t = time.perf_counter()
-        params, opt, metrics = step(params, opt, batch)      # reads the loss: synchronises
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))                # reads the loss: synchronises
         step_ms.append((time.perf_counter() - t) * 1e3)
-        losses.append(metrics["loss"])
     launches = flash_ops.launches - n0
     peak = torch.cuda.max_memory_allocated()
     del opt
@@ -2085,6 +2156,103 @@ def archs_phase(seed: int, device=None):
         out[arch] = line
     return {"phase": "archs", "seconds": time.perf_counter() - t_phase, "configs": out,
             "launches": launches}
+
+
+# the reference's assigned shapes the card runs (launch/shapes.py::INPUT_SHAPES)
+# at its per-card batch; the other assigned ids take them in the meta sweep
+SHAPE_CASES = (("llama-3.1-8b", "prefill_32k"), ("llama-3.1-8b", "decode_32k"),
+               ("qwen2.5-3b", "train_4k"), ("h2o-danube-1.8b", "long_500k"),
+               ("recurrentgemma-9b", "long_500k"), ("mamba2-130m", "long_500k"))
+
+
+def shapes_phase(seed: int):
+    """``SHAPE_CASES`` through ``launch.dryrun.run_one(..., device="cuda")``,
+    one at a time on an emptied card: the dry-run's one-card plan, run.
+    Prints a line a case and returns the phase line."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import attention_layers
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    out, launches = {}, {"flash_attention": 0, "decode_attention": 0}
+    for arch, shape in SHAPE_CASES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(arch, shape, device="cuda", seed=seed)
+        counts = kernels.launch_counts()
+        name = f"{arch}/{shape}"
+        if rec["status"] != "ok":
+            raise AssertionError(f"shapes[{name}]: {rec.get('error', rec.get('reason'))}")
+        card, plan = rec["card"], rec["one_card"]
+        if card["max_memory_allocated"] >= dryrun.CARD_BYTES:
+            raise AssertionError(f"shapes[{name}]: {card['max_memory_allocated']} bytes "
+                                 f"allocated at the peak, not under {dryrun.CARD_BYTES}")
+        cfg = get_config(arch)
+        want = ("flash_attention" if rec["kind"] != "decode" else "decode_attention"
+                if attention_layers(cfg) else None)
+        if want and not counts[want]:
+            raise AssertionError(f"shapes[{name}]: {want} was not launched")
+        for k in launches:
+            launches[k] += counts[k]
+        line = {"shape_case": name, "kind": rec["kind"], "seq_len": rec["seq_len"],
+                "batch": plan["batch"], "microbatches": plan["microbatches"],
+                "layers": plan["layers"], "full_layers": plan["full_layers"],
+                "held_gb": plan["held_bytes"] / 1e9, "budget_gb": plan["budget_bytes"] / 1e9,
+                "ms_per_step": card["ms_per_step"], "ms_first": card.get("ms_first"),
+                "peak_gb": card["max_memory_allocated"] / 1e9,
+                "reckoned_peak_gb": plan["peak_bytes"] / 1e9,
+                "peak_over_reckoned": card["max_memory_allocated"] / plan["peak_bytes"],
+                "flops_step": plan["flops"],
+                "tflops_per_s": plan["flops"] / card["ms_per_step"] / 1e9,
+                "flops_full_depth": rec["flops"], "peak_full_depth_gb": rec["peak_bytes"] / 1e9,
+                "launches": {k: v for k, v in counts.items() if v},
+                "reckon_s": rec["reckon_s"], "seconds": time.perf_counter() - t0}
+        for key in ("ms_steps", "bitwise_repeat", "pos", "losses"):
+            if key in card:
+                line[key] = card[key]
+        print(json.dumps(line), flush=True)
+        out[name] = line
+        del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "shapes", "seconds": time.perf_counter() - t_phase, "cases": out,
+            "launches": launches, "card_bytes": dryrun.CARD_BYTES, "headroom": dryrun.HEADROOM}
+
+
+def shape_kernel_cases(gen):
+    """The flash and decode kernels at the shapes the ``shapes`` phase
+    drives: llama-3.1-8b's 32,768-token prefill (B 2, H 32 / 8, dh 128) held
+    on row slices, qwen2.5-3b's microbatch of 4 x 4,096 (H 16 / 2), the
+    dense decode over 32,769 live slots of 33,024 (B 8, one layer's cache:
+    1.1 GB, far past the L2), and the rings at position 524,288 (B 1):
+    danube's 4,096 slots at dh 80 over its 24 layers, recurrentgemma's
+    2,048 at dh 256 (G 16) over its 12 attention layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import INPUT_SHAPES, decode_capacity
+    from repro_torch.models.transformer import attention_layers
+    llama, qwen = get_config("llama-3.1-8b"), get_config("qwen2.5-3b")
+    s32, s4 = INPUT_SHAPES["prefill_32k"][0], INPUT_SHAPES["train_4k"][0]
+    cases = [
+        flash_rows_case("prefill-32k", 2, s32, llama.num_heads, llama.num_kv_heads,
+                        llama.resolved_head_dim, llama.flash_block_k, gen),
+        flash_rows_case("train-4k", 4, s4, qwen.num_heads, qwen.num_kv_heads,
+                        qwen.resolved_head_dim, qwen.flash_block_k, gen),
+        decode_case("decode-32k", 8, llama.num_heads, llama.num_kv_heads,
+                    llama.resolved_head_dim, decode_capacity(INPUT_SHAPES["decode_32k"][0]),
+                    INPUT_SHAPES["decode_32k"][0] + 1, 1, gen),
+    ]
+    for arch, label in (("h2o-danube-1.8b", "danube-ring-500k"),
+                        ("recurrentgemma-9b", "rg-ring-500k")):
+        cfg = get_config(arch)
+        w = cfg.sliding_window
+        cases.append(decode_case(label, 1, cfg.num_heads, cfg.num_kv_heads,
+                                 cfg.resolved_head_dim, w, w, attention_layers(cfg), gen))
+    return cases
 
 
 def serve_cli_phase():
@@ -3495,6 +3663,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    # the shapes phase plans a step to fill the card beside the tensors the
+    # kernel cases hold until they are profiled; a fixed-segment cache can
+    # leave GBs of freed blocks too small for its 9 GB logits
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3521,6 +3693,7 @@ def main(argv=None) -> int:
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build.build_seconds,
           "device_count": torch.cuda.device_count(),
+          "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
           "kernel_resources": resources, "sass_opcodes": sass, "wave_clusters": waves})
     for kernel in ("flash_fwd_mma_kernel", "panel_mma_kernel"):   # flash; attention panels
         mma = [v for k, v in sass.items() if k.startswith(kernel)]
@@ -3555,6 +3728,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     archs = archs_phase(args.seed)
     emit(archs)
+    shapes = shapes_phase(args.seed)
+    emit(shapes)
+    checked += shape_kernel_cases(torch.Generator(device="cuda").manual_seed(args.seed))
+    mark("shape_kernel_cases")
     serve, launches, eng, spare, plan, served = serve_phase(
         "llama-3.1-8b", torch.device("cuda"), args.seed, N_BATCHES, MAX_NEW_TOKENS)
     emit(serve)
@@ -3611,8 +3788,10 @@ def main(argv=None) -> int:
     summary[0].update(launches_lm_train=lm_train["flash_launches"],
                       launches_judge=judge["flash_launches"],
                       launches_archs=archs["launches"]["flash_attention"])
+    summary[0]["launches_shapes"] = shapes["launches"]["flash_attention"]
     summary[1].update(launches_archs=archs["launches"]["decode_attention"],
-                      launches_serve_cli=serve_cli["kernel_launches"]["decode_attention"])
+                      launches_serve_cli=serve_cli["kernel_launches"]["decode_attention"],
+                      launches_shapes=shapes["launches"]["decode_attention"])
     for row in summary[3:6]:   # the verify and paged kernels: qwen3-moe's paths at G 16
         row["launches_archs"] = archs["launches"][row["name"]]
     for row in summary:    # every case of the kernel, the summary's own included

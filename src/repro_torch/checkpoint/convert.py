@@ -346,3 +346,17 @@ def torch_params_to_jax(params, cfg: ModelConfig) -> Dict[str, np.ndarray]:
 def torch_param_dtypes(params, cfg: ModelConfig) -> Dict[str, str]:
     """{path: original dtype name} of ``torch_params_to_jax``'s leaves."""
     return {k: str(t.dtype).removeprefix("torch.") for k, t in _jax_leaves(params, cfg)}
+
+
+def jax_leaf_shapes(params, cfg: ModelConfig) -> Dict[str, tuple]:
+    """{path: (shape, torch dtype)} of ``torch_params_to_jax``'s leaves,
+    without reading a value: the same walk over meta copies of the leaves
+    (stacking and splitting meta tensors allocates nothing), so it takes a
+    tree on the meta device, the CPU or the card alike."""
+    def meta(t):
+        if isinstance(t, dict):
+            return {k: meta(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(meta(v) for v in t)
+        return t.detach().to("meta")
+    return {k: (tuple(t.shape), t.dtype) for k, t in _jax_leaves(meta(params), cfg)}

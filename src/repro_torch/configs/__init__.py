@@ -29,6 +29,12 @@ _MODULES = {
     "internvl2-26b": "internvl2_26b",
 }
 
+# the ten assigned architectures, every id but the paper's own llama-3.1-8b, in
+# the reference's order (the dry-run's ``--all`` walks them so)
+ASSIGNED_ARCHS = ("whisper-tiny", "qwen2.5-3b", "recurrentgemma-9b", "deepseek-coder-33b",
+                  "h2o-danube-1.8b", "internvl2-26b", "arctic-480b", "mamba2-130m",
+                  "qwen3-moe-235b-a22b", "nemotron-4-340b")
+
 # what each reference id needs that the port does not build yet (none now)
 MISSING: dict = {}
 

@@ -11,7 +11,10 @@ ones (``paged_attention.ops``), is cut; it mirrors the constants of
 tensor cores, one block per (row, KV head, split of 64-slot tiles, panel
 of at most 16 (query, head) rows), its splits merged inside their
 thread-block cluster: one launch, no scratch.  fp32 runs on the CUDA cores
-and merges its splits in a second launch through fp32 scratch.
+and merges its splits in a second launch through fp32 scratch.  A meta
+tensor given to ``decode_attention`` (the dry-run) gets an empty output and
+adds 4 * dh FLOPs per (head, cache slot) to ``kernels.meta.flops``, the
+whole capacity taken as live since meta lengths have no values.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import build
+from .. import build, meta
 from .ref import decode_attention_block_ref, decode_attention_ref
 
 launches = 0
@@ -192,6 +195,9 @@ def decode_attention(q, k, v, cache_len):
     """q (B,H,dh) vs cache k/v (B,T,Hk,dh), valid prefix cache_len (B,) int32."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, cache_len)
+    if q.device.type == "meta":
+        b, h, dh = q.shape
+        return meta.output(q, 4 * dh * b * h * k.shape[1])
     global launches
     dev = build.require_cuda("decode_attention", q, k, v, cache_len)
     b, _, t, hk, g, dh = _check_qkv("decode_attention", q, k, v, False)

@@ -3,7 +3,9 @@
 Replaces ``src/repro/kernels/flash_attention`` (the Pallas kernel) with
 ``csrc/flash_attention.cu``, which computes the position-aware function of
 ``_attend_xla_flash``.  A CPU tensor takes the plain version in ``ref``; a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises; a meta tensor (the dry-run)
+gets an empty output and adds 4 * dh FLOPs per allowed (query, key, head)
+to ``kernels.meta.flops``.
 
 The call is differentiable: when grad mode is on and q, k or v requires
 grad it runs inside a ``torch.autograd.Function`` whose forward is that same
@@ -23,7 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import build
+from .. import build, meta
 from . import ref
 
 launches = 0
@@ -132,6 +134,10 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, block_q, block_k, impl):
             return ref.attend_naive(q, k, v, q_pos, k_pos, causal, window)
         return ref.attend_blockwise(q, k, v, q_pos, k_pos, causal, window,
                                     block_q, block_k)
+    if q.device.type == "meta":
+        b, sq, h, dh = q.shape
+        return meta.output(q, 4 * dh * b * h * meta.attention_pairs(sq, k.shape[1], causal,
+                                                                    window))
     global launches
     dev = build.require_cuda("flash_attention", q, k, v, q_pos, k_pos)
     b, sq, h, dh = q.shape

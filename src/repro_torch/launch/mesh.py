@@ -1,9 +1,16 @@
-"""The device list a row-sharded cache bank runs on (counterpart of
-``src/repro/launch/mesh.py::make_cache_mesh``).
+"""Meshes of the port (counterpart of ``src/repro/launch/mesh.py``).
 
-The reference is single-controller: one process drives every shard of the
+Two kinds.  A :class:`NamedMesh` is a named shape and holds no devices: the
+reference's production meshes, (16, 16) ("data", "model") and (2, 16, 16)
+("pod", "data", "model"), on which the placement rules of
+``launch.sharding`` and the dry-run reckon per-device bytes, as the
+reference reads ``Mesh.shape[axis]``.  No collective is issued on it: one
+process drives one card.
+
+The device list of a row-sharded cache bank (``make_cache_mesh``): the
+reference is single-controller, one process driving every shard of the
 bank through ``shard_map``, and every replica of a group calls the same
-bank object.  The port keeps that design, so its mesh is a tuple of torch
+bank object.  The port keeps that design, so that mesh is a tuple of torch
 devices that one process drives, shard ``j`` on ``mesh[j]``, and not a
 ``torch.distributed`` process group.  The shards' replicated scalars (ring
 pointer, clock, centroids, admission statistics) live on ``mesh[0]``, where
@@ -11,9 +18,53 @@ the queries of the serving engine are.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedMesh:
+    """A mesh as a named shape: ``axis_names`` in order and ``shape`` {axis:
+    size}, read by the placement rules as the reference reads its ``Mesh``."""
+    axis_names: Tuple[str, ...]
+    shape: Dict[str, int]
+
+    @classmethod
+    def of(cls, sizes, names) -> "NamedMesh":
+        if len(sizes) != len(names):
+            raise ValueError(f"{len(sizes)} sizes for axes {names}")
+        return cls(tuple(names), dict(zip(names, (int(n) for n in sizes))))
+
+    @property
+    def name(self) -> str:
+        """"16x16" or "2x16x16", the dry-run's file-name form."""
+        return "x".join(str(self.shape[a]) for a in self.axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> NamedMesh:
+    """The reference's production mesh: (16, 16) ("data", "model"), or
+    (2, 16, 16) ("pod", "data", "model") with ``multi_pod``."""
+    if multi_pod:
+        return NamedMesh.of((2, 16, 16), ("pod", "data", "model"))
+    return NamedMesh.of((16, 16), ("data", "model"))
+
+
+def make_host_mesh(model: int = 1) -> NamedMesh:
+    """A ("data", "model") mesh over the CUDA devices present, ``model`` of
+    them along "model"; raises when there are none or ``model`` does not
+    divide their count (the reference asserts it)."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0 or n % model:
+        raise ValueError(f"a host mesh with model={model} needs a multiple of {model} "
+                         f"CUDA devices, have {n}")
+    return NamedMesh.of((n // model, model), ("data", "model"))
+
+
+def batch_axes(mesh) -> tuple:
+    """Mesh axes the batch dimension shards over."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
 def make_cache_mesh(n_shards: int, devices: Optional[Sequence] = None

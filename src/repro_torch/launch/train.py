@@ -27,6 +27,7 @@ from repro_torch.checkpoint import save_checkpoint, torch_param_dtypes, torch_pa
 from repro_torch.configs import get_config
 from repro_torch.data import token_stream_batches
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.launch.shapes import frontend_shapes
 from repro_torch.models.model import build_model
 from repro_torch.tokenizer import HashWordTokenizer
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
@@ -35,17 +36,11 @@ from repro_torch.training.optimizer import tree_leaves
 
 def frontend_inputs(cfg, b: int, rng, device) -> dict:
     """The stub frontend's random inputs of ``b`` rows in the model dtype,
-    drawn from ``rng`` in the reference's order and shapes: ``frames`` (B,
-    F, d) for an audio or encoder-decoder id, ``prefix_embeds`` (B, P,
-    frontend_dim) for a vision stub; none for a text-only stack."""
-    random = lambda *shape: torch.as_tensor(rng.standard_normal(shape)).to(
-        device=device, dtype=torch_dtype(cfg.dtype))
-    out = {}
-    if cfg.family in ("audio", "encdec"):
-        out["frames"] = random(b, cfg.enc_frames, cfg.d_model)
-    if cfg.frontend == "vision_stub":
-        out["prefix_embeds"] = random(b, cfg.num_prefix_tokens, cfg.frontend_dim)
-    return out
+    shaped by ``shapes.frontend_shapes`` and drawn from ``rng`` in the
+    reference's order."""
+    return {name: torch.as_tensor(rng.standard_normal(shape)).to(
+                device=device, dtype=torch_dtype(cfg.dtype))
+            for name, shape in frontend_shapes(cfg, b).items()}
 
 
 def main(argv=None):
@@ -88,13 +83,13 @@ def main(argv=None):
         batch = {k: torch.as_tensor(v).to(device) for k, v in next(stream).items()}
         batch.update(frontend_inputs(cfg, args.batch, rng, device))
         params, opt, metrics = step_fn(params, opt, batch)
-        loss = metrics["loss"]
+        last = metrics["loss"]          # a 0-d tensor, read only where printed
         if first is None:
-            first = loss
-        last = loss
+            first = float(last)
         if step % args.log_every == 0 or step == args.steps - 1:
             tps = args.batch * args.seq * (step + 1) / (time.time() - t0)
-            print(f"step {step:4d} loss {loss:.4f} tok/s {tps:,.0f}")
+            print(f"step {step:4d} loss {float(last):.4f} tok/s {tps:,.0f}")
+    last = float(last)
     print(f"loss {first:.4f} -> {last:.4f} "
           f"({'improved' if last < first else 'NO IMPROVEMENT'})")
     if args.ckpt_dir:

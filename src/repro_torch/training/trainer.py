@@ -5,8 +5,10 @@ returns ``train_step(params, opt_state, batch) -> (params, opt_state,
 metrics)``, which updates the parameter tree in place (``adamw_update``)
 and returns it for the reference's calling convention.  With
 ``microbatches > 1`` the batch axis is split and the gradients accumulate in
-fp32, the memory lever of the reference.  A step reads one host scalar, the
-loss (``metrics["loss"]`` is a float), as the reference's caller reads it.
+fp32, the memory lever of the reference.  A step reads nothing back from
+the device: the loss comes back as a 0-d tensor (``metrics["loss"]``) and the
+learning-rate scale stays a tensor, as in the reference; the caller reads
+the loss where it prints or records it.
 """
 from __future__ import annotations
 
@@ -84,9 +86,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *, microbatches: int = 1
             metrics = {}
         lr_scale = cosine_schedule(opt_state["step"], warmup=warmup, total=total_steps)
         params, opt_state = adamw_update(params, grads, opt_state, opt_cfg,
-                                         lr_scale=float(lr_scale))
+                                         lr_scale=lr_scale)
         metrics = dict(metrics)
-        metrics["loss"] = loss.item()
+        metrics["loss"] = loss
         return params, opt_state, metrics
 
     return train_step

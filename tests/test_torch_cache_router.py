@@ -11,6 +11,7 @@ from repro.core import router as jax_router
 from repro_torch.core import cache as port_cache
 from repro_torch.core import router as port_router
 from repro_torch.core.engine import SharedCacheBank
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 DIM, QT, RT = 32, 8, 12
 

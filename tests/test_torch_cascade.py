@@ -43,6 +43,7 @@ from repro_torch.models.reranker import tiny_reranker_config
 from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.tokenizer import HashWordTokenizer
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 DIM, QT, RT, VOCAB = 16, 6, 6, 512
 RR_CFG = tiny_reranker_config(VOCAB)

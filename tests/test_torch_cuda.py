@@ -264,7 +264,7 @@ def test_card_step_trains_the_attention_weights(dtype):
                                    atol=tol * float(b.abs().max().float()))
     step = make_train_step(model, AdamWConfig(lr=1e-3), total_steps=4)
     _, opt, metrics = step(card, init_opt_state(card), _lm_batch(cfg, dev))
-    assert opt["step"] == 1 and np.isfinite(metrics["loss"])
+    assert opt["step"] == 1 and np.isfinite(float(metrics["loss"]))
 
 
 @pytest.mark.parametrize("impl", ["xla_flash", "naive"])
@@ -1483,3 +1483,89 @@ def test_sharded_bank_across_cards_matches_the_local_bank():
         slot = torch.tensor([3, 256 * n - 1], device=dev)
         assert torch.equal(cache_lib.gather_rows(sharded.state, "q_tokens", slot),
                            local.state["q_tokens"][slot])
+
+
+# ------------------------------------------------- the assigned shapes (32k, 500k)
+
+def _every_key_tol(want) -> float:
+    """4 bf16 ulps of max |want|, at most 2e-2: a row over thousands of keys
+    has |out| of a few thousandths, where 2e-2 would pass a wrong kernel."""
+    top = want.abs().max().item()
+    return min(2e-2, 4 * 2.0 ** (np.floor(np.log2(top)) - 7)) if top > 0 else 2e-2
+
+
+def test_flash_at_32k_matches_plain_on_row_slices():
+    """The prefill kernel at prefill_32k's length (B 1, 32,768 causal
+    positions, H 32 / 8, dh 128, "xla_flash" blocks of 128): the first and
+    last 128 query rows over every key against the plain version, each
+    slice to 4 bf16 ulps of its own largest output.  A row depends only on
+    its own query; the whole plain version would need 137 GB of scores."""
+    dev = _cuda()
+    b, s, h, hk, dh, rows = 1, 32_768, 32, 8, 128, 128
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(b, s, h, dh, device=dev, generator=g, dtype=torch.bfloat16)
+    k = torch.randn(b, s, hk, dh, device=dev, generator=g, dtype=torch.bfloat16)
+    v = torch.randn(b, s, hk, dh, device=dev, generator=g, dtype=torch.bfloat16)
+    pos = torch.arange(s, device=dev, dtype=torch.int32)[None]
+    before = flash_ops.launches
+    out = flash_ops.flash_attention(q, k, v, pos, pos, causal=True, window=0, block_q=128,
+                                    block_k=128, impl="xla_flash")
+    assert flash_ops.launches == before + 1
+    for sl in (slice(0, rows), slice(s - rows, s)):
+        want = attend_naive(q[:, sl].float(), k.float(), v.float(), pos[:, sl], pos, True, 0)
+        tol = _every_key_tol(want)
+        torch.testing.assert_close(out[:, sl].float(), want, rtol=0, atol=tol)
+    assert tol < 2e-3          # the last rows: a few thousandths, held tight
+
+
+@pytest.mark.parametrize("b,h,hk,dh,t,live", [
+    (2, 32, 8, 128, 33_024, 32_769),   # decode_32k: pos 32,768 in a 33,024-slot cache
+    (1, 32, 8, 80, 4_096, 4_096),      # danube's ring at long_500k, full
+    (1, 16, 1, 256, 2_048, 2_048),     # recurrentgemma's ring at long_500k, full
+])
+def test_decode_at_the_assigned_lengths_matches_plain(b, h, hk, dh, t, live):
+    """The dense decode kernel over the caches the assigned decode shapes
+    hold, at small batch: 4 bf16 ulps of max |want|, one launch a call."""
+    dev = _cuda()
+    q, k, v = _dense_case(dev, 11, b, 0, h, hk, t, dh, torch.bfloat16)
+    lens = torch.full((b,), live, device=dev, dtype=torch.int32)
+    before = dec_ops.launches
+    out, ref = _dense_both(q, k, v, lens, 0)
+    assert dec_ops.launches == before + 1
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=_every_key_tol(ref))
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "recurrentgemma-9b"])
+def test_smoke_ring_decode_at_position_524288_on_the_card_matches_the_cpu(arch):
+    """The smoke stacks from caches filled as the long_500k run fills them
+    (``launch.dryrun.fill_decode_caches``, pos 524,288): 4 decode steps on
+    the card (rope at positions past 2**19, the ring kernel at fp32) against
+    the CPU, and a launch a layer a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import decode_capacity
+    dev = _cuda()
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    pos = 524_288
+    caches = model.init_caches(2, decode_capacity(pos), "cpu")
+    dryrun.fill_decode_caches(caches, pos, torch.Generator().manual_seed(1))
+    steps = torch.randint(5, cfg.vocab_size, (4, 2), generator=torch.Generator().manual_seed(2),
+                          dtype=torch.int32)
+    runs = []
+    for device in (torch.device("cpu"), dev):
+        p = _to(params, device)
+        # copies on both devices: decode writes its caches in place
+        c = {group: [{k: t.to(device, copy=True) for k, t in e.items()}
+                     for e in caches[group]] for group in ("scan", "rem")}
+        c["pos"] = pos
+        reset_launch_counts()
+        seq = []
+        for tok in steps:
+            out, c = model.decode_step(p, tok.to(device), c)
+            seq.append(out.cpu())
+        runs.append(torch.stack(seq))
+        if device.type == "cuda":
+            assert launch_counts()["decode_attention"] == 4 * attention_layers(cfg)
+    torch.testing.assert_close(runs[1], runs[0], rtol=1e-4, atol=1e-4)

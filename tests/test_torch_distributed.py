@@ -36,6 +36,7 @@ from repro_torch.core import router
 from repro_torch.core.engine import SharedCacheBank
 from repro_torch.launch.mesh import make_cache_mesh
 from repro_torch.models.reranker import tiny_reranker_config
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 DIM, QT, RT, VOCAB, CAP = 16, 6, 6, 512, 64
 RR_CFG = tiny_reranker_config(VOCAB)

@@ -26,6 +26,7 @@ from repro_torch.models import build_model
 from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.tokenizer import HashWordTokenizer
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 VOCAB, CAPACITY, THRESHOLD, MNT = 4096, 64, 0.96, 6
 

@@ -26,6 +26,7 @@ from repro_torch.data import QuestionPairGenerator, synthesize_response
 from repro_torch.eval import judge
 from repro_torch.models import ModelConfig, build_model
 from repro_torch.tokenizer import HashWordTokenizer
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 VOCAB = 512
 

@@ -12,6 +12,7 @@ from repro_torch.core import tweak as port_tweak
 from repro_torch.data import questions as port_questions
 from repro_torch.serving import batcher as port_batcher
 from repro_torch.tokenizer import HashWordTokenizer as PortTokenizer
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 TEXTS = ["how do i learn python setup", "What's the PRICE of solar panels?!",
          "", "why is keto diet good answer briefly", "a b c " * 30]

@@ -23,6 +23,7 @@ from repro_torch.models import build_model
 from repro_torch.serving.continuous import DecodeSession
 from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.sampler import SamplerConfig, greedy_ids, mask_vocab
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 VOCAB, EOS = 512, 2
 

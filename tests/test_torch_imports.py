@@ -15,6 +15,7 @@ from repro_torch.kernels import build, launch_counts, reset_launch_counts
 from repro_torch.launch.mesh import make_cache_mesh
 from repro_torch.launch.serve import build_embedder, build_engine, build_replica_group
 from repro_torch.models.embedder import tiny_embedder_config
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -43,10 +44,14 @@ def test_port_imports_neither_jax_nor_reference():
         "whisper_tiny", "internvl2_26b")}
     assert {"repro_torch/core/distributed.py", "repro_torch/launch/mesh.py",
             "repro_torch/serving/scheduler.py", "repro_torch/serving/continuous.py",
-            "repro_torch/models/encdec.py"} <= names
+            "repro_torch/models/encdec.py", "repro_torch/launch/shapes.py",
+            "repro_torch/launch/sharding.py", "repro_torch/launch/dryrun.py",
+            "repro_torch/kernels/meta.py"} <= names
     assert configs <= names
     for mod in ("repro_torch.core.distributed", "repro_torch.launch.mesh",
-                "repro_torch.models.encdec",
+                "repro_torch.models.encdec", "repro_torch.launch.shapes",
+                "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
+                "repro_torch.kernels.meta",
                 *(n.removesuffix(".py").replace("/", ".") for n in sorted(configs))):
         importlib.import_module(mod)
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imported_modules(f)
@@ -192,6 +197,18 @@ def test_train_cli_needs_a_card_by_default():
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--steps", "1"])
+
+
+def test_dry_run_needs_a_card_unless_it_only_reckons():
+    """``run_one`` runs the one-card plan on the card by default and raises
+    without one before reckoning; ``device="meta"`` only reckons."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.launch import dryrun
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.run_one("mamba2-130m", "long_500k")
+    rec = dryrun.run_one("mamba2-130m", "long_500k", device="meta", reckon_step=False)
+    assert rec["status"] == "ok" and "card" not in rec
 
 
 SLICE_8 = ("models/moe.py", "configs/arctic_480b.py", "configs/qwen3_moe_235b.py")

@@ -14,6 +14,7 @@ from repro_torch.checkpoint import jax_cache_state_to_torch
 from repro_torch.core import cache as port_cache
 from repro_torch.core import index as port_index
 from repro_torch.core import router as port_router
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 DIM, QT, RT = 16, 4, 6
 

@@ -12,6 +12,7 @@ from repro.core import TweakLLMEngine as JaxEngine
 from repro.launch.serve import build_stack as jax_build_stack
 from repro_torch.core import router
 from test_torch_engine import CAPACITY, MNT, THRESHOLD, VOCAB, _port_engine, _trace
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 CASES = {
     # full probe: the flat scan's results (tests/test_index.py's engine check)

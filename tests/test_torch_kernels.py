@@ -28,6 +28,7 @@ from repro_torch.kernels.decode_attention.ref import (decode_attention_block_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attend_blockwise, attend_naive
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 TOL = 2e-5
 

@@ -48,6 +48,7 @@ from repro_torch.tokenizer import HashWordTokenizer
 from repro_torch.training import AdamWConfig, init_opt_state, make_eval_step, make_train_step
 from repro_torch.training.optimizer import tree_leaves
 from repro_torch.training.trainer import microbatch_value_and_grad, value_and_grad
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 SMOKE = llama31_8b.SMOKE_CONFIG                   # 2L d128 8H/2kv dh16, vocab 512, fp32
 IMPLS = {"naive": SMOKE.replace(attention_impl="naive"),
@@ -239,9 +240,10 @@ def test_train_steps_match_jax(microbatches):
     opt, losses = init_opt_state(pp), []
     for batch in batches:
         pp, opt, metrics = step(pp, opt, _t(batch))
-        assert isinstance(metrics["loss"], float)
+        # the step reads nothing back: the loss is a 0-d tensor, read here
+        assert torch.is_tensor(metrics["loss"]) and metrics["loss"].dim() == 0
         assert set(metrics) == ({"loss"} if microbatches > 1 else {"loss", "ce", "aux", "tokens"})
-        losses.append(metrics["loss"])
+        losses.append(float(metrics["loss"]))
     assert opt["step"] == 3
     np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
     want = jax_params_to_torch(_flatten(jp), cfg, device="cpu")

@@ -26,6 +26,7 @@ from repro_torch.models import ModelConfig, build_model
 from repro_torch.models import embedder as port_embedder
 from repro_torch.models.attention import decode_attention
 from repro_torch.launch.serve import model_configs
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

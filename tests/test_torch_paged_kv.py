@@ -30,6 +30,7 @@ from repro_torch.serving import paged_kv
 from repro_torch.serving.continuous import leaked_pages
 from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.sampler import SamplerConfig
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 TOL = 2e-5
 VOCAB, EOS, MNT = 128, 2, 6

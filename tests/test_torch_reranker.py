@@ -20,6 +20,7 @@ from repro_torch.checkpoint import jax_params_to_torch
 from repro_torch.launch.serve import model_configs
 from repro_torch.models import reranker
 from repro_torch.models.embedder import MINILM_CONFIG
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 CFG = reranker.tiny_reranker_config(vocab_size=512)
 JPARAMS = jax_init_reranker(jax.random.PRNGKey(0), CFG)

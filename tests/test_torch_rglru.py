@@ -24,6 +24,7 @@ from repro.models import ModelConfig as JaxModelConfig
 from repro.models import rglru as jrglru
 from repro_torch import configs
 from repro_torch.models import rglru
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

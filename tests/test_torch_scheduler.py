@@ -12,6 +12,7 @@ from repro.serving import scheduler as jax_sched
 from repro_torch.core.router import RouterConfig
 from repro_torch.launch import serve
 from repro_torch.serving import scheduler as port_sched
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 
 @dataclasses.dataclass

@@ -24,6 +24,7 @@ from repro_torch.serving.continuous import (DecodeSession, FinishedRow, NoFreeSl
 from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.paged_kv import PagePoolExhausted
 from repro_torch.serving.sampler import SamplerConfig
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 VOCAB, EOS, MNT, S = 128, 2, 6, 7
 CAP = S + MNT + 1

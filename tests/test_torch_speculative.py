@@ -39,6 +39,7 @@ from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.tokenizer import HashWordTokenizer
 from repro_torch.tokenizer.tokenizer import SPECIAL_TOKENS
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 TOL = 2e-5
 VOCAB, EOS, MNT = 128, 2, 8

@@ -25,6 +25,7 @@ from repro.models import ModelConfig as JaxModelConfig
 from repro.models import ssm as jssm
 from repro_torch import configs
 from repro_torch.models import ssm
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

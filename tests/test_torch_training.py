@@ -34,6 +34,7 @@ from repro_torch.models.embedder import tiny_embedder_config
 from repro_torch.models.reranker import tiny_reranker_config
 from repro_torch.tokenizer import HashWordTokenizer
 from repro_torch.training import embedder_train, optimizer, reranker_train
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 VOCAB = 512
 

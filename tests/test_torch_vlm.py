@@ -41,6 +41,7 @@ from repro_torch.serving.generate import GenerateConfig, Generator
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.training.optimizer import tree_leaves
 from repro_torch.training.trainer import value_and_grad
+from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # the VLM of tests/test_system.py::test_decode_matches_forward_vlm
