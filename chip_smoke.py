@@ -55,6 +55,13 @@ Prints one JSON object per line:
           default (qwen2.5-3b's smoke config) returns 0 with one flash
           launch a layer a step (its fp32 dh-32 flash shape is a kernel case,
           ``train-cli-default-smoke-fp32``);
+  zero_train ``launch.zero_trainer.make_zero_train_step`` on a one-rank NCCL
+          group (an in-memory store: no port): llama-3.1-8b at full width, 2
+          of 32 layers, batch 8 x 128 as 4 microbatches, 3 steps, one
+          all-reduce a step of a flat fp32 bucket (the gradients and the loss);
+          losses and every parameter bit for bit equal to 3 steps of
+          ``make_train_step(microbatches=4)`` from the same start (kept on the
+          host meanwhile); step ms, peak memory, flash launches;
   judge   that trained model as referee: mean log-likelihood of 48 big,
           small and word-shuffled big responses before and after training
           (after: real above shuffled), ms per set, flash launches, two rows
@@ -163,6 +170,18 @@ Prints one JSON object per line:
   baseline the GPTCache baseline (embed, top-k, rerank, verbatim) on a bank
           of 262,144 rows holding the populated pairs: precision and recall
           of ``get`` over a held-out duplicate and hard negative of each;
+  analysis the hot-path analyzer on the card: ``analysis.contracts.run_all(
+          device="cuda")`` (every registered hot path at the reference's tiny
+          buckets, twice), then one more batch of the plan's traffic (8
+          queries: 2 EXACT, 3 TWEAK, 3 MISS, screened beforehand by a
+          read-only lookup) through the serve engine, and one plain and one
+          speculative (k 4) ``Generator`` call, each under the
+          TorchFunctionMode sync counter and ``set_sync_debug_mode("warn")``:
+          the syncs each method counted, by site, against the budget (1 route
+          fetch, +1 with UNCERTAIN rows, +1 a generator call, +1 an insert; 1
+          a plain call; ``spec_steps + 2``), the bank's leaves kept in place,
+          the batch's wall time with and without the modes (the latter on a
+          second batch of the same make-up), its kernel launches;
   profile where the time goes, after the serve run: one small-model decode
           step timed alone (host enqueue, wall and device time), then one
           more serve batch under ``torch.profiler`` (wall time, device-busy
@@ -170,7 +189,8 @@ Prints one JSON object per line:
           decode of that batch (device-busy ms, the paged kernels' share);
   kernels the ported kernels with their launches on the path that runs
           them (serve for the dense kernels, paged, spec, ivf; flash also
-          its launches in lm_train and judge);
+          its launches in lm_train, zero_train and judge; flash, dense decode
+          and the flat scan also the analysed serve batch's);
   wall    the script's wall time, the seconds before each phase's line
           (``phase_s``: ``kernel_cases`` the cases' checks, ``kernel`` their
           profiled device times, ``wall`` the summary), and how many
@@ -1544,6 +1564,116 @@ def judge_phase(model, params, tok, sets, before, device, seed: int):
                                     "mean_margin_by_persona": {
                                         p.name: float(margins[:, i].mean())
                                         for i, p in enumerate(PERSONAS)}}}
+
+
+# ------------------------------------------------------------------ the zero trainer
+
+ZERO_LAYERS = 2     # llama-3.1-8b at full width, depth cut: 2 layers keep the phase's time
+#                     and memory down (params 3.0 GB bf16, moments 11.9 GB, the fp32
+#                     bucket 6.0 GB)
+ZERO_MICRO, ZERO_STEPS = 4, 3
+
+
+def zero_train_phase(device, seed: int):
+    """``launch.zero_trainer.make_zero_train_step`` on a one-rank process
+    group (NCCL on the card, gloo on the CPU; an in-memory store, no port):
+    llama-3.1-8b at full width, ``ZERO_LAYERS`` layers, batch ``LM_BATCH`` x
+    ``LM_SEQ`` as ``ZERO_MICRO`` microbatches, ``ZERO_STEPS`` steps, one
+    all-reduce a step; then the same steps of ``make_train_step(microbatches=
+    ZERO_MICRO)`` from the same start (kept on the host meanwhile): losses and
+    every parameter bit for bit (a one-rank sum is the identity and the
+    division is by 1)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import llama31_8b
+    from repro_torch.data import token_stream_batches
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import zero_trainer
+    from repro_torch.models import build_model
+    from repro_torch.tokenizer import HashWordTokenizer
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+    t0 = time.perf_counter()
+    cfg = llama31_8b.CONFIG.replace(num_layers=ZERO_LAYERS)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(seed + 30), device)
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    start = [p.to("cpu", copy=True) for p in leaves]
+    stream = token_stream_batches(HashWordTokenizer(cfg.vocab_size), LM_BATCH, LM_SEQ,
+                                  seed=seed + 30)
+    batches = [_to_device(next(stream), device) for _ in range(ZERO_STEPS)]
+    opt_cfg = AdamWConfig(lr=LM_LR)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    calls = []
+    inner = dist.all_reduce
+
+    def counted(*a, **k):
+        calls.append(a[0].numel())
+        return inner(*a, **k)
+    dist.all_reduce = counted
+    try:
+        step = zero_trainer.make_zero_train_step(model, opt_cfg, dist.group.WORLD,
+                                                 microbatches=ZERO_MICRO,
+                                                 total_steps=ZERO_STEPS)
+        opt = init_opt_state(params)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        n0 = flash_ops.launches
+        losses, step_ms = [], []
+        for batch in batches:
+            _sync(device)
+            t = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))                # reads the loss: synchronises
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        launches = flash_ops.launches - n0
+        peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    finally:
+        dist.all_reduce = inner
+        dist.destroy_process_group()
+    zero_final = [p.to("cpu", copy=True) for p in leaves]
+    del opt, metrics
+    with torch.no_grad():
+        for p, s in zip(leaves, start):
+            p.copy_(s)
+    del start
+    plain = make_train_step(model, opt_cfg, microbatches=ZERO_MICRO, total_steps=ZERO_STEPS)
+    opt = init_opt_state(params)
+    plain_losses, plain_ms = [], []
+    for batch in batches:
+        _sync(device)
+        t = time.perf_counter()
+        params, opt, metrics = plain(params, opt, batch)
+        plain_losses.append(float(metrics["loss"]))
+        plain_ms.append((time.perf_counter() - t) * 1e3)
+    diffs = [float((a.float() - b.cpu().float()).abs().max()) for a, b in zip(zero_final, leaves)]
+    bitwise = losses == plain_losses and all(torch.equal(a, b.cpu())
+                                             for a, b in zip(zero_final, leaves))
+    del params, opt, metrics, leaves, zero_final
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    if len(calls) != ZERO_STEPS:
+        raise AssertionError(f"zero_train: {len(calls)} all-reduces in {ZERO_STEPS} steps, "
+                             "not one a step")
+    if not bitwise:
+        raise AssertionError(f"zero_train: the one-rank zero step differs from the plain "
+                             f"microbatched step: losses {losses} vs {plain_losses}, largest "
+                             f"parameter difference {max(diffs)}")
+    if launches != ZERO_STEPS * ZERO_MICRO * 2 * ZERO_LAYERS:
+        raise AssertionError(f"zero_train: {launches} flash launches, not 2 a layer a "
+                             f"microbatch (forward and the remat recompute)")
+    return {"phase": "zero_train", "seconds": time.perf_counter() - t0, "config": cfg.name,
+            "layers": ZERO_LAYERS, "depth_cut_from": llama31_8b.CONFIG.num_layers,
+            "params": n_params,
+            "batch": LM_BATCH, "seq": LM_SEQ, "microbatches": ZERO_MICRO,
+            "steps": ZERO_STEPS, "backend": backend, "world_size": 1,
+            "all_reduces": len(calls), "bucket_floats": calls[0],
+            "bucket_gb": calls[0] * 4 / 1e9, "step_ms": step_ms, "plain_step_ms": plain_ms,
+            "losses": losses, "plain_losses": plain_losses, "bitwise_equal": bitwise,
+            "max_param_diff": max(diffs), "max_memory_allocated_gb": None if peak is None
+            else peak / 1e9, "flash_launches": launches}
 
 
 # ------------------------------------------------------------------ serve
@@ -3531,6 +3661,134 @@ def baseline_phase(eng, plan, reranker, seed: int):
             "put_ms_mean": put_ms, "get_ms_mean": get_ms}
 
 
+# ------------------------------------------------------------------ the analyzer
+
+def _screened_batch(eng, pop, tweaks, rng, seed: int, n_exact: int = 2, n_tweak: int = 3,
+                    n_miss: int = 3):
+    """A batch of the plan's traffic whose routes are known before it runs:
+    populated queries ``pop`` (EXACT), served TWEAK edits that still route TWEAK,
+    and fresh queries whose best similarity sits well below the threshold
+    (MISS), each checked by a read-only flat lookup of the bank."""
+    import torch
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core.tweak import preprocess_query
+    from repro_torch.data import QuestionPairGenerator
+    thr, exact = eng.router_cfg.tweak_threshold, eng.router_cfg.exact_threshold
+    g = QuestionPairGenerator(seed=seed)
+    fresh = [g._random_query().text for _ in range(64)]
+    with torch.no_grad():
+        top = lambda qs: cache_lib.lookup(eng.state, eng.cache_cfg, eng.embed_texts(
+            [preprocess_query(q) for q in qs]))[0][:, 0].cpu().tolist()
+        tw = [q for q, sc in zip(tweaks, top(tweaks)) if thr + 0.005 < sc < exact]
+        ms = [q for q, sc in zip(fresh, top(fresh)) if sc < thr - 0.01]
+    if len(tw) < n_tweak or len(ms) < n_miss:
+        raise AssertionError(f"analysis: {len(tw)} TWEAK and {len(ms)} MISS candidates")
+    rows = ([pop[int(i)] for i in rng.choice(len(pop), n_exact, replace=False)]
+            + [tw[int(i)] for i in rng.choice(len(tw), n_tweak, replace=False)]
+            + ms[:n_miss])
+    return [rows[int(i)] for i in rng.permutation(len(rows))]
+
+
+def analysis_phase(eng, plan, served, max_new_tokens: int, seed: int):
+    """The analyzer on the card: ``contracts.run_all(device="cuda")`` (every
+    registered hot path at the reference's tiny buckets, twice), then one
+    more batch of the plan's traffic (8 queries, 2 EXACT, 3 TWEAK, 3 MISS)
+    through the serve engine under ``contracts.counting`` (the
+    TorchFunctionMode counter and ``set_sync_debug_mode("warn")``), and one
+    plain and one speculative ``Generator`` call the same way.  Fails on a
+    count over its budget, a disagreement of the two counts or a bank leaf
+    reallocated.  The serve batch's wall time is read without the modes on a
+    second batch of the same make-up."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import contracts
+    from repro_torch.core import tweak as tweak_lib
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.batcher import bucket_len, pad_to_buckets
+    dev = eng.device
+    t0 = time.perf_counter()
+    failures = contracts.run_all(device=dev.type)
+    if failures:
+        raise AssertionError("analysis: contract failures:\n" + "\n".join(failures))
+    contracts_s = time.perf_counter() - t0
+    tweaks = sorted({q for batch, res in zip(plan[1], served) for q, m in zip(batch, res.meta)
+                     if m["decision"] == 1})
+    rng = np.random.default_rng(seed + 40)
+    pop = plan[0][0]               # the populated queries as the plan wrote them
+    batch = _screened_batch(eng, pop, tweaks, rng, seed + 40)
+    spare = _screened_batch(eng, pop, [q for q in tweaks if q not in batch], rng, seed + 41)
+    before = contracts.storage_of(eng.state)
+    reset_launch_counts()          # the analysed serve batch starts here ...
+    with torch.no_grad():
+        _sync(dev)
+        t = time.perf_counter()
+        with contracts.counting(dev) as c:
+            res, calls = contracts.engine_budget(
+                eng, lambda: eng.handle_batch_result(batch, max_new_tokens=max_new_tokens))
+        _sync(dev)
+        counted_ms = (time.perf_counter() - t) * 1e3
+    launches = launch_counts()     # ... and ends here
+    failures = contracts.check_engine_batch("analysis serve batch", eng, c, calls)
+    failures += contracts.check_in_place("analysis serve batch", "bank state", before,
+                                         eng.state)
+    routes = [m["decision"] for m in res.meta]
+    if not (routes.count(1) and routes.count(0)):
+        failures.append(f"analysis: the batch lacks a TWEAK or a MISS row: {routes}")
+    if dev.type == "cuda" and min(launches[k] for k in SERVE_KERNELS) == 0:
+        failures.append(f"analysis: a kernel of the serve path did not launch: {launches}")
+    with torch.no_grad():
+        _sync(dev)
+        t = time.perf_counter()
+        plain_res = eng.handle_batch_result(spare, max_new_tokens=max_new_tokens)
+        _sync(dev)
+        plain_ms = (time.perf_counter() - t) * 1e3
+    serve = {"routes_miss_tweak_exact_uncertain": [routes.count(d) for d in range(3)]
+             + [sum(m["stage2"] for m in res.meta)],
+             "budget": eng.last_route_syncs + calls["generate"] + calls["insert"],
+             "last_route_syncs": eng.last_route_syncs, "generator_calls": calls["generate"],
+             "inserts": calls["insert"], **c.report(), "wall_ms_counted": counted_ms,
+             "wall_ms_plain": plain_ms,
+             "plain_batch_routes": [m["decision"] for m in plain_res.meta]}
+
+    # one plain and one speculative Generator call: a TWEAK batch over the prefix
+    small = eng.small
+    pick = list(eng.bank.text_store.items())[:8]
+    st, sm = tweak_lib.build_tweak_suffix_batch(
+        eng.tok, [q + " please" for _, (q, _) in pick], [q for _, (q, _) in pick],
+        [r for _, (_, r) in pick], 1024)
+    width = bucket_len(int(sm.sum(1).max()))
+    st = pad_to_buckets(st[:, :width], sm[:, :width])[0]
+    pc = small.build_prefix_cache(tweak_lib.tweak_prefix_ids(eng.tok), st.shape[0])
+    spec = _gen_like(small, spec_k=SPEC_K)
+    gens = {}
+    with torch.no_grad():
+        for name, gen, drafts in (("plain", small, None), ("spec", spec, "own")):
+            if drafts == "own":
+                drafts = _overlap_drafts(gens["plain"]["tokens"], 1.0,
+                                         small.model.cfg.vocab_size)
+            with contracts.counting(dev) as gc:
+                toks = gen.generate_with_lengths({"tokens": st}, max_new_tokens=max_new_tokens,
+                                                 seed=seed, prefix_cache=pc, drafts=drafts)[0]
+            budget = 1 if drafts is None else 2 + gen.last_spec_stats["spec_steps"]
+            failures += contracts.check_counter(f"analysis {name} generate", gc, budget)
+            if gc.total != budget or (drafts is not None and gc.total != gen.last_spec_syncs):
+                failures.append(f"analysis {name} generate: {gc.total} syncs, want {budget}")
+            gens[name] = {"budget": budget, **gc.report(), "tokens": toks}
+    if not np.array_equal(gens["plain"]["tokens"], gens["spec"]["tokens"]):
+        failures.append("analysis: the speculative call's tokens differ from the plain call's")
+    for g in gens.values():
+        g.pop("tokens")
+    gens["spec"]["last_spec_syncs"] = spec.last_spec_syncs
+    gens["spec"]["spec_steps"] = spec.last_spec_stats["spec_steps"]
+    if failures:
+        raise AssertionError("analysis:\n" + "\n".join(failures))
+    return {"phase": "analysis", "seconds": time.perf_counter() - t0,
+            "contracts": {"paths": len(contracts.CONTRACTS), "failures": 0,
+                          "seconds": contracts_s},
+            "serve_batch": serve, "generate": gens,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
 def spare_tokens(eng, batch):
     """A planned batch as the big model's padded prompt tokens (B, 16)."""
     from repro_torch.core.tweak import preprocess_query
@@ -3722,6 +3980,8 @@ def main(argv=None) -> int:
     lm_train, lm, lm_params, lm_tok, before = lm_train_phase(torch.device("cuda"), args.seed,
                                                              sets)
     emit(lm_train)
+    zero_train = zero_train_phase(torch.device("cuda"), args.seed)
+    emit(zero_train)
     judge = judge_phase(lm, lm_params, lm_tok, sets, before, torch.device("cuda"), args.seed)
     emit(judge)
     del lm_params, before
@@ -3757,6 +4017,8 @@ def main(argv=None) -> int:
     del ieng
     emit(cascade_phase(eng, plan, served, reranker, MAX_NEW_TOKENS))
     emit(baseline_phase(eng, plan, reranker, args.seed))
+    analysis = analysis_phase(eng, plan, served, MAX_NEW_TOKENS, args.seed)
+    emit(analysis)
     phase_launches = {"serve": launches, "paged": paged["launches"], "spec": spec["launches"],
                       "ivf": ivf["launches"]}
     # the profiler only after serving: the serve timings stay free of
@@ -3789,6 +4051,9 @@ def main(argv=None) -> int:
                       launches_judge=judge["flash_launches"],
                       launches_archs=archs["launches"]["flash_attention"])
     summary[0]["launches_shapes"] = shapes["launches"]["flash_attention"]
+    summary[0]["launches_zero_train"] = zero_train["flash_launches"]
+    for row in summary[:3]:    # the analysed serve batch: flash, dense decode, flat scan
+        row["launches_analysis"] = analysis["launches"].get(row["name"], 0)
     summary[1].update(launches_archs=archs["launches"]["decode_attention"],
                       launches_serve_cli=serve_cli["kernel_launches"]["decode_attention"],
                       launches_shapes=shapes["launches"]["decode_attention"])

@@ -135,7 +135,7 @@ def insert_batch(state, cfg: CacheConfig, embs, q_tokens, q_mask, r_tokens, r_ma
     device, and file it right after.
     """
     b = embs.shape[0]
-    count = min(b if count is None else int(count), b)
+    count = min(b if count is None else int(count), b)  # hostsync: ok count is a host int
     dev = embs.device
     embs = _normalize(embs.to(torch.float32))
     row = torch.arange(b, dtype=torch.int32, device=dev)
@@ -316,8 +316,8 @@ def make_second_stage(cfg: CacheConfig, router_cfg, rr_params, rr_cfg):
         rr = score_shortlist(rr_params, q_tokens, q_mask, cand_t, cand_m, rr_cfg)
         commit, best, conf = router_lib.stage2_combine(scores, rr, live, tau, router_cfg)
         unc = decisions == router_lib.UNCERTAIN
-        final = torch.where(unc, torch.where(commit, router_lib.TWEAK, router_lib.MISS),
-                            decisions).to(torch.int32)
+        final = torch.where(unc, router_lib.where_int(commit, router_lib.TWEAK, router_lib.MISS),
+                            decisions)
         chosen = idx.gather(1, best[:, None].long())[:, 0]
         slot = torch.where(unc & commit, chosen, idx[:, 0])
         _touch_rows(state, cfg, slot, unc & commit & (slot >= 0))

@@ -59,6 +59,7 @@ def _split(state, mesh, skip=()):
     out = {k: v.to(mesh[0], copy=True) for k, v in state.items()
            if k not in ROW_KEYS and k not in skip}
     out["shards"] = shards
+    # hostsync: ok the ring-pointer mirror, read once at sharding set-up
     out["ring"] = int(state["ptr"])
     return out
 
@@ -90,10 +91,10 @@ def _regroup(valid, assign, n_shards: int, local_c: int, nclusters: int, bucket:
     count = np.minimum(np.bincount(key, minlength=n_shards * nclusters), bucket)
     pos = np.full(valid.shape, -1, np.int32)
     pos[rows[keep]] = posn[keep]
-    return members, count.astype(np.int32), pos, bool(keep.all())
+    return members, count.astype(np.int32), pos, bool(keep.all())  # hostsync: ok host numpy array
 
 
-def shard_ivf_cache_state(state, mesh, cfg):
+def shard_ivf_cache_state(state, mesh, cfg):  # hostsync: ok set-up regroup on the host
     """A local IVF cache state split over ``mesh``: each shard's member table
     is rebuilt from ``(valid, assign)`` restricted to its rows, with LOCAL
     slot ids; centroids and the pending/overflow scalars replicate.  A host
@@ -119,7 +120,7 @@ def shard_ivf_cache_state(state, mesh, cfg):
     return out
 
 
-def gather_cache_state(state, cfg, device=None):
+def gather_cache_state(state, cfg, device=None):  # hostsync: ok a host copy of the bank
     """The local-layout state of a sharded one (a copy, on ``device`` or
     ``mesh[0]``): rows concatenated in slot order.  An IVF bank's member
     table is rebuilt from ``(valid, assign)`` in slot order, the layout
@@ -226,7 +227,7 @@ def insert_batch(state, cfg, embs, q_tokens, q_mask, r_tokens, r_mask, count=Non
     shards = state["shards"]
     local_c = _local_capacity(cfg.capacity, len(shards))
     b = embs.shape[0]
-    count = min(b if count is None else int(count), b)
+    count = min(b if count is None else int(count), b)  # hostsync: ok count is a host int
     home = embs.device
     embs = cache_lib._normalize(embs.to(torch.float32))
     ptr = state["ring"]

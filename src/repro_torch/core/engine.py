@@ -240,6 +240,7 @@ class SharedCacheBank:
         after it.  One host read of the two replicated scalars."""
         st = self.state
         flags = torch.stack([st["ivf_overflow"].to(torch.int32), st["ivf_pending"]])
+        # hostsync: ok the sharded recluster's one read of two flags
         overflow, pending = flags.cpu().tolist()
         if not (overflow or pending >= index_lib.resolve(self.cfg).reindex_every):
             return False
@@ -255,7 +256,7 @@ def _fetch_route(scores, idx, dec, admit):
     as float32 lanes."""
     ints = torch.stack([dec.to(torch.int32), admit.to(torch.int32)], dim=1)
     packed = torch.cat([scores, idx.view(torch.float32), ints.view(torch.float32)], dim=1)
-    host = packed.cpu().numpy()
+    host = packed.cpu().numpy()  # hostsync: ok THE per-batch route fetch
     k = scores.shape[1]
     return (host[:, :k], host[:, k:2 * k].view(np.int32),
             host[:, 2 * k].view(np.int32), host[:, 2 * k + 1].view(np.int32) != 0)
@@ -340,9 +341,10 @@ class TweakLLMEngine:
         if cost_thresholds is None:
             return [dc] * n
         if np.isscalar(cost_thresholds):
-            return [float(cost_thresholds)] * n
+            return [float(cost_thresholds)] * n  # hostsync: ok host float cost thresholds
         if len(cost_thresholds) != n:
             raise ValueError(f"{len(cost_thresholds)} cost thresholds for {n} queries")
+        # hostsync: ok host float cost thresholds
         return [dc if c is None else float(c) for c in cost_thresholds]
 
     def handle_batch_result(self, queries: List[str], *, max_new_tokens: int = 32,
@@ -367,18 +369,19 @@ class TweakLLMEngine:
         top1 = scores[:, 0]
         slot_arr = idxs[:, 0]
         stage2_rows = decisions == router_lib.UNCERTAIN
-        n_unc = int(stage2_rows.sum())
+        n_unc = int(stage2_rows.sum())  # hostsync: ok host numpy routes
         if n_unc:
             final, slot, _ = self.bank.second_stage(
                 to_device(qtoks, self.device).long(), to_device(qmask, self.device),
                 d_scores, d_idx, d_dec, d_tau, d_cluster)
-            # the stage-2 sync, only on batches that hold uncertain rows
+            # hostsync: ok the stage-2 fetch, only on batches that hold uncertain rows
             decisions, slot_arr = torch.stack([final, slot.to(torch.int32)]).cpu().numpy()
             self.last_route_syncs = 2
             self.stats.uncertain += n_unc
+            # hostsync: ok host numpy routes
             self.stats.recovered += int((decisions[stage2_rows] == router_lib.TWEAK).sum())
-        slot_l = slot_arr.tolist()
-        dec_l = decisions.tolist()
+        slot_l = slot_arr.tolist()  # hostsync: ok host numpy routes
+        dec_l = decisions.tolist()  # hostsync: ok host numpy routes
 
         responses: List[Optional[str]] = [None] * n
         gen_tokens = [0] * n
@@ -400,10 +403,11 @@ class TweakLLMEngine:
         bands = np.full(n, -1, np.int32)
         for bi, (lo, hi) in enumerate(router_lib.bands_for(self.router_cfg)):
             bands[(top1 >= lo) & (top1 < hi)] = bi
-        top1_l = top1.tolist()
+        top1_l = top1.tolist()  # hostsync: ok host numpy scores
+        # hostsync: ok host numpy bands and routes
         meta = [{"sim": top1_l[i], "decision": dec_l[i], "band": int(bands[i]),
                  "gen_tokens": gen_tokens[i], "cost": cost_l[i],
-                 "stage2": bool(stage2_rows[i])}
+                 "stage2": bool(stage2_rows[i])}  # hostsync: ok host numpy routes
                 for i in range(n)]
         miss = decisions == router_lib.MISS
         return BatchResult(
@@ -421,7 +425,9 @@ class TweakLLMEngine:
         """A slot's cached ``q`` or ``r`` tokens from the device (a cold
         fallback, and a host sync, when the text mirror lacks the slot)."""
         at = torch.tensor([slot], device=self.device)
+        # hostsync: ok cold fallback read of a slot the text mirror lacks
         toks = cache_lib.gather_rows(self.state, f"{which}_tokens", at)[0].tolist()
+        # hostsync: ok cold fallback read of a slot the text mirror lacks
         mask = cache_lib.gather_rows(self.state, f"{which}_mask", at)[0].tolist()
         return [t for t, m in zip(toks, mask) if m > 0]
 
@@ -435,7 +441,7 @@ class TweakLLMEngine:
     @staticmethod
     def _visible_ids(row: np.ndarray, n_gen: int, ended: bool) -> List[int]:
         """Visible ids of a generated row: everything before its EOS."""
-        return row[:n_gen - 1 if ended else n_gen].tolist()
+        return row[:n_gen - 1 if ended else n_gen].tolist()  # hostsync: ok host numpy tokens
 
     def _tweak_static_tokens(self, suffix_only: bool = False) -> int:
         if self._static_counts is None:
@@ -555,6 +561,7 @@ class TweakLLMEngine:
             if ids is None:
                 t, m = self.tok.encode_batch([cr], self.cache_cfg.max_response_tokens,
                                              add_bos=False)
+                # hostsync: ok host numpy tokenizer output
                 ids = [tt for tt, mm in zip(t[0].tolist(), m[0].tolist()) if mm > 0]
             rows.append(list(ids) + [eos])
         width = max(len(r) for r in rows)
@@ -582,8 +589,8 @@ class TweakLLMEngine:
         return did, dlen
 
     def _emit_tweak_rows(self, rows, ids, out, lengths, ended, responses, gen_tokens):
-        lengths = lengths.tolist()
-        ended = ended.tolist()
+        lengths = lengths.tolist()  # hostsync: ok host numpy lengths
+        ended = ended.tolist()  # hostsync: ok host numpy flags
         for j, row in enumerate(rows):
             i = ids[row]
             n_gen = lengths[j]
@@ -660,6 +667,7 @@ class TweakLLMEngine:
         dev = self.device
         slots = self.bank.insert_batch(embs, to_device(pad(qt), dev), to_device(pad(qm), dev),
                                        to_device(pad(rt), dev), to_device(pad(rm), dev), n)
+        # hostsync: ok the one host copy of the slots per insert
         slots = slots.cpu().numpy().tolist()  # the one host copy per insert
         for j in range(n):
             self._text_store[slots[j]] = (texts[j], resp_texts[j])
@@ -674,8 +682,8 @@ class TweakLLMEngine:
         toks, mask, _ = pad_to_buckets(toks, mask)
         out, lengths, ended = self.big.generate_with_lengths(
             {"tokens": toks}, max_new_tokens=max_new_tokens, seed=self._next_seed())
-        lengths = lengths.tolist()
-        ended = ended.tolist()
+        lengths = lengths.tolist()  # hostsync: ok host numpy lengths
+        ended = ended.tolist()  # hostsync: ok host numpy flags
         resp_tokens, resp_texts = [], []
         for j, i in enumerate(ids):
             n_gen = lengths[j]
@@ -711,7 +719,7 @@ class TweakLLMEngine:
         embs = self.embed_texts(queries)
         rt, rm = self.tok.encode_batch(responses, self.cache_cfg.max_response_tokens,
                                        add_bos=False)
-        rt_l, rm_l = rt.tolist(), rm.tolist()
+        rt_l, rm_l = rt.tolist(), rm.tolist()  # hostsync: ok host numpy tokenizer output
         resp_tokens = [[t for t, m in zip(rt_l[i], rm_l[i]) if m > 0]
                        for i in range(len(queries))]
         self._insert_entries(queries, resp_tokens, responses, embs)

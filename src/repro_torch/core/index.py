@@ -184,6 +184,7 @@ def lookup(state, cfg, q_embs):
 
 # ------------------------------------------------------------- rebuild
 
+# hostsync: ok host k-means rebuild (maintenance path)
 def _spherical_kmeans(x: np.ndarray, k: int, iters: int, rng: np.random.Generator,
                       device) -> np.ndarray:
     """Lloyd iterations with cosine assignment (rows of x unit-norm).  The
@@ -208,6 +209,7 @@ def _spherical_kmeans(x: np.ndarray, k: int, iters: int, rng: np.random.Generato
     return cent.astype(np.float32)
 
 
+# hostsync: ok host k-means rebuild (maintenance path)
 def build_index(state, cfg, seed: int = 0, sample: int = 65536):
     """Host-side recluster: fresh k-means and a compact member table, in place.
 
@@ -279,6 +281,7 @@ def maybe_reindex(state, cfg, seed: int = 0):
     if cfg.index != "ivf":
         return state, False
     flags = torch.stack([state["ivf_overflow"].to(torch.int32), state["ivf_pending"]])
+    # hostsync: ok maybe_reindex's one read of two flags a commit (IVF only)
     overflow, pending = flags.cpu().tolist()
     if overflow or pending >= resolve(cfg).reindex_every:
         return build_index(state, cfg, seed=seed), True

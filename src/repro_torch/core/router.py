@@ -27,6 +27,12 @@ MISS, TWEAK, EXACT = 0, 1, 2
 UNCERTAIN = 3          # provisional stage-1 decision; never leaves the bank
 
 
+def where_int(cond, a: int, b: int):
+    """``torch.where(cond, a, b)`` of two Python ints, in int32 (torch would
+    make it int64)."""
+    return torch.full(cond.shape, b, dtype=torch.int32, device=cond.device).masked_fill_(cond, a)
+
+
 @dataclasses.dataclass(frozen=True)
 class RouterConfig:
     tweak_threshold: float = 0.7   # paper Table 1 initial threshold
@@ -61,8 +67,8 @@ def calibration(cfg: RouterConfig):
     """The (cal_costs, cal_taus) knots as python floats, derived when not given."""
     if cfg.cal_costs:
         return tuple(cfg.cal_costs), tuple(cfg.cal_taus)
-    t = float(cfg.tweak_threshold)
-    dc = min(max(float(cfg.default_cost), 1e-3), 1.0 - 1e-3)
+    t = float(cfg.tweak_threshold)  # hostsync: ok host config float
+    dc = min(max(float(cfg.default_cost), 1e-3), 1.0 - 1e-3)  # hostsync: ok host config float
     return (0.0, dc, 1.0), (t - cfg.cal_span, t, 1.0)
 
 
@@ -75,7 +81,7 @@ def _interp(x, xs, ys):
     df = ys_t[i] - ys_t[i - 1]
     dx = xs_t[i] - xs_t[i - 1]
     delta = x - xs_t[i - 1]
-    dx0 = dx.abs() <= float(np.spacing(np.finfo(np.float32).eps))
+    dx0 = dx.abs() <= float(np.spacing(np.finfo(np.float32).eps))  # hostsync: ok numpy constant
     f = torch.where(dx0, ys_t[i - 1], ys_t[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
     f = torch.where(x < xs_t[0], ys_t[0], f)
     return torch.where(x > xs_t[-1], ys_t[-1], f)
@@ -93,15 +99,15 @@ def threshold_for(cost, cfg: RouterConfig):
 
 def route(scores, cfg: RouterConfig):
     """scores (B,) top-1 cosine similarity -> decisions (B,) int32."""
-    d = torch.where(scores >= cfg.tweak_threshold, TWEAK, MISS)
-    return torch.where(scores >= cfg.exact_threshold, EXACT, d).to(torch.int32)
+    d = where_int(scores >= cfg.tweak_threshold, TWEAK, MISS)
+    return torch.where(scores >= cfg.exact_threshold, EXACT, d)
 
 
 def route_cascade(top1, tau, cfg: RouterConfig):
     """Stage-1 decisions at per-row operating points ``tau``.  EXACT keeps
     precedence; with ``band > 0`` the other rows within ``band/2`` of tau
     are UNCERTAIN."""
-    d = torch.where(top1 >= tau, TWEAK, MISS)
+    d = where_int(top1 >= tau, TWEAK, MISS)
     d = torch.where(top1 >= cfg.exact_threshold, EXACT, d)
     if cfg.band > 0.0:
         unc = ((top1 - tau).abs() < 0.5 * cfg.band) & (top1 < cfg.exact_threshold)
@@ -121,7 +127,7 @@ def stage2_combine(scores, rerank_logits, live, tau, cfg: RouterConfig):
     probe_temp) + w_rerank * sigmoid(logit), which may not be position 0.
     A row with no live candidate has conf 0, best 0 and never commits.
     Returns ``(commit (B,) bool, best (B,) int32, conf (B,) float32)``."""
-    nlive = torch.clamp(live.sum(dim=1), min=1)
+    nlive = torch.clamp(live.sum(dim=1, dtype=torch.int32), min=1)
     probe = torch.sigmoid((scores - tau[:, None]) / cfg.probe_temp)
     agree = torch.where(live, probe, 0.0).sum(dim=1) / nlive
     rr = torch.where(live, rerank_logits, float("-inf"))
@@ -165,7 +171,7 @@ def admission_update(adm_ema, adm_count, cluster, hit, obs, cfg: RouterConfig):
 
 def band_edges(cfg: RouterConfig = None):
     """Similarity-band edges for the active config (paper bands at 0.7)."""
-    lo = 0.7 if cfg is None else float(cfg.tweak_threshold)
+    lo = 0.7 if cfg is None else float(cfg.tweak_threshold)  # hostsync: ok host config float
     width = max((1.0 - lo) / 3.0, 0.0)
     e = [round(lo + i * width, 9) for i in range(3)]
     return (*e, max(1.01, lo))

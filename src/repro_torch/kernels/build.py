@@ -65,6 +65,8 @@ def smem_row_bytes(dh: int) -> int:
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
+builds = 0
+"""Kernel libraries built or loaded in this process (a plain count)."""
 
 
 def _nvcc() -> str:
@@ -126,9 +128,10 @@ def _compile(lib_path: Path) -> None:
 
 def load_library() -> ctypes.CDLL:
     """The kernel library, built from the checkout's sources on first use."""
-    global _lib, build_seconds
+    global _lib, build_seconds, builds
     if _lib is not None:
         return _lib
+    builds += 1
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"libreprotorch_{_source_hash()}.so"
@@ -144,6 +147,7 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+# hostsync: ok parses the ptxas log, no tensor
 def kernel_resources(log_text: Optional[str] = None) -> dict:
     """{kernel: {"registers", "smem_bytes", "stack_bytes", "spill_bytes"}} from
     the ptxas output of the last build (the ``.log`` beside the library);

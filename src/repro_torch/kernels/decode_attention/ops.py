@@ -209,7 +209,7 @@ def decode_attention(q, k, v, cache_len):
     rc = build.launch(
         dev, build.load_library().decode_attention_launch, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), cache_len.data_ptr(), out.data_ptr(), *map(ptr, parts), b, t, hk, g, dh,
-        build.DTYPE_CODES[q.dtype], plan.chunk, plan.splits, float(dh) ** -0.5)
+        build.DTYPE_CODES[q.dtype], plan.chunk, plan.splits, dh ** -0.5)
     build.check(rc, "decode_attention")
     launches += 1
     return out
@@ -233,7 +233,7 @@ def decode_attention_block(q, k, v, cache_len):
         dev, build.load_library().decode_attention_block_launch, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), cache_len.data_ptr(), out.data_ptr(), *map(ptr, parts), b, kq, t, hk, g,
         dh, build.DTYPE_CODES[q.dtype], plan.chunk, plan.splits, plan.kq_panel,
-        float(dh) ** -0.5)
+        dh ** -0.5)
     build.check(rc, "decode_attention_block")
     block_launches += 1
     return out

@@ -16,7 +16,7 @@ def decode_attention_ref(q, k, v, cache_len):
     t, hk = k.shape[1], k.shape[2]
     qg = q.reshape(b, hk, h // hk, dh)
     s = torch.einsum("bkgd,btkd->bkgt", qg.float(), k.float()) * (dh ** -0.5)
-    valid = torch.arange(t, device=q.device)[None, :] < cache_len[:, None]
+    valid = torch.arange(t, dtype=torch.int32, device=q.device)[None, :] < cache_len[:, None]
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", w, v.float())
@@ -32,8 +32,9 @@ def decode_attention_block_ref(q, k, v, cache_len):
     t, hk = k.shape[1], k.shape[2]
     qg = q.reshape(b, kq, hk, h // hk, dh)
     s = torch.einsum("bikgd,btkd->bkgit", qg.float(), k.float()) * (dh ** -0.5)
-    limit = cache_len[:, None] + torch.arange(kq, device=q.device)[None, :] + 1   # (B,K)
-    valid = torch.arange(t, device=q.device)[None, None, :] < limit[:, :, None]  # (B,K,T)
+    iota = lambda n: torch.arange(n, dtype=torch.int32, device=q.device)
+    limit = cache_len[:, None] + iota(kq)[None, :] + 1            # (B,K)
+    valid = iota(t)[None, None, :] < limit[:, :, None]             # (B,K,T)
     s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgit,btkd->bikgd", w, v.float())

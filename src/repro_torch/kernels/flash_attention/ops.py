@@ -164,7 +164,7 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, block_q, block_k, impl):
     rc = build.launch(
         dev, lib.flash_attention_launch, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         q_pos.data_ptr(), k_pos.data_ptr(), out.data_ptr(), b, sq, sk, plan.sk_pad, h, hk, dh,
-        build.DTYPE_CODES[q.dtype], int(causal), int(window), float(dh) ** -0.5)
+        build.DTYPE_CODES[q.dtype], 1 if causal else 0, window, dh ** -0.5)
     build.check(rc, "flash_attention")
     launches += 1
     return out

@@ -16,6 +16,7 @@ flops = 0
 """Kernel work added by meta calls since the last reset."""
 
 
+# hostsync: ok meta-device FLOP tally, host ints
 def output(like: torch.Tensor, work: int) -> torch.Tensor:
     """An empty meta tensor shaped as ``like``, after adding ``work``."""
     global flops
@@ -23,6 +24,7 @@ def output(like: torch.Tensor, work: int) -> torch.Tensor:
     return torch.empty_like(like)
 
 
+# hostsync: ok meta-device FLOP tally, host ints
 def attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     """(query, key) pairs a position mask allows when the queries sit at
     the last ``sq`` of the ``sk`` key positions (a prefill: sq == sk; a

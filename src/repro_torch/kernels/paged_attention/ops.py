@@ -63,7 +63,7 @@ def _launch(entry, name, dev, q, kp, vp, block_tbl, slot_pos, q_pos, shape):
                       block_tbl.data_ptr(), slot_pos.data_ptr(), *block, out.data_ptr(),
                       *map(ptr, parts), b, *(() if q_pos is None else (kq,)), cap, hk, g, dh,
                       page, npg, build.DTYPE_CODES[q.dtype], plan.chunk, plan.splits,
-                      plan.kq_panel, float(dh) ** -0.5)
+                      plan.kq_panel, dh ** -0.5)
     build.check(rc, name)
     return out
 

@@ -139,15 +139,21 @@ def clip_microbatches(microbatches: int, per_dev: int) -> int:
 # ------------------------------------------------------------------ reckoning
 
 def argument_bytes(cfg: ModelConfig, kind: str, seq: int, batch: int, mesh, *,
-                   zero1: bool = False) -> Dict[str, int]:
+                   zero1: bool = False, grad_sync_once: bool = False) -> Dict[str, int]:
     """Bytes one device of ``mesh`` holds of the step's arguments under the
-    placement rules (the reference's ``argument_size_in_bytes``)."""
+    placement rules (the reference's ``argument_size_in_bytes``).  With
+    ``zero1`` or ``grad_sync_once`` a train step's params take the serve
+    placement; the optimizer state follows the train placement under
+    ``zero1`` alone, the params' under ``grad_sync_once`` (the reference's
+    shard_map step keeps it replicated over data)."""
     p_leaves = shd.param_leaves(abstract_params(cfg), cfg)
-    p_mode = "serve" if kind == "decode" or (zero1 and kind == "train") else "train"
+    p_mode = "serve" if kind == "decode" or ((zero1 or grad_sync_once) and kind == "train") \
+        else "train"
     p_specs = shd.param_specs(mesh, p_leaves, p_mode)
     out = {"params": shd.per_device_bytes(p_leaves, p_specs, mesh)}
     if kind == "train":
-        o_base = shd.param_specs(mesh, p_leaves, "train") if zero1 else p_specs
+        o_base = shd.param_specs(mesh, p_leaves, "train") if zero1 and not grad_sync_once \
+            else p_specs
         out["opt_state"] = shd.per_device_bytes(shd.opt_state_leaves(p_leaves),
                                                 shd.opt_state_specs(mesh, o_base), mesh)
         inputs = shd.tensor_leaves(train_inputs(cfg, seq, batch))
@@ -177,10 +183,21 @@ def step_args(cfg: ModelConfig, kind: str, seq: int, batch: int, device):
     return params, inputs["token"], inputs["caches"]
 
 
-def reckon(cfg: ModelConfig, kind: str, seq: int, batch: int, microbatches: int = 1):
+def train_step_fn(cfg: ModelConfig, kind: str, microbatches: int, grad_sync_once: bool):
+    """The step of ``kind``; a train step from ``launch.zero_trainer`` with
+    ``grad_sync_once`` (one process: no group, nothing to reduce)."""
+    if kind == "train" and grad_sync_once:
+        from repro_torch.launch.zero_trainer import make_zero_train_step
+        from repro_torch.training import AdamWConfig
+        return make_zero_train_step(build_model(cfg), AdamWConfig(), microbatches=microbatches)
+    return make_step_fn(cfg, kind, microbatches=microbatches)
+
+
+def reckon(cfg: ModelConfig, kind: str, seq: int, batch: int, microbatches: int = 1,
+           grad_sync_once: bool = False):
     """(flops, peak live bytes) of one step traced over meta tensors."""
     args = step_args(cfg, kind, seq, batch, META)
-    step = make_step_fn(cfg, kind, microbatches=microbatches)
+    step = train_step_fn(cfg, kind, microbatches, grad_sync_once)
     kernel_meta.flops = 0
     with FlopCounterMode(display=False) as counter, LiveBytes() as live:
         for t in tree_leaves(list(args)):
@@ -203,7 +220,8 @@ def card_budget(device=None) -> int:
 
 
 def one_card_plan(cfg: ModelConfig, kind: str, seq: int, batch: int, microbatches: int,
-                  full: tuple, budget: int = None) -> Dict[str, Any]:
+                  full: tuple, budget: int = None, grad_sync_once: bool = False
+                  ) -> Dict[str, Any]:
     """The largest depth in whole pattern periods whose reckoned peak fits
     ``budget`` (``card_budget()`` by default); ``full`` is the full depth's
     (flops, peak).  The peak grows about linearly with depth: the estimate
@@ -215,7 +233,8 @@ def one_card_plan(cfg: ModelConfig, kind: str, seq: int, batch: int, microbatche
 
     def fits(n):
         if n not in reckoned:
-            reckoned[n] = reckon(cut_depth(cfg, n), kind, seq, batch, microbatches)
+            reckoned[n] = reckon(cut_depth(cfg, n), kind, seq, batch, microbatches,
+                                 grad_sync_once)
         return reckoned[n][1] <= budget
 
     n = periods
@@ -316,7 +335,7 @@ def decode_run(model, params, token, caches, steps: int):
 
 
 def card_run(cfg: ModelConfig, kind: str, seq: int, batch: int, microbatches: int,
-             device, seed: int = 0) -> Dict[str, Any]:
+             device, seed: int = 0, grad_sync_once: bool = False) -> Dict[str, Any]:
     """Run the plan ``cfg`` (already cut) on ``device``: random weights and
     inputs from ``seed``; ms a step, peak memory (on the card), kernel
     launches.  The CPU tests run it at smoke sizes."""
@@ -336,7 +355,7 @@ def card_run(cfg: ModelConfig, kind: str, seq: int, batch: int, microbatches: in
     rec: Dict[str, Any] = {"layers": cfg.num_layers, "batch": batch}
     launched = kernels.launch_counts()
     if kind == "train":
-        step = make_step_fn(cfg, "train", microbatches=microbatches)
+        step = train_step_fn(cfg, "train", microbatches, grad_sync_once)
         opt = init_opt_state(params)
         data = {"tokens": rand_tokens(batch, seq), "targets": rand_tokens(batch, seq),
                 "mask": torch.ones((batch, seq), dtype=torch.float32, device=device),
@@ -390,8 +409,8 @@ def card_run(cfg: ModelConfig, kind: str, seq: int, batch: int, microbatches: in
 # ------------------------------------------------------------------ one case
 
 def run_one(arch: str, shape_name: str, mesh=None, *, device="cuda", microbatches: int = 0,
-            zero1: bool = False, smoke: bool = False, seed: int = 0,
-            reckon_step: bool = True) -> Dict[str, Any]:
+            zero1: bool = False, grad_sync_once: bool = False, smoke: bool = False,
+            seed: int = 0, reckon_step: bool = True) -> Dict[str, Any]:
     """The record of ``arch`` x ``shape_name`` on ``mesh`` (the 16 x 16
     production mesh by default).  ``device="meta"`` only reckons;
     ``"cuda"`` also runs the one-card plan.  ``smoke`` takes the arch's
@@ -417,18 +436,20 @@ def run_one(arch: str, shape_name: str, mesh=None, *, device="cuda", microbatche
         rec["reason"] = reason
         return rec
     t0 = time.perf_counter()
-    rec["memory"] = argument_bytes(cfg, kind, seq, batch, mesh, zero1=zero1)
+    rec["memory"] = argument_bytes(cfg, kind, seq, batch, mesh, zero1=zero1,
+                                   grad_sync_once=grad_sync_once)
     rec["microbatches"] = microbatches
     rec["collectives"] = {"absent": COLLECTIVES_ABSENT}
     if not reckon_step:
         rec["status"] = "ok"
         return rec
-    flops, peak = reckon(cfg, kind, seq, per_dev, microbatches)
+    flops, peak = reckon(cfg, kind, seq, per_dev, microbatches, grad_sync_once)
     rec["flops"] = flops
     rec["peak_bytes"] = peak
     on_card = torch.device(device).type == "cuda"
     plan = rec["one_card"] = one_card_plan(cfg, kind, seq, per_dev, microbatches,
-                                           (flops, peak), card_budget(device if on_card else None))
+                                           (flops, peak), card_budget(device if on_card else None),
+                                           grad_sync_once)
     rec["reckon_s"] = time.perf_counter() - t0
     if on_card:
         plan["held_bytes"] = torch.cuda.memory_allocated(device)
@@ -437,7 +458,7 @@ def run_one(arch: str, shape_name: str, mesh=None, *, device="cuda", microbatche
             rec["error"] = "one period does not fit one card"
             return rec
         rec["card"] = card_run(cut_depth(cfg, plan["periods"]), kind, seq, per_dev,
-                               microbatches, device, seed)
+                               microbatches, device, seed, grad_sync_once)
         rec["card"]["reckoned_peak_bytes"] = plan["peak_bytes"]
         if not rec["card"]["ok"]:
             rec["status"] = "fail"
@@ -467,6 +488,9 @@ def main(argv=None):
                     help="0 = each config's train_microbatches")
     ap.add_argument("--zero1", action="store_true",
                     help="params TP-resident, optimizer state FSDP-sharded")
+    ap.add_argument("--grad-sync-once", action="store_true",
+                    help="local fp32 gradient accumulation, one all-reduce a step "
+                         "(launch/zero_trainer.py); params TP-resident")
     ap.add_argument("--out-dir", default=None)
     args = ap.parse_args(argv)
 
@@ -484,7 +508,8 @@ def main(argv=None):
                     continue
                 try:
                     rec = run_one(arch, shape, mesh, device=args.device,
-                                  microbatches=args.microbatches, zero1=args.zero1)
+                                  microbatches=args.microbatches, zero1=args.zero1,
+                                  grad_sync_once=args.grad_sync_once)
                 except Exception as e:
                     rec = {"arch": arch, "shape": shape, "mesh": mesh.name, "status": "fail",
                            "error": str(e), "traceback": traceback.format_exc()}

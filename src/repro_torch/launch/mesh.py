@@ -18,8 +18,10 @@ the queries of the serving engine are.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,6 +43,29 @@ class NamedMesh:
     def name(self) -> str:
         """"16x16" or "2x16x16", the dry-run's file-name form."""
         return "x".join(str(self.shape[a]) for a in self.axis_names)
+
+
+# The ambient mesh of ``models.sharding_utils.constrain`` and the log its
+# resolved specs go to, set by ``use_mesh`` (the reference's
+# ``jax.sharding.use_mesh``); nothing is ambient by default.
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: NamedMesh, log: Optional[List[tuple]] = None):
+    """Make ``mesh`` ambient in the block: ``sharding_utils.constrain`` then
+    resolves its specs against it, appending ``(shape, spec)`` to ``log``
+    when one is given."""
+    token = _AMBIENT.set((mesh, log))
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.reset(token)
+
+
+def ambient_mesh() -> Optional[Tuple[NamedMesh, Optional[List[tuple]]]]:
+    """(mesh, log) of the innermost ``use_mesh``, or None."""
+    return _AMBIENT.get()
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> NamedMesh:

@@ -217,9 +217,9 @@ def main(argv=None) -> int:
     else:
         eng = stats_src = build_engine(**kw)
         sched = Scheduler(eng, scfg, clock=SimClock())
-    wl = WorkloadGenerator(profile=args.profile, seed=0)
+    wl = WorkloadGenerator(profile=args.profile, seed=0)  # seed: ok demo CLI, reproducible trace
     texts = [q.text for q in wl.sample(args.queries)]
-    trace = poisson_trace(texts, args.rate, seed=0)
+    trace = poisson_trace(texts, args.rate, seed=0)  # seed: ok demo CLI, reproducible trace
     t0 = time.time()
     with torch.no_grad():
         done = replay_trace(sched, trace)

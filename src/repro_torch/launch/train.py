@@ -65,6 +65,7 @@ def main(argv=None):
               "text-token stream with random frontend embeddings")
     model = build_model(cfg)
     tok = HashWordTokenizer(cfg.vocab_size)
+    # seed: ok CLI smoke trainer, deterministic init
     params = model.init(torch.Generator(device=device).manual_seed(0), device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"arch={cfg.name} params={n_params/1e6:.2f}M seq={args.seq} "

@@ -223,7 +223,7 @@ def write_plan(cache, pos, kblk: int, *, block: bool):
     cap = sp.shape[-1]
     iota = torch.arange(kblk, dtype=torch.int32, device=dev)
     cur = pos[:, None] + iota[None, :]                        # (B,k)
-    rows = torch.arange(b, device=dev)[:, None].expand(b, kblk)
+    rows = torch.arange(b, dtype=torch.int32, device=dev)[:, None].expand(b, kblk)
     slot = cur.clamp(max=cap - 1)
     if not block:
         sp[:, rows, slot] = cur                               # the decode step's write

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import torch_dtype
 
 from . import attention as attn_lib
+from . import sharding_utils as shu
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, init_mlp, init_norm, sinusoidal_positions,
                      truncated_normal)
@@ -80,7 +81,8 @@ def encode(params, frames, cfg: ModelConfig):
     b, f = frames.shape[:2]
     dt = torch_dtype(cfg.dtype)
     pos = torch.arange(f, dtype=torch.int32, device=frames.device)
-    x = frames.to(dt) + sinusoidal_positions(pos, cfg.d_model).to(dt)
+    x = shu.constrain(frames.to(dt) + sinusoidal_positions(pos, cfg.d_model).to(dt),
+                      shu.BATCH, None, None)
     positions = pos.expand(b, f).contiguous()
     for p in params["enc_layers"]:
         x = _remat(_enc_block, cfg, p, x, positions)
@@ -93,7 +95,8 @@ def _dec_embed(params, tokens, cfg: ModelConfig):
     b, s = tokens.shape
     pos = torch.arange(s, dtype=torch.int32, device=tokens.device)
     x = params["embed"][tokens]
-    x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+    x = shu.constrain(x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype),
+                      shu.BATCH, None, None)
     return x, pos.expand(b, s).contiguous()
 
 
@@ -121,7 +124,7 @@ def _dec_block_train(p, x, positions, memory, cfg: ModelConfig):
 
 def _logits(params, x, cfg: ModelConfig):
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
-    return (x @ params["embed"].T).float()
+    return shu.constrain(x @ params["embed"].T, shu.BATCH, None, "model").float()
 
 
 def forward(params, frames, tokens, cfg: ModelConfig):
@@ -174,7 +177,8 @@ def decode_step(params, token, caches, cfg: ModelConfig):
     b, dev = token.shape[0], token.device
     row = torch.full((1,), min(pos, cfg.max_seq_len - 1), dtype=torch.int64, device=dev)
     x = params["embed"][token[:, None]]
-    x = x + sinusoidal_positions(row, cfg.d_model)[None].to(x.dtype)
+    x = shu.constrain(x + sinusoidal_positions(row, cfg.d_model)[None].to(x.dtype),
+                      shu.BATCH, None, None)
     kv, ck, cv = caches["self"], caches["cross_k"], caches["cross_v"]
     cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
     enc_len = torch.full((b,), ck.shape[2], dtype=torch.int32, device=dev)

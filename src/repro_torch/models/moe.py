@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import torch_dtype
 
+from . import sharding_utils as shu
 from .config import ModelConfig
 from .layers import apply_mlp, dense_init, init_mlp, truncated_normal
 
@@ -45,6 +46,7 @@ def init_moe(cfg: ModelConfig, generator, device):
 def capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
     """Slots per expert and group: ``cf * k * S_g / E`` truncated, rounded up
     to a multiple of 8, at least 8 (the reference's ``_capacity``)."""
+    # hostsync: ok static config arithmetic
     c = int(cfg.capacity_factor * cfg.experts_per_token * tokens_per_group / cfg.num_experts)
     return max(8, ((c + 7) // 8) * 8)
 
@@ -98,7 +100,9 @@ def route(params, x, cfg: ModelConfig):
     xf = x.reshape(n, d)
     if pad:
         xf = torch.cat([xf, xf.new_zeros(pad, d)])
-    probs, idx, aux = router_topk(params, xf.view(-1, gsz, d), cfg)
+    # the reference re-seeds the batch sharding on the group dim
+    xg = shu.constrain(xf.view(-1, gsz, d), shu.BATCH, None, None)
+    probs, idx, aux = router_topk(params, xg, cfg)
     return xf, probs, idx, expert_ranks(idx, cfg.num_experts), capacity(cfg, gsz), aux
 
 

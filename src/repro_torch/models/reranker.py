@@ -43,7 +43,8 @@ def score_pairs(params, tokens_a, mask_a, tokens_b, mask_b, cfg: ModelConfig,
     tokens = torch.cat([tokens_a, sep, tokens_b.to(tokens_a.dtype)], dim=1).long()
     mask = torch.cat([mask_a, torch.ones((b, 1), dtype=mask_a.dtype, device=mask_a.device),
                       mask_b.to(mask_a.dtype)], dim=1)
-    positions = torch.clamp(torch.cumsum(mask.to(torch.int32), dim=1) - 1, min=0)
+    positions = torch.clamp(torch.cumsum(mask.to(torch.int32), dim=1, dtype=torch.int32) - 1,
+                            min=0)
     pooled = pooled_states(params, tokens, positions, mask, cfg)
     return (pooled @ params["score_head"])[:, 0]
 

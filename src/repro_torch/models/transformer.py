@@ -67,6 +67,7 @@ from repro_torch.device import torch_dtype
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import rglru as rglru_lib
+from . import sharding_utils as shu
 from . import ssm as ssm_lib
 from .config import ATTN, LOCAL_ATTN, MAMBA2, MOE, RGLRU, ModelConfig
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm, truncated_normal
@@ -206,7 +207,7 @@ def _ffn_residual(p, x, cfg: ModelConfig):
 def _logits(params, x, cfg: ModelConfig):
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ w).float()
+    logits = shu.constrain(x @ w, shu.BATCH, None, "model").float()
     if cfg.logits_softcap > 0:
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits / c)
@@ -267,6 +268,8 @@ def _embed_inputs(params, tokens, cfg: ModelConfig, prefix_embeds=None, start: i
     if prefix_embeds is not None:
         pe = prefix_embeds.to(x.dtype) @ params["frontend_proj"]
         x = torch.cat([pe, x], dim=1)
+    # the reference seeds GSPMD with batch-sharded activations here
+    x = shu.constrain(x, shu.BATCH, None, None)
     b, s = x.shape[:2]
     positions = torch.arange(start, start + s, dtype=torch.int32, device=x.device)
     return x, positions.expand(b, s).contiguous()
@@ -286,7 +289,7 @@ def cross_entropy(logits, targets, mask, vocab_size: int):
     of the log-sum-exp with -1e30, its max taken without gradient, and the
     target logit read by comparison with the vocabulary index (the
     reference's form, which never gathers along the vocabulary)."""
-    iota = torch.arange(logits.shape[-1], device=logits.device)
+    iota = torch.arange(logits.shape[-1], dtype=torch.int32, device=logits.device)
     masked = torch.where(iota < vocab_size, logits,
                          torch.full((), -1e30, dtype=logits.dtype, device=logits.device))
     m = masked.amax(dim=-1, keepdim=True).detach()
@@ -402,7 +405,7 @@ def decode_step(params, token, caches, cfg: ModelConfig):
         plan = None
         filled = min(pos + 1, kv["k"].shape[2]) if window > 0 else pos + 1
         cache_len = torch.full((b,), filled, dtype=torch.int32, device=token.device)
-    x = params["embed"][token[:, None]]
+    x = shu.constrain(params["embed"][token[:, None]], shu.BATCH, None, None)
     for i, p in enumerate(params["layers"]):
         a = attn_lib.decode_attention(p["attn"], apply_norm(p["norm1"], x, cfg.norm_type),
                                       kv, i, pos, cache_len, cfg, window=window, plan=plan)
@@ -419,7 +422,7 @@ def _decode_step_mixed(params, token, caches, cfg: ModelConfig):
                          "host-int pos")
     window = cfg.sliding_window
     cache_len = None
-    x = params["embed"][token[:, None]]
+    x = shu.constrain(params["embed"][token[:, None]], shu.BATCH, None, None)
     for p, slot in zip(params["layers"], layer_slots(cfg)):
         kind = slot[0]
         cache = layer_cache(caches, slot)
@@ -456,7 +459,7 @@ def decode_block(params, tokens, caches, cfg: ModelConfig):
                          "caches with serving.paged_kv.row_pos_caches")
     kv = caches["scan"][0]
     plan = attn_lib.write_plan(kv, pos, tokens.shape[1], block=True)
-    x = params["embed"][tokens]
+    x = shu.constrain(params["embed"][tokens], shu.BATCH, None, None)
     for i, p in enumerate(params["layers"]):
         a = attn_lib.decode_attention_block(
             p["attn"], apply_norm(p["norm1"], x, cfg.norm_type), kv, i, pos, plan, cfg)

@@ -106,7 +106,7 @@ class DecodeSession:
         self._tags: Dict[int, Any] = {}       # slot -> caller's request tag
         self._free_slots: List[int] = list(range(slots - 1, -1, -1))
         self._rng = torch.Generator(device=self.device)
-        self._rng.manual_seed(int(seed))
+        self._rng.manual_seed(int(seed))  # hostsync: ok host int seed
         self._cols = torch.arange(self.mnt, dtype=torch.int32, device=self.device)[None, :]
         self.state = self._init_state()
 
@@ -156,6 +156,7 @@ class DecodeSession:
             paged_lib.scatter_pages(leaf["kp"], leaf["vp"], d["k"], d["v"], tbl, writable)
             leaf["block_tbl"][slot_ids] = tbl
             leaf["slot_pos"][:, slot_ids] = d["slot_pos"]
+        # hostsync: ok the dense prefill's host-int pos
         st["caches"]["pos"][slot_ids] = int(dense["pos"])
         t0 = sample(logits0, self.cfg.sampler, self._rng)
         done0 = t0 == self.cfg.eos_id
@@ -272,6 +273,7 @@ class DecodeSession:
         if self.spec_k == 1:
             return {"proposed": 0, "accepted": 0, "spec_steps": 0}
         st = self.state
+        # hostsync: ok stats readout at a step boundary, caller-paced
         prop, acc, steps = torch.stack([st["prop"], st["acc"], st["spec_steps"]]).tolist()
         return {"proposed": prop, "accepted": acc, "spec_steps": steps}
 
@@ -298,7 +300,7 @@ class DecodeSession:
                 raise NoFreeSlots(f"cohort of {k} rows, {len(self._free_slots)} free slots")
             chosen = [self._free_slots[-1 - i] for i in range(k)]
         else:
-            chosen = [int(x) for x in slots]
+            chosen = [int(x) for x in slots]  # hostsync: ok caller-supplied host ints
             if len(chosen) != k or len(set(chosen)) != k:
                 raise ValueError("slots must name one distinct free slot per row")
             if any(c not in self._free_slots for c in chosen):
@@ -340,11 +342,12 @@ class DecodeSession:
         """
         step = self._step_spec if self.spec_k > 1 else self._step
         for _ in range(steps):
+            # hostsync: ok the host-stepped oracle syncs per step by design
             if not fused and not bool(self._active().any()):
                 break
             step()
 
-    def harvest(self) -> List[FinishedRow]:
+    def harvest(self) -> List[FinishedRow]:  # hostsync: ok THE one per-chunk copy
         """Collect finished rows, free their pages, clear their slots.
 
         THE one device->host copy per chunk: flags, lengths and the token

@@ -154,10 +154,10 @@ class Generator:
     def build_prefix_cache(self, prefix_ids: Sequence[int], batch: int) -> PrefixCache:
         """Prefill a shared prefix once at ``batch`` rows (every row holds the
         same ids), with the exact shapes the suffix prefills will see."""
-        ids = tuple(int(t) for t in prefix_ids)
+        ids = tuple(int(t) for t in prefix_ids)  # hostsync: ok one-time prefix build, host-side ids
         if not ids:
             raise ValueError("prefix_ids must be non-empty")
-        toks = torch.tensor(ids, dtype=torch.int64, device=self.device)
+        toks = to_device(np.asarray(ids, np.int64), self.device)
         toks = toks[None, :].expand(batch, len(ids)).contiguous()
         caches = self.model.prefill_prefix(self.params, toks)
         return PrefixCache(caches=caches, length=len(ids), batch=batch, token_ids=ids)
@@ -219,7 +219,7 @@ class Generator:
         # drafts go up before the prefill is enqueued: one transfer
         draft_pack = None if drafts is None else self._draft_pack(drafts, b, mnt, use_fused)
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
+        gen.manual_seed(int(seed))  # hostsync: ok host int seed
         if prefix_cache is not None:
             if b != prefix_cache.batch:
                 raise ValueError(
@@ -249,8 +249,8 @@ class Generator:
                 return self._decode_fused_spec(logits, caches, draft_pack, mnt,
                                                self.cfg.spec_k)
             if use_fused:
+                # hostsync: ok THE one per-call copy of the decode block
                 packed = _pack(*self._decode_fused(logits, caches, gen, mnt)).cpu().numpy()
-                # THE per-generate-call device->host sync
                 return packed[:, :mnt], packed[:, mnt], packed[:, mnt + 1].astype(bool)
             return self._host_loop(logits, caches, gen, mnt)
         finally:
@@ -265,7 +265,8 @@ class Generator:
         done = tok == eos
         toks = torch.full((b, mnt), eos, dtype=torch.int32, device=logits.device)
         toks[:, 0] = tok
-        lengths = torch.where(done, 1, mnt).to(torch.int32)
+        lengths = torch.full((b,), mnt, dtype=torch.int32, device=logits.device).masked_fill_(
+            done, 1)
         for step in range(1, mnt):
             logits, caches = self.model.decode_step(self.params, tok, caches)
             t, new_done = masked_sample(logits, done, eos, scfg, gen)
@@ -306,7 +307,7 @@ class Generator:
         eos_done = tok == eos
         toks = torch.full((b, mnt), eos, dtype=torch.int32, device=dev)
         toks[:, 0] = tok
-        lengths = torch.where(eos_done, 1, mnt).to(torch.int32)
+        lengths = torch.full((b,), mnt, dtype=torch.int32, device=dev).masked_fill_(eos_done, 1)
         ne = torch.ones(b, dtype=torch.int32, device=dev)            # tokens emitted
         # speculate only while the draft tracks the stream: token 0 must match
         spec_on = ~eos_done & (draft_len > 0) & (tok == draft_ids[:, 0])
@@ -318,6 +319,7 @@ class Generator:
         while True:
             active = ~eos_done & (ne < mnt) & spec_on
             left = torch.where(eos_done, 0, mnt - ne).amax()
+            # hostsync: ok the speculative loop's per-iteration flag read
             flag = torch.stack([active.any().to(torch.int32), left.to(torch.int32)]).cpu()
             syncs += 1
             if not flag[0]:
@@ -330,7 +332,8 @@ class Generator:
             # g[:, i] is the true greedy token at output position ne + i when
             # the fed draft prefix matched; cumprod keeps the leading run
             match = (g[:, :k - 1] == dval) & (dpos < draft_len[:, None])
-            lmatch = match.to(torch.int32).cumprod(dim=1).sum(dim=1).to(torch.int32)
+            lmatch = match.to(torch.int32).cumprod(dim=1, dtype=torch.int32).sum(dim=1,
+                                                                           dtype=torch.int32)
             eos_idx = torch.where(g == eos, iota_k[None, :], k).amin(dim=1)
             a = torch.minimum(torch.minimum(lmatch + 1, eos_idx + 1), mnt - ne)
             a = torch.where(active, a, 0).to(torch.int32)
@@ -345,13 +348,13 @@ class Generator:
             # drop the k - a rejected positions; inactive rows roll back all k
             caches = paged_lib.rewind_kv(caches, k - a)
             n_fed = (draft_len - ne).clamp(0, k - 1)
-            prop = prop + torch.where(active, n_fed, 0).sum().to(torch.int32)
-            acc = acc + torch.where(active, torch.minimum(lmatch, a), 0).sum().to(torch.int32)
+            prop = prop + torch.where(active, n_fed, 0).sum(dtype=torch.int32)
+            acc = acc + torch.where(active, torch.minimum(lmatch, a), 0).sum(dtype=torch.int32)
             ne = ne + a
             spec_on = active & (a == k) & (ne < draft_len)
             eos_done = eos_done | ended_now
             steps += 1
-        for _ in range(int(flag[1])):
+        for _ in range(int(flag[1])):  # hostsync: ok host copy of that flag
             logits, caches = self.model.decode_block(self.params, tok[:, None], caches)
             g1 = greedy_ids(mask_vocab(logits, scfg))[:, 0]
             active = ~eos_done & (ne < mnt)
@@ -363,15 +366,17 @@ class Generator:
             eos_done = eos_done | end_now
             tok = t
         counters = torch.stack([prop, acc]).expand(b, 2)
+        # hostsync: ok the speculative call's final copy
         packed = torch.cat([_pack(toks, lengths, eos_done), counters], dim=1).cpu().numpy()
         syncs += 1
-        self.last_spec_stats = {"proposed": int(packed[0, mnt + 2]),
-                                "accepted": int(packed[0, mnt + 3]), "spec_steps": steps}
+        prop, acc = (int(x) for x in packed[0, mnt + 2:mnt + 4])  # hostsync: ok host numpy
+        self.last_spec_stats = {"proposed": prop, "accepted": acc, "spec_steps": steps}
         self.last_spec_syncs = syncs
         for stat, inc in self.last_spec_stats.items():
             self.spec_stats[stat] += inc
         return packed[:, :mnt], packed[:, mnt], packed[:, mnt + 1].astype(bool)
 
+    # hostsync: ok the differential oracle syncs per step by design
     def _host_loop(self, logits, caches, gen, mnt: int):
         """Host-driven per-step decode, one sync per token: the oracle."""
         eos = self.cfg.eos_id

@@ -80,6 +80,7 @@ def row_positions(pos, batch: int, device) -> torch.Tensor:
     """A cache position as a per-row (B,) int32 tensor."""
     if torch.is_tensor(pos):
         return pos
+    # hostsync: ok host int position
     return torch.full((batch,), int(pos), dtype=torch.int32, device=device)
 
 
@@ -259,7 +260,7 @@ class PagePool:
     def incref(self, ids: np.ndarray, count: int = 1) -> None:
         np.add.at(self._refcount, np.asarray(ids, np.int64), count)
 
-    def decref(self, ids) -> None:
+    def decref(self, ids) -> None:  # hostsync: ok refcount bookkeeping, pure host numpy
         """Drop one reference per id; pages return to the free list at 0."""
         for p in np.asarray(ids, np.int64).ravel():
             c = int(self._refcount[p]) - 1

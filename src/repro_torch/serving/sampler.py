@@ -32,7 +32,8 @@ def greedy_ids(logits):
 def mask_vocab(logits, cfg: SamplerConfig):
     """Mask padded logit lanes at and above ``cfg.vocab_size`` (0 = off)."""
     if cfg.vocab_size:
-        keep = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab_size
+        keep = torch.arange(logits.shape[-1], dtype=torch.int32,
+                            device=logits.device) < cfg.vocab_size
         logits = torch.where(keep, logits, -torch.inf)
     return logits
 

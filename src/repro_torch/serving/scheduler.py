@@ -62,7 +62,7 @@ class SimClock:
     """
 
     def __init__(self, start: float = 0.0):
-        self._t = float(start)
+        self._t = float(start)  # hostsync: ok host wall-clock, never a device value
 
     def now(self) -> float:
         return self._t
@@ -74,7 +74,7 @@ class SimClock:
         return self._t
 
     def advance_to(self, t: float) -> float:
-        self._t = max(self._t, float(t))
+        self._t = max(self._t, float(t))  # hostsync: ok host wall-clock, never a device value
         return self._t
 
 
@@ -461,7 +461,7 @@ def poisson_trace(texts: List[str], rate: float, *,
     """Poisson-process arrival trace over ``texts`` at ``rate`` req/s."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    gaps = rng.exponential(1.0 / rate, size=len(texts)).tolist()
+    gaps = rng.exponential(1.0 / rate, size=len(texts)).tolist()  # hostsync: ok host numpy trace
     t, out = 0.0, []
     for g, text in zip(gaps, texts):
         t += g

@@ -55,17 +55,18 @@ def value_and_grad(model: Model, params, batch):
     return loss.detach(), metrics, _like(params, grads)
 
 
-def microbatch_value_and_grad(model: Model, params, batch, microbatches: int):
+def microbatch_value_and_grad(model: Model, params, batch, microbatches: int, out=None):
     """(loss, grads) of ``batch`` split into ``microbatches`` along the batch
     axis: each part's gradients accumulated in fp32, the sums and the loss
     divided by ``microbatches`` (the reference's ``scan``).  ``grads`` is
-    shaped as ``params`` with fp32 leaves."""
+    shaped as ``params`` with fp32 leaves: the tensors of ``out`` (one zeroed
+    fp32 tensor per leaf, in ``tree_leaves`` order) when given."""
     b = batch["tokens"].shape[0]
     if b % microbatches:
         raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
     n = b // microbatches
-    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for p in tree_leaves(params)]
+    acc = out if out is not None else [
+        torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in tree_leaves(params)]
     loss = torch.zeros((), dtype=torch.float32, device=acc[0].device)
     for i in range(microbatches):
         micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}

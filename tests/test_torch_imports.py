@@ -46,12 +46,18 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch/serving/scheduler.py", "repro_torch/serving/continuous.py",
             "repro_torch/models/encdec.py", "repro_torch/launch/shapes.py",
             "repro_torch/launch/sharding.py", "repro_torch/launch/dryrun.py",
-            "repro_torch/kernels/meta.py"} <= names
+            "repro_torch/kernels/meta.py", "repro_torch/analysis/__init__.py",
+            "repro_torch/analysis/registry.py", "repro_torch/analysis/lint.py",
+            "repro_torch/analysis/contracts.py", "repro_torch/models/sharding_utils.py",
+            "repro_torch/launch/zero_trainer.py"} <= names
     assert configs <= names
     for mod in ("repro_torch.core.distributed", "repro_torch.launch.mesh",
                 "repro_torch.models.encdec", "repro_torch.launch.shapes",
                 "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
-                "repro_torch.kernels.meta",
+                "repro_torch.kernels.meta", "repro_torch.analysis",
+                "repro_torch.analysis.registry", "repro_torch.analysis.lint",
+                "repro_torch.analysis.contracts", "repro_torch.models.sharding_utils",
+                "repro_torch.launch.zero_trainer",
                 *(n.removesuffix(".py").replace("/", ".") for n in sorted(configs))):
         importlib.import_module(mod)
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imported_modules(f)
@@ -237,3 +243,26 @@ def test_slice_9_modules_stand_alone(rel):
     assert path in _port_files()
     assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     importlib.import_module("repro_torch." + rel[:-3].replace("/", "."))
+
+
+SLICE_12 = ("analysis/__init__.py", "analysis/registry.py", "analysis/lint.py",
+            "analysis/contracts.py", "models/sharding_utils.py", "launch/zero_trainer.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_12)
+def test_slice_12_modules_stand_alone(rel):
+    """The analyzer, the sharding constraints and the zero trainer import
+    without JAX or the JAX package (the lint's AST helpers are a copy)."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in _port_files()
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    name = rel[:-3].replace("/", ".").removesuffix(".__init__")
+    importlib.import_module("repro_torch." + name)
+
+
+def test_contracts_cli_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.analysis import contracts
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        contracts.main([])
