@@ -32,7 +32,11 @@ Prints one JSON object per line:
           over the stored prefix bit for bit against the inline prefill, and
           the ``train-backward`` cases (bf16, fp32) time forward + backward
           through the flash autograd wrapper (kernel forward, plain
-          backward) against autograd of the plain version and SDPA's;
+          backward) against autograd of the plain version and SDPA's; the
+          fp32 instances below dh 32 (``small_head_dim_cases``: dense decode
+          at dh 24, verify K 4 / K 1, paged decode and paged verify K 4 at
+          dh 16 G 2 and G 4, dh 24 G 4 and dh 32 G 2, at the smoke paths'
+          and the examples' shapes) are held to 1e-5;
   serve_cli ``python -m repro_torch.launch.serve`` with no arguments (the
           tiny fp32 stack, head dim 16, on the card; run through ``runpy`` in
           this process): exit 0, 200 completions, its kernel launches;
@@ -95,12 +99,31 @@ Prints one JSON object per line:
           for a MoE stack layer 0's MoE on the prefill's 512-token group and
           on a 4-token decode group against a literal fp32 transcription of
           the reference's one-hot einsum dispatch (the same kept pairs, 2e-2),
-          the dropped pairs, and for qwen3-moe a paged ``DecodeSession``,
-          the speculative Generator and a speculative session, held to the
-          Generator's tokens; for internvl2 the paged, the speculative and
-          the paged speculative Generator with its prefix and a paged
-          ``DecodeSession`` over the prompts alone, held the same way; for a
-          MoE, recurrent or frontend stack the train CLI's smoke run of the id;
+          the dropped pairs; for qwen3-moe and internvl2 (with its prefix)
+          every other decode path (``paths_check``: the paged, speculative
+          and paged speculative Generator, drafts at overlap 1.0 and 0.5,
+          and a paged ``DecodeSession`` plain and speculative over the
+          prompts alone), held to the Generator's tokens; for a MoE,
+          recurrent or frontend stack the train CLI's smoke run of the id;
+  smoke_paths every smoke config (``get_config(id, smoke=True)``, fp32,
+          uncut) and the serve CLI's tiny stack's small model, random weights:
+          4 prompts of 32 tokens, 16 greedy tokens through ``generate_check``
+          (dense decode held to a teacher-forced forward under the margin
+          rule); the six paged- and speculation-eligible configs (qwen2.5-3b
+          dh 32, deepseek-coder-33b, arctic-480b, qwen3-moe-235b-a22b,
+          internvl2-26b dh 16, nemotron-4-340b dh 24) and the tiny small
+          model (dh 16, G 2) also paged, speculative and paged speculative
+          (k 4, drafts from the dense tokens at overlap 1.0 and 0.5) and
+          through a paged ``DecodeSession`` plain and speculative
+          (``paths_check``), held to the dense tokens under the margin rule,
+          each path's kernel launched, no page leaked;
+  examples the port's ``repro_torch.examples`` run as ``python -m`` runs them
+          at the reference's defaults: ``quickstart`` (five routes),
+          ``serve_e2e`` (120 arrivals, batch 8, 80 pretraining steps: wall
+          seconds, losses, routes, hit rate, cost ratio; completed + rejected
+          = queries, miss + tweak + exact = rows served, flash and the dense
+          decode at dh 24 and 16 launched), ``cache_policy_study`` (the hit
+          rate of FIFO, LRU and LFU banks of 96 rows over 500 queries);
   shapes  the reference's assigned input shapes at its per-card batch, one
           case at a time on an emptied card, through
           ``launch.dryrun.run_one(..., device="cuda")``: llama-3.1-8b's
@@ -190,7 +213,8 @@ Prints one JSON object per line:
   kernels the ported kernels with their launches on the path that runs
           them (serve for the dense kernels, paged, spec, ivf; flash also
           its launches in lm_train, zero_train and judge; flash, dense decode
-          and the flat scan also the analysed serve batch's);
+          and the flat scan also the analysed serve batch's and the
+          examples'; flash and the four decode kernels the smoke paths');
   wall    the script's wall time, the seconds before each phase's line
           (``phase_s``: ``kernel_cases`` the cases' checks, ``kernel`` their
           profiled device times, ``wall`` the summary), and how many
@@ -231,7 +255,7 @@ ARCHS = (("qwen2.5-3b", None), ("h2o-danube-1.8b", None), ("deepseek-coder-33b",
 # The MoE stacks: arctic-480b keeps 2 of 35 layers (~55.4 GB: 27.2 GB a layer,
 # 26.8 GB of it experts; 35 layers need ~954 GB); qwen3-moe-235b-a22b 4 of 94
 # (~22.4 GB: 4.98 GB a layer; 94 layers need ~470 GB).  qwen3-moe also runs
-# the paged and speculative paths (``moe_paths_check``) at G 16; arctic's
+# the paged and speculative paths (``paths_check``) at G 16; arctic's
 # attention shapes are deepseek-coder-33b's, whose kernel cases stand for it.
 MOE_PATHS_ARCH = "qwen3-moe-235b-a22b"
 ARCH_KERNEL_CASES_OF = {"arctic-480b": "deepseek-coder-33b-prefill, deepseek-coder-33b-decode "
@@ -251,6 +275,14 @@ ARCH_BATCH, ARCH_PROMPT, ARCH_NEW = 4, 128, 32
 RING = (2, 64, 64)
 TRAIN_CLI_ARCH = "qwen2.5-3b"  # the train CLI's default --arch, as the reference's
 SERVE_CLI_QUERIES = 200        # the serve CLI's default --queries
+# ``smoke_paths``: every smoke config (``configs.get_config(id, smoke=True)``,
+# fp32, uncut) and the serve CLI's tiny stack's small model, random weights:
+# prompts x tokens, greedy tokens
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW = 4, 32, 16
+# ``examples``: the port's counterparts of the reference's examples/*.py, run
+# as ``python -m`` runs them at the reference's defaults (serve_e2e's are
+# --queries 120 --batch 8 --steps 80)
+EXAMPLES = ("quickstart", "serve_e2e", "cache_policy_study")
 
 
 PHASE_S = {}                   # seconds spent before each phase's line (the wall line)
@@ -453,12 +485,15 @@ def gather_wave_clusters(build) -> list:
     return got
 
 
-def mma_plan(name: str, label: str, plan) -> dict:
-    """The cut of a bf16 attention-panel call (``decode_attention.ops.
-    launch_plan``) as the kernel line reports it; it must be the
-    tensor-core route."""
-    if plan.route != "mma":
-        raise AssertionError(f"{name}[{label}]: route {plan.route}, not the tensor cores")
+def panel_plan(name: str, label: str, plan, dtype) -> dict:
+    """The cut of an attention-panel call (``decode_attention.ops.
+    launch_plan``) as the kernel line reports it: bf16 must take the
+    tensor-core route ("mma", one launch), fp32 the CUDA-core one ("panel",
+    its splits merged by a second launch)."""
+    import torch
+    want = "panel" if dtype == torch.float32 else "mma"
+    if plan.route != want:
+        raise AssertionError(f"{name}[{label}]: route {plan.route}, not {want} for {dtype}")
     return {"route": plan.route, "grid": list(plan.grid), "chunk": plan.chunk,
             "splits": plan.splits, "kq_panel": plan.kq_panel, "smem_bytes": plan.smem_bytes}
 
@@ -736,9 +771,8 @@ def decode_case(label, b, h, hk, dh, t, cache_len, layers, gen, dtype="bfloat16"
     moved = 2 * elt * b * cache_len * hk * dh + 2 * elt * q.numel() + 4 * b
     fp32 = dt == torch.float32
     bms, by = bound(moved, 4.0 * b * h * cache_len * dh, "fp32" if fp32 else "bf16")
-    cut = ops.launch_plan(b, 1, t, hk, h // hk, dh, dt)
-    plan = ({"route": cut.route, "grid": list(cut.grid), "chunk": cut.chunk,
-             "splits": cut.splits} if fp32 else mma_plan("decode_attention", label, cut))
+    plan = panel_plan("decode_attention", label, ops.launch_plan(b, 1, t, hk, h // hk, dh, dt),
+                      dt)
     return {"phase": "kernel", "name": "decode_attention", "case": label,
             "shape": {"B": b, "H": h, "Hk": hk, "dh": dh, "T": t, "cache_len": cache_len,
                       **plan, "dtype": dtype},
@@ -872,24 +906,26 @@ def gather_case(label, b, n, nprobe, bucket, d, k, sets, gen):
             "bound_ms": bms, "bound_by": by}, (run, library, sets)
 
 
-def block_case(label, b, kq, h, hk, dh, t, cache_len, layers, gen):
-    """The dense q-block (verify) kernel at a main-path shape, bf16: K
-    queries whose keys sit at slots ``cache_len + i``; the timed loop walks
+def block_case(label, b, kq, h, hk, dh, t, cache_len, layers, gen, dtype="bfloat16"):
+    """The dense q-block (verify) kernel at a main-path shape, bf16 (or fp32,
+    the CUDA-core panel body, as the smoke configs and tiny stacks run it):
+    K queries whose keys sit at slots ``cache_len + i``; the timed loop walks
     ``layers`` distinct caches, as a verify step walks its layers."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
     dev = torch.device("cuda")
-    q = torch.randn(b, kq, h, dh, device=dev, generator=gen, dtype=torch.bfloat16)
-    ks = [torch.randn(b, t, hk, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, kq, h, dh, device=dev, generator=gen, dtype=dt)
+    ks = [torch.randn(b, t, hk, dh, device=dev, generator=gen, dtype=dt)
           for _ in range(layers)]
-    vs = [torch.randn(b, t, hk, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+    vs = [torch.randn(b, t, hk, dh, device=dev, generator=gen, dtype=dt)
           for _ in range(layers)]
     lens = torch.full((b,), cache_len, device=dev, dtype=torch.int32)
     out = ops.decode_attention_block(q, ks[0], vs[0], lens)
     want = ref.decode_attention_block_ref(q.float(), ks[0].float(), vs[0].float(), lens)
     err = (out.float() - want).abs().max().item()
-    tol = 2e-2
+    tol = 1e-5 if dt == torch.float32 else 2e-2
     check(f"decode_attention_block[{label}]", err, tol)
     step = [0]
 
@@ -912,13 +948,14 @@ def block_case(label, b, kq, h, hk, dh, t, cache_len, layers, gen):
                                               enable_gqa=True)
 
     visible = int(limit.sum().item())             # (row, query, slot) pairs kept
-    moved = 2 * 2 * b * (cache_len + kq) * hk * dh + 2 * 2 * q.numel() + 4 * b
-    bms, by = bound(moved, 4.0 * h * dh * visible, "bf16")
-    plan = mma_plan("decode_attention_block", label,
-                    ops.launch_plan(b, kq, t, hk, h // hk, dh, torch.bfloat16))
+    elt = q.element_size()
+    moved = 2 * elt * b * (cache_len + kq) * hk * dh + 2 * elt * q.numel() + 4 * b
+    bms, by = bound(moved, 4.0 * h * dh * visible, "fp32" if dt == torch.float32 else "bf16")
+    plan = panel_plan("decode_attention_block", label,
+                      ops.launch_plan(b, kq, t, hk, h // hk, dh, dt), dt)
     return {"phase": "kernel", "name": "decode_attention_block", "case": label,
             "shape": {"B": b, "K": kq, "H": h, "Hk": hk, "dh": dh, "T": t,
-                      "cache_len": cache_len, **plan, "dtype": "bfloat16"},
+                      "cache_len": cache_len, **plan, "dtype": dtype},
             "max_abs_err": err, "tolerance": tol, "ms": time_ms(run, reps=layers),
             "plain_ms": time_ms(plain), "library_ms": time_ms(library, reps=layers),
             "library": "scaled_dot_product_attention with a (B,1,K,T) mask",
@@ -926,8 +963,9 @@ def block_case(label, b, kq, h, hk, dh, t, cache_len, layers, gen):
 
 
 def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, gen,
-               block: bool):
-    """A paged kernel at a main-path shape, bf16: a pool per layer whose first
+               block: bool, dtype="bfloat16"):
+    """A paged kernel at a main-path shape, bf16 (or fp32, the CUDA-core
+    panel body, as the smoke configs and tiny stacks run it): a pool per layer whose first
     ``prefix_len // page`` pages hold the pinned tweak prefix shared by every
     row, private pages behind them, and a last row parked on the TRASH page
     with no valid slot.  Rows hold positions ``[0, length)`` (and the block's
@@ -939,13 +977,14 @@ def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, g
     from repro_torch.kernels.decode_attention.ops import launch_plan
     from repro_torch.kernels.paged_attention import ops, ref
     dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
     npg = -(-cap // page)
     n_pin = prefix_len // page
     pages = n_pin + b * (npg - n_pin)
-    kps = [torch.randn(pages + 1, page, hk, dh, device=dev, generator=gen,
-                       dtype=torch.bfloat16) for _ in range(layers)]
-    vps = [torch.randn(pages + 1, page, hk, dh, device=dev, generator=gen,
-                       dtype=torch.bfloat16) for _ in range(layers)]
+    kps = [torch.randn(pages + 1, page, hk, dh, device=dev, generator=gen, dtype=dt)
+           for _ in range(layers)]
+    vps = [torch.randn(pages + 1, page, hk, dh, device=dev, generator=gen, dtype=dt)
+           for _ in range(layers)]
     private = torch.randperm(pages - n_pin, device=dev, generator=gen) + n_pin
     tbl = torch.cat([torch.arange(n_pin, device=dev).expand(b, n_pin),
                      private.view(b, npg - n_pin)], 1).to(torch.int32)
@@ -957,7 +996,7 @@ def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, g
     sp[-1] = -1
     sp = sp.contiguous()
     qpos = torch.full((b,), length, device=dev, dtype=torch.int32)
-    q = torch.randn(b, kq, h, dh, device=dev, generator=gen, dtype=torch.bfloat16)
+    q = torch.randn(b, kq, h, dh, device=dev, generator=gen, dtype=dt)
     q1 = q[:, 0].contiguous()
     step = [0]
     if block:
@@ -975,12 +1014,12 @@ def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, g
     out = call(0)
     torch.cuda.synchronize()
     name = "paged_decode_attention_block" if block else "paged_decode_attention"
-    plan = mma_plan(name, label, launch_plan(b, kq if block else 1, cap, hk, h // hk, dh,
-                                             torch.bfloat16))
+    plan = panel_plan(name, label, launch_plan(b, kq if block else 1, cap, hk, h // hk, dh, dt),
+                      dt)
     if out[-1].float().abs().max().item() != 0:      # also catches NaN
         raise AssertionError(f"{name}[{label}]: the TRASH row is not 0")
     err = (out[:-1].float() - want[:-1]).abs().max().item()   # rows with a valid slot
-    tol = 2e-2
+    tol = 1e-5 if dt == torch.float32 else 2e-2
     check(f"{name}[{label}]", err, tol)
 
     def run():
@@ -1003,13 +1042,14 @@ def paged_case(label, b, kq, h, hk, dh, page, cap, length, prefix_len, layers, g
     valid = int((sp >= 0).sum().item())      # slots read once for all queries
     pairs = int(((sp[:, None, :] >= 0) & (sp[:, None, :] <= limit[:, :, None])).sum().item())
     nq = kq if block else 1
-    moved = (2 * 2 * valid * hk * dh + 2 * 2 * b * nq * h * dh + 4 * tbl.numel()
+    elt = q.element_size()
+    moved = (2 * elt * valid * hk * dh + 2 * elt * b * nq * h * dh + 4 * tbl.numel()
              + 4 * sp.numel() + (4 * b if block else 0))
-    bms, by = bound(moved, 4.0 * h * dh * pairs, "bf16")
+    bms, by = bound(moved, 4.0 * h * dh * pairs, "fp32" if dt == torch.float32 else "bf16")
     return {"phase": "kernel", "name": name, "case": label,
             "shape": {"B": b, "K": nq, "H": h, "Hk": hk, "dh": dh, "page": page, "cap": cap,
                       "pages": pages, "pinned_pages": n_pin, "valid_slots": valid,
-                      **plan, "dtype": "bfloat16"},
+                      **plan, "dtype": dtype},
             "max_abs_err": err, "tolerance": tol, "ms": time_ms(run, reps=layers),
             "plain_ms": time_ms(plain), "library_ms": time_ms(library, reps=layers),
             "library": "yardstick: scaled_dot_product_attention over a dense cache "
@@ -1108,7 +1148,7 @@ def arch_kernel_cases(prefix_len: int, gen):
         paged_case("nemotron-4-340b-paged-verify-k4", ARCH_BATCH, SPEC_K, h, hk, dh, PAGE,
                    cap, mid, 0, n, gen, block=True),
     ]
-    # qwen3-moe at G 16 on the paths ``moe_paths_check`` drives: the Generator's
+    # qwen3-moe at G 16 on the paths ``paths_check`` drives: the Generator's
     # verify blocks (B 4), the sessions' paged decode and verify (8 slots)
     moe = get_config(MOE_PATHS_ARCH)
     h, hk, dh, n = moe.num_heads, moe.num_kv_heads, moe.resolved_head_dim, moe.num_layers
@@ -1121,6 +1161,7 @@ def arch_kernel_cases(prefix_len: int, gen):
                    0, n, gen, block=True),
     ]
     cases += frontend_kernel_cases(gen)
+    cases += small_head_dim_cases(prefix_len, gen)
     smoke = get_config(TRAIN_CLI_ARCH, smoke=True)
     cases.append(flash_case("train-cli-default-smoke-fp32", LM_BATCH, LM_SEQ, 0,
                             smoke.num_heads, smoke.num_kv_heads, smoke.resolved_head_dim,
@@ -1143,6 +1184,53 @@ def arch_kernel_cases(prefix_len: int, gen):
                              small.num_kv_heads, small.resolved_head_dim,
                              prefix_len + 64 + 8 + 1, prefix_len + 64 + 4, small.num_layers,
                              gen, dtype=small.dtype))
+    return cases
+
+
+def small_head_dim_cases(prefix_len: int, gen):
+    """The fp32 instances below dh 32 of the dense decode, verify and paged
+    kernels (a warp takes 2 or 4 cache slots at once), at the shapes the
+    ``smoke_paths`` and ``examples`` phases drive.  Dense decode at dh 24:
+    nemotron-4-340b's smoke config (G 4; ``SMOKE_BATCH`` rows over
+    ``SMOKE_PROMPT + SMOKE_NEW + 1`` slots, mid-decode) and the small LM of
+    ``examples/serve_e2e.py`` (G 2; TWEAK batches of 8 over the prefix, a
+    64-token suffix bucket and 12 new tokens).  The verify block (K 4 and
+    K 1), paged decode and paged verify (K 4) at dh 16 G 2 (the serve
+    CLI's tiny stack's small model, its TWEAK shape: the prefix's pages
+    pinned, a TRASH row), dh 16 G 4 (the dh-16 smoke configs), dh 24 G 4
+    (nemotron-4-340b smoke) and dh 32 G 2 (qwen2.5-3b smoke), at the smoke
+    paths' shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples.serve_e2e import lm_configs
+    from repro_torch.launch.serve import model_configs
+    f32 = "float32"
+    cap, mid = SMOKE_PROMPT + SMOKE_NEW + 1, SMOKE_PROMPT + SMOKE_NEW // 2
+    nem = get_config("nemotron-4-340b", smoke=True)
+    e2e = lm_configs()[1]
+    cases = [
+        decode_case("nemotron-4-340b-smoke-decode-fp32", SMOKE_BATCH, nem.num_heads,
+                    nem.num_kv_heads, nem.resolved_head_dim, cap, mid + 1, nem.num_layers, gen,
+                    dtype=f32),
+        decode_case("serve-e2e-small-tweak-decode-fp32", 8, e2e.num_heads, e2e.num_kv_heads,
+                    e2e.resolved_head_dim, prefix_len + 64 + 12 + 1, prefix_len + 64 + 6,
+                    e2e.num_layers, gen, dtype=f32),
+    ]
+    tiny = model_configs("serve-tiny")[1]
+    shapes = [("serve-tiny-small", tiny, 8, prefix_len + 64 + 8 + 1, prefix_len + 64 + 2,
+               prefix_len)]
+    shapes += [(f"{arch}-smoke", get_config(arch, smoke=True), SMOKE_BATCH, cap, mid, 0)
+               for arch in ("deepseek-coder-33b", "nemotron-4-340b", "qwen2.5-3b")]
+    for label, cfg, b, t, length, pin in shapes:
+        h, hk, dh, n = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
+        tag = f"{label}-dh{dh}-g{h // hk}-fp32"
+        cases += [
+            block_case(f"{tag}-verify-k4", b, SPEC_K, h, hk, dh, t, length, n, gen, dtype=f32),
+            block_case(f"{tag}-verify-k1", b, 1, h, hk, dh, t, length, n, gen, dtype=f32),
+            paged_case(f"{tag}-paged-decode", b, 1, h, hk, dh, PAGE, t, length + 1, pin, n,
+                       gen, block=False, dtype=f32),
+            paged_case(f"{tag}-paged-verify-k4", b, SPEC_K, h, hk, dh, PAGE, t, length, pin,
+                       n, gen, block=True, dtype=f32),
+        ]
     return cases
 
 
@@ -1942,20 +2030,24 @@ def generate_check(model, params, rng, b: int, s: int, mnt: int, extra=None):
     return line, caches, greedy
 
 
-def moe_paths_check(model, params, greedy, seed: int):
-    """A MoE stack through the paged and the speculative paths, on the same 4
-    prompts as ``generate_check``'s Generator (so each prefill forms the
-    same dispatch group), its tokens the reference: a ``DecodeSession(slots=
-    8)`` over a page pool, the 4 prompts one cohort (paged decode); the
-    Generator with ``spec_k=SPEC_K`` and the Generator's own tokens as drafts
-    (dense verify blocks); a ``DecodeSession(slots=8, spec_k=SPEC_K)`` with
-    the same drafts (paged verify blocks).  Tokens are held to the
-    reference's under the margin rule, at ``path_noise``'s tolerance.  A
-    decode step never drops a pair (C >= 8 >= its tokens); a verify block
-    of B*K tokens may, and a dropped pair changes its own token's output
-    alone, so the rule holds the rows none of whose verify tokens dropped a
-    pair, and the others are reported.  No page may leak, and each path's
-    kernel must launch."""
+def paths_check(phase: str, model, params, greedy, extra, seed: int):
+    """A paged- and speculation-eligible stack through every other decode
+    path, on ``generate_check``'s prompts (and prefix embeddings), whose
+    dense greedy tokens are the reference: the paged Generator (paged
+    decode), the speculative Generator (``spec_k=SPEC_K``, dense verify
+    blocks) and the paged speculative one (paged verify blocks), each with
+    drafts cut from the dense tokens at overlap 1.0 and 0.5, then a paged
+    ``DecodeSession(slots=8)`` (paged decode) and a paged
+    ``DecodeSession(slots=8, spec_k=SPEC_K)`` drained in chunks of SPEC_K
+    with the plain tokens as drafts (paged verify blocks), both over the
+    token prompts alone (held to plain greedy decode of them where the stack
+    has prefix embeddings: a session takes none, as the reference's).
+    Tokens are held under the margin rule at ``path_noise``'s tolerance.  A
+    MoE stack's decode step of B tokens never drops a pair (C >= 8 >= its
+    tokens) but a verify block of B x K tokens may, and a dropped pair
+    changes its own token's output alone, so rows whose verify tokens
+    dropped one are reported and left out of the rule.  No page may leak,
+    and on the card each path's kernel must launch."""
     import dataclasses
     import numpy as np
     import torch
@@ -1965,157 +2057,256 @@ def moe_paths_check(model, params, greedy, seed: int):
     from repro_torch.serving.sampler import SamplerConfig
     toks, ref, margins = greedy
     b, mnt = ref.shape
-    cap = toks.shape[1] + mnt + 1
-    vocab = model.cfg.vocab_size
+    name, vocab = model.cfg.name, model.cfg.vocab_size
     sampler = SamplerConfig(vocab_size=vocab)
     gcfg = GenerateConfig(max_new_tokens=mnt, sampler=sampler)
-    drafts = (ref, np.full(b, mnt, np.int32))
-    host = toks.cpu().numpy()
-    out, launches = {}, {}
-    with torch.no_grad():
-        noise = path_noise(model, params, sampler, toks)
-        paged = Generator(model, params, dataclasses.replace(gcfg, paged=True, page_size=PAGE))
-        spec = Generator(model, params, dataclasses.replace(gcfg, spec_k=SPEC_K))
-        for name in ("session", "spec_generate", "spec_session"):
-            reset_launch_counts()
-            t = time.perf_counter()
-            with MoeProbe() as probe:
-                if name == "spec_generate":
-                    got = spec.generate_with_lengths({"tokens": toks}, drafts=drafts)[0]
-                    stats = dict(spec.last_spec_stats)
-                    slots = list(range(b))
-                else:
-                    sess = DecodeSession(paged, slots=8, capacity=cap, seed=seed,
-                                         spec_k=SPEC_K if name == "spec_session" else 1)
-                    slots = sess.admit(host, tags=list(range(b)),
-                                       drafts=drafts if name == "spec_session" else None)
-                    done = sorted(sess.drain(chunk=SPEC_K if name == "spec_session" else 0),
-                                  key=lambda f: f["tag"])
-                    got = np.stack([f["tokens"] for f in done])
-                    stats = sess.spec_stats if name == "spec_session" else {}
-                    leaked = leaked_pages(sess) + sess.pool.live_pages
-                    if leaked:
-                        raise AssertionError(f"archs[{model.cfg.name}].{name}: {leaked} "
-                                             f"pages leaked")
-                    del sess
-            _sync(toks.device)
-            ms = (time.perf_counter() - t) * 1e3
-            launches[name] = {k: v for k, v in launch_counts().items() if v}
-            run = {"ms": ms, "launches": launches[name], **stats,
-                   "prefill_dropped_pairs": sum(probe.dropped(toks.shape[1])),
-                   "step_dropped_pairs": sum(probe.dropped(1)),
-                   "block_dropped_pairs": sum(probe.dropped(SPEC_K))}
-            if run["step_dropped_pairs"]:
-                raise AssertionError(f"archs[{model.cfg.name}].{name}: a decode step dropped "
-                                     f"pairs")
-            label = f"archs[{model.cfg.name}].{name}"
-            by_slot = probe.dropped(SPEC_K) or [0] * 8
-            clean = np.array([by_slot[j] == 0 for j in slots])
-            run.update(block_dropped_pairs_by_row=[by_slot[j] for j in slots],
-                       token_match=float((got == ref).mean()))
-            if clean.any():
-                run["margin_rule"] = margin_rule(label, [(ref[clean], margins[clean],
-                                                          got[clean])], noise["tol"])
-            else:
-                run["margin_rule"] = {"rows": 0, "applied": False,
-                                      "reason": "every row's verify tokens dropped a pair"}
-            out[name] = run
-    want = {"session": "paged_decode_attention", "spec_generate": "decode_attention_block",
+    paged = dict(paged=True, page_size=PAGE)
+    runs = {"paged_generate": (paged, None)}
+    want = {"paged_generate": "paged_decode_attention", "session": "paged_decode_attention",
             "spec_session": "paged_decode_attention_block"}
-    if toks.device.type == "cuda":
-        for name, kernel in want.items():
-            if not launches[name].get(kernel):
-                raise AssertionError(f"archs[{model.cfg.name}].{name}: {kernel} never "
-                                     f"launched: {launches[name]}")
-    out["path_noise"] = noise
-    out["leaked_pages"] = 0
-    return out
-
-
-def frontend_paths_check(model, params, greedy, extra, seed: int):
-    """A frontend stack (internvl2-26b, G 6) through the paged and the
-    speculative paths on ``generate_check``'s prompts and prefix
-    embeddings, whose dense greedy tokens are the reference: the paged
-    Generator (paged decode), the speculative Generator with those tokens
-    as drafts (dense verify blocks) and the paged speculative Generator
-    (paged verify blocks), each capacity counting the 256 prefix positions;
-    then a paged ``DecodeSession(slots=8)`` over the token prompts alone (a
-    session takes no frontend input, as the reference's has none), held to
-    plain greedy decode of the same prompts.  Tokens are held under the
-    margin rule at ``path_noise``'s tolerance (taken with the prefix); no
-    page may leak, and each path's kernel must launch."""
-    import dataclasses
-    import numpy as np
-    import torch
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serving.continuous import DecodeSession, leaked_pages
-    from repro_torch.serving.generate import GenerateConfig, Generator
-    from repro_torch.serving.sampler import SamplerConfig
-    toks, ref, margins = greedy
-    b, mnt = ref.shape
-    name = model.cfg.name
-    sampler = SamplerConfig(vocab_size=model.cfg.vocab_size)
-    gcfg = GenerateConfig(max_new_tokens=mnt, sampler=sampler)
-    drafts = (ref, np.full(b, mnt, np.int32))
-    runs = {"paged_generate": (dict(paged=True, page_size=PAGE), None),
-            "spec_generate": (dict(spec_k=SPEC_K), drafts),
-            "paged_spec_generate": (dict(paged=True, page_size=PAGE, spec_k=SPEC_K), drafts)}
-    want = {"paged_generate": "paged_decode_attention",
-            "spec_generate": "decode_attention_block",
-            "paged_spec_generate": "paged_decode_attention_block",
-            "session": "paged_decode_attention"}
+    for overlap in (1.0, 0.5):
+        drafts = _overlap_drafts(ref, overlap, vocab)
+        runs[f"spec_generate_{overlap}"] = (dict(spec_k=SPEC_K), drafts)
+        runs[f"paged_spec_generate_{overlap}"] = (dict(paged, spec_k=SPEC_K), drafts)
+        want[f"spec_generate_{overlap}"] = "decode_attention_block"
+        want[f"paged_spec_generate_{overlap}"] = "paged_decode_attention_block"
     out = {}
+
+    def hold(run_name, probe, ref_toks, ref_margins, got, rows):
+        label = f"{phase}[{name}].{run_name}"
+        if sum(probe.dropped(1)):
+            raise AssertionError(f"{label}: a decode step dropped pairs")
+        by_row = probe.dropped(SPEC_K) or [0] * 8      # per row (Generator) or slot
+        clean = np.array([by_row[j] == 0 for j in rows])
+        run = {"block_dropped_pairs_by_row": [by_row[j] for j in rows],
+               "token_match": float((got == ref_toks).mean())}
+        run["margin_rule"] = (margin_rule(label, [(ref_toks[clean], ref_margins[clean],
+                                                   got[clean])], noise["tol"])
+                              if clean.any() else
+                              {"rows": 0, "applied": False,
+                               "reason": "every row's verify tokens dropped a pair"})
+        return run
+
     with torch.no_grad():
         noise = path_noise(model, params, sampler, toks, extra=extra)
-        for run_name, (changes, d) in runs.items():
+        for run_name, (changes, drafts) in runs.items():
             gen = Generator(model, params, dataclasses.replace(gcfg, **changes))
             reset_launch_counts()
             t = time.perf_counter()
-            got = gen.generate_with_lengths({"tokens": toks, **extra}, drafts=d)[0]
+            with MoeProbe() as probe:
+                got = gen.generate_with_lengths({"tokens": toks, **extra}, drafts=drafts)[0]
             _sync(toks.device)
             run = {"ms": (time.perf_counter() - t) * 1e3,
                    "launches": {k: v for k, v in launch_counts().items() if v}}
-            if d is not None:
+            if drafts is not None:
                 run.update(gen.last_spec_stats, host_syncs=gen.last_spec_syncs)
-            if gen.pool is not None:
-                run["capacity_pages"] = gen.pool.pages_per_seq(toks.shape[1] + mnt + 1
-                                                               + model.cfg.num_prefix_tokens)
-                if gen.pool.live_pages:
-                    raise AssertionError(f"archs[{name}].{run_name}: {gen.pool.live_pages} "
-                                         f"pages leaked")
-            run["margin_rule"] = margin_rule(f"archs[{name}].{run_name}",
-                                             [(ref, margins, got)], noise["tol"])
+            if gen.pool is not None and gen.pool.live_pages:
+                raise AssertionError(f"{phase}[{name}].{run_name}: "
+                                     f"{gen.pool.live_pages} pages leaked")
+            run.update(hold(run_name, probe, ref, margins, got, list(range(b))))
             out[run_name] = run
         cap = toks.shape[1] + mnt + 1
-        logits, caches = model.prefill(params, {"tokens": toks}, cap)
-        plain, plain_margins = traced_greedy(model, params, sampler, logits, caches, mnt)
-        del caches
-        paged = Generator(model, params, dataclasses.replace(gcfg, paged=True, page_size=PAGE))
-        reset_launch_counts()
-        t = time.perf_counter()
-        sess = DecodeSession(paged, slots=8, capacity=cap, seed=seed)
-        sess.admit(toks.cpu().numpy(), tags=list(range(b)))
-        done = sorted(sess.drain(), key=lambda f: f["tag"])
-        got = np.stack([f["tokens"] for f in done])
-        leaked = leaked_pages(sess) + sess.pool.live_pages
-        if leaked:
-            raise AssertionError(f"archs[{name}].session: {leaked} pages leaked")
-        del sess
-        _sync(toks.device)
-        out["session"] = {"ms": (time.perf_counter() - t) * 1e3,
-                          "launches": {k: v for k, v in launch_counts().items() if v},
-                          "prompts": "tokens alone (no prefix embeddings)",
-                          "margin_rule": margin_rule(f"archs[{name}].session",
-                                                     [(plain, plain_margins, got)],
-                                                     noise["tol"])}
+        if extra:
+            logits, caches = model.prefill(params, {"tokens": toks}, cap)
+            plain, plain_margins = traced_greedy(model, params, sampler, logits, caches, mnt)
+            del caches
+        else:
+            plain, plain_margins = ref, margins
+        gen = Generator(model, params, dataclasses.replace(gcfg, **paged))
+        for run_name, spec_k in (("session", 1), ("spec_session", SPEC_K)):
+            reset_launch_counts()
+            t = time.perf_counter()
+            with MoeProbe() as probe:
+                sess = DecodeSession(gen, slots=8, capacity=cap, seed=seed, spec_k=spec_k)
+                slots = sess.admit(toks.cpu().numpy(), tags=list(range(b)),
+                                   drafts=(plain, np.full(b, mnt, np.int32)) if spec_k > 1
+                                   else None)
+                done = sorted(sess.drain(chunk=SPEC_K if spec_k > 1 else 0),
+                              key=lambda f: f["tag"])
+            got = np.stack([f["tokens"] for f in done])
+            stats = dict(sess.spec_stats) if spec_k > 1 else {}
+            leaked = leaked_pages(sess) + sess.pool.live_pages
+            if leaked:
+                raise AssertionError(f"{phase}[{name}].{run_name}: {leaked} pages leaked")
+            del sess
+            _sync(toks.device)
+            out[run_name] = {"ms": (time.perf_counter() - t) * 1e3,
+                             "launches": {k: v for k, v in launch_counts().items() if v},
+                             **stats, **hold(run_name, probe, plain, plain_margins, got,
+                                             list(slots))}
     if toks.device.type == "cuda":
         for run_name, kernel in want.items():
             if not out[run_name]["launches"].get(kernel):
-                raise AssertionError(f"archs[{name}].{run_name}: {kernel} never launched: "
-                                     f"{out[run_name]['launches']}")
+                raise AssertionError(f"{phase}[{name}].{run_name}: {kernel} never "
+                                     f"launched: {out[run_name]['launches']}")
     out["path_noise"] = noise
     out["leaked_pages"] = 0
     return out
+
+
+def smoke_stacks():
+    """(label, config) of every smoke config the reference's CLIs, tests and
+    contracts run (``configs.get_config(id, smoke=True)``, uncut), then the
+    serve CLI's tiny stack's small model (its big model is the smoke paths'
+    dh-16 G-2 shape too)."""
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
+    from repro_torch.launch.serve import model_configs
+    return ([(arch, get_config(arch, smoke=True)) for arch in ASSIGNED_ARCHS]
+            + [("serve-tiny-small", model_configs("serve-tiny")[1])])
+
+
+def smoke_paths_phase(seed: int, device=None):
+    """Every stack of ``smoke_stacks`` on the card, random weights from the
+    seed: ``SMOKE_BATCH`` prompts of ``SMOKE_PROMPT`` tokens and
+    ``SMOKE_NEW`` greedy tokens through ``generate_check`` (dense decode,
+    held to a teacher-forced forward under the margin rule, a launch a
+    layer a step); a stack whose ``supports_paged_decode`` and
+    ``supports_spec_decode`` hold also through ``paths_check`` (paged,
+    speculative at overlap 1.0 and 0.5, paged speculative, a paged
+    ``DecodeSession`` plain and speculative).  The recurrent, windowed and encoder-decoder stacks
+    decode dense only, as their flags say."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import frontend_inputs
+    from repro_torch.models import build_model
+    dev = device or torch.device("cuda")
+    t_phase = time.perf_counter()
+    kernels = ("flash_attention", "decode_attention", "decode_attention_block",
+               "paged_decode_attention", "paged_decode_attention_block")
+    out, launches = {}, dict.fromkeys(kernels, 0)
+    for i, (label, cfg) in enumerate(smoke_stacks()):
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed + 60 + i), dev)
+        rng = np.random.default_rng(seed + 70 + i)
+        extra = frontend_inputs(cfg, SMOKE_BATCH, rng, dev)
+        eligible = model.supports_paged_decode and model.supports_spec_decode
+        line = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                "heads": [cfg.num_heads, cfg.num_kv_heads], "head_dim": cfg.resolved_head_dim,
+                "dtype": cfg.dtype, "paged_and_spec": eligible}
+        line["dense"], _, greedy = generate_check(model, params, rng, SMOKE_BATCH, SMOKE_PROMPT,
+                                                  SMOKE_NEW, extra)
+        runs = [line["dense"]["kernel_launches"]]
+        if eligible:
+            line["paths"] = paths_check("smoke_paths", model, params, greedy, extra, seed)
+            runs += [r["launches"] for r in line["paths"].values()
+                     if isinstance(r, dict) and "launches" in r]
+        for run in runs:
+            for k in kernels:
+                launches[k] += run.get(k, 0)
+        line["seconds"] = time.perf_counter() - t0
+        out[label] = line
+        del params, model, greedy, extra
+    if dev.type == "cuda" and not all(launches.values()):
+        raise AssertionError(f"smoke_paths: a kernel never launched: {launches}")
+    return {"phase": "smoke_paths", "seconds": time.perf_counter() - t_phase,
+            "batch": SMOKE_BATCH, "prompt": SMOKE_PROMPT, "new_tokens": SMOKE_NEW,
+            "configs": out, "launches": launches}
+
+
+def _run_example(name: str, argv=()):
+    """``python -m repro_torch.examples.<name> [argv]`` through ``runpy`` in
+    this process (so its kernel launches are counted): (exit code, stdout
+    lines, seconds, launches)."""
+    import contextlib
+    import io
+    import runpy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    out, saved = io.StringIO(), sys.argv
+    module = f"repro_torch.examples.{name}"
+    sys.modules.pop(module, None)     # run afresh as __main__, as ``-m`` does
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        sys.argv = [f"python -m {module}", *argv]
+        with contextlib.redirect_stdout(out):
+            try:
+                runpy.run_module(module, run_name="__main__")
+                rc = 0
+            except SystemExit as e:
+                rc = e.code
+    finally:
+        sys.argv = saved
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"examples[{name}]: rc {rc}: {lines[-8:]}")
+    return lines, time.perf_counter() - t0, {k: v for k, v in launch_counts().items() if v}
+
+
+def _fields(line: str) -> dict:
+    """``key=value`` pairs of a report line, values as numbers."""
+    out = {}
+    for word in line.replace(",", "").split():
+        if "=" in word:
+            k, v = word.split("=", 1)
+            out[k] = float(v) if "." in v else int(v)
+    return out
+
+
+def examples_phase():
+    """The three port examples on the card through their own entry points at
+    the reference's defaults: ``quickstart`` (five queries, their routes),
+    ``serve_e2e`` (two fp32 LMs pretrained 80 steps, the embedder 60, 120
+    Poisson arrivals through the ``Scheduler`` at batch 8: every request
+    completed or rejected, every dispatched row routed, the losses falling,
+    the flash kernel and the dense decode kernel at head dim 24 (the small
+    LM's) and 16 launched) and ``cache_policy_study`` (500 queries through
+    FIFO, LRU and LFU banks of 96 rows).  Reports wall seconds, losses,
+    routes, hit rates, cost ratio and launches."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    out = {}
+    lines, secs, counts = _run_example("quickstart")
+    routes = _fields(next(ln for ln in lines if ln.startswith("routing:")))
+    decisions = [ln.split()[1] for ln in lines if ln.strip().startswith("sim=")]
+    if len(decisions) != 5 or sum(routes.values()) != 5:
+        raise AssertionError(f"examples[quickstart]: {lines}")
+    out["quickstart"] = {"seconds": secs, "decisions": decisions, "routing": routes,
+                         "cost": next(ln for ln in lines if ln.startswith("cost:")),
+                         "kernel_launches": counts}
+    by_dh, inner = {}, decode_ops.decode_attention
+
+    def counted(q, *args):
+        by_dh[q.shape[-1]] = by_dh.get(q.shape[-1], 0) + 1
+        return inner(q, *args)
+
+    decode_ops.decode_attention = counted
+    try:
+        lines, secs, counts = _run_example("serve_e2e")
+    finally:
+        decode_ops.decode_attention = inner
+    losses = {ln.split(":")[0].strip(): [float(ln.split()[2]), float(ln.split()[4])]
+              for ln in lines if ln.strip().startswith(("big-lm:", "small-lm:"))}
+    info = next(ln for ln in lines if ln.strip().startswith("InfoNCE")).split()
+    sched = _fields(next(ln for ln in lines if ln.startswith("scheduler:")))
+    routes = _fields(next(ln for ln in lines if ln.startswith("routing:")))
+    done = int(next(ln for ln in lines if ln.startswith("requests")).split()[1])
+    queries = 120
+    if done + sched["rejected"] != queries:
+        raise AssertionError(f"examples[serve_e2e]: {done} completed + {sched['rejected']} "
+                             f"rejected != {queries}")
+    if routes["miss"] + routes["tweak"] + routes["exact"] != sched["dispatched"]:
+        raise AssertionError(f"examples[serve_e2e]: routes {routes} do not cover the "
+                             f"{sched['dispatched']} rows served")
+    if any(last >= first for first, last in losses.values()) or len(losses) != 2:
+        raise AssertionError(f"examples[serve_e2e]: a loss did not fall: {losses}")
+    if not (counts.get("flash_attention") and by_dh.get(24) and by_dh.get(16)):
+        raise AssertionError(f"examples[serve_e2e]: flash or the dh-24 / dh-16 dense decode "
+                             f"never launched: {counts}, decode calls by dh {by_dh}")
+    out["serve_e2e"] = {"seconds": secs, "argv": "--queries 120 --batch 8 --steps 80",
+                        "lm_loss_first_last": losses,
+                        "infonce_first_last": [float(info[1]), float(info[3])],
+                        "completed": done, "scheduler": sched, "routing": routes,
+                        "report": [ln for ln in lines if ln.split(" ")[0] in
+                                   ("requests", "scheduler:", "routing:", "generated", "cost:")],
+                        "decode_calls_by_head_dim": by_dh, "kernel_launches": counts}
+    lines, secs, counts = _run_example("cache_policy_study")
+    rates = {ln.split()[0].lower(): float(ln.split()[-1].rstrip("%")) / 100
+             for ln in lines if "hit rate:" in ln}
+    if sorted(rates) != ["fifo", "lfu", "lru"]:
+        raise AssertionError(f"examples[cache_policy_study]: {lines}")
+    out["cache_policy_study"] = {"seconds": secs, "queries": 500, "capacity": 96,
+                                 "hit_rate": rates, "kernel_launches": counts}
+    return {"phase": "examples", "examples": out}
 
 
 def train_cli_check(arch: str, layers: int):
@@ -2155,10 +2346,10 @@ def archs_phase(seed: int, device=None):
     and decode wraps it further (the ring's positions, in the cache of the
     first windowed attention position of the pattern, are checked to be the
     last ``window`` ones); for ``MOE_PATHS_ARCH`` the paged and speculative
-    paths (``moe_paths_check``); for a frontend stack its stub input drawn
+    paths (``paths_check``); for a frontend stack its stub input drawn
     from the seed (whisper's frames, internvl2's prefix embeddings) in every
     run, and for internvl2 the paged and speculative paths
-    (``frontend_paths_check``); for a MoE, recurrent or frontend stack the
+    (``paths_check``); for a MoE, recurrent or frontend stack the
     train CLI's smoke run."""
     import numpy as np
     import torch
@@ -2234,10 +2425,11 @@ def archs_phase(seed: int, device=None):
             if RGLRU in kinds:
                 line["rnn_width"] = cfg.resolved_rnn_width
         runs = [line["short"]]
-        if cfg.frontend == "vision_stub":
-            line["paths"] = frontend_paths_check(model, params, greedy, extra, seed)
-            runs += [{"kernel_launches": r["launches"]} for k, r in line["paths"].items()
+        if cfg.frontend == "vision_stub" or arch == MOE_PATHS_ARCH:
+            line["paths"] = paths_check("archs", model, params, greedy, extra, seed)
+            runs += [{"kernel_launches": r["launches"]} for r in line["paths"].values()
                      if isinstance(r, dict) and "launches" in r]
+        if cfg.frontend == "vision_stub":
             line["kernel_cases"] = ARCH_KERNEL_CASES_OF[arch]
         elif model.is_encdec:
             line["kernel_cases"] = ARCH_KERNEL_CASES_OF[arch]
@@ -2247,11 +2439,7 @@ def archs_phase(seed: int, device=None):
                         moe_d_ff=cfg.moe_d_ff, capacity_factor=cfg.capacity_factor,
                         dense_residual=cfg.moe_dense_residual,
                         group_size=cfg.moe_group_size)
-            if arch == MOE_PATHS_ARCH:
-                line["paths"] = moe_paths_check(model, params, greedy, seed)
-                runs += [{"kernel_launches": r["launches"]} for k, r in line["paths"].items()
-                         if k in ("session", "spec_generate", "spec_session")]
-            else:
+            if arch != MOE_PATHS_ARCH:
                 line["kernel_cases"] = ARCH_KERNEL_CASES_OF.get(arch)
         del greedy
         if cfg.sliding_window:
@@ -3988,6 +4176,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     archs = archs_phase(args.seed)
     emit(archs)
+    smoke_paths = smoke_paths_phase(args.seed)
+    emit(smoke_paths)
+    examples = examples_phase()
+    emit(examples)
     shapes = shapes_phase(args.seed)
     emit(shapes)
     checked += shape_kernel_cases(torch.Generator(device="cuda").manual_seed(args.seed))
@@ -4059,6 +4251,11 @@ def main(argv=None) -> int:
                       launches_shapes=shapes["launches"]["decode_attention"])
     for row in summary[3:6]:   # the verify and paged kernels: qwen3-moe's paths at G 16
         row["launches_archs"] = archs["launches"][row["name"]]
+    for row in summary[:2] + summary[3:6]:   # the smoke configs' paths, fp32 at dh 16-32
+        row["launches_smoke_paths"] = smoke_paths["launches"][row["name"]]
+    for row in summary[:3]:    # the examples' serving runs: flash, dense decode, flat scan
+        row["launches_examples"] = sum(e["kernel_launches"].get(row["name"], 0)
+                                       for e in examples["examples"].values())
     for row in summary:    # every case of the kernel, the summary's own included
         row["cases"] = [{k: c.get(k) for k in ("case", "max_abs_err", "ms", "device_ms",
                                                 "plain_ms", "bound_ms", "bound_by",

@@ -533,16 +533,15 @@ def contract_ivf_lookup(device="cuda", buckets: Sequence[int] = _BATCH_BUCKETS):
     return _sweeps("ivf_lookup", run_one, buckets)
 
 
-def _tiny_generator(device, mnt: int = 4, spec_k: int = 1, head_dim: int = 16):
+def _tiny_generator(device, mnt: int = 4, spec_k: int = 1):
     """The reference's tiny generator (2 layers, 2 heads over 1 KV head,
-    head dim 16, fp32); the speculative contract takes head dim 64, the
-    smallest the fp32 verify kernel takes on the card."""
+    head dim 16, fp32), for the plain and the speculative contracts alike."""
     from repro_torch.models import ModelConfig, build_model
     from repro_torch.serving import generate as gen_lib
     from repro_torch.serving.sampler import SamplerConfig
     vocab = 128
-    cfg = ModelConfig(num_layers=2, d_model=2 * head_dim, num_heads=2, num_kv_heads=1,
-                      d_ff=4 * head_dim, vocab_size=vocab, max_seq_len=128, dtype="float32",
+    cfg = ModelConfig(num_layers=2, d_model=32, num_heads=2, num_kv_heads=1,
+                      d_ff=64, vocab_size=vocab, max_seq_len=128, dtype="float32",
                       attention_impl="xla_flash", flash_block_q=16, flash_block_k=16)
     model = build_model(cfg)
     g = torch.Generator(device=device)
@@ -591,7 +590,7 @@ def contract_spec_decode(device="cuda", buckets: Sequence[int] = (1, 2)):
     """Speculative decode: ``spec_steps + 2`` syncs a call, equal to
     ``last_spec_syncs``; the KV written in place."""
     mnt, k = 8, 2
-    gen = _tiny_generator(device, mnt=mnt, spec_k=k, head_dim=64)
+    gen = _tiny_generator(device, mnt=mnt, spec_k=k)
     spec = registry.path("serving/generate.py", "Generator._decode_fused_spec")
 
     def run_one(b):

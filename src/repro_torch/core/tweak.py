@@ -7,7 +7,8 @@ batched tweak prefills jit cleanly.
 The prompt layout is defined ONCE, as ``TWEAK_SEGMENTS`` — an ordered
 list of static (byte-identical across every tweak request) and field
 (per-request) segments.  The host text path (``build_tweak_text``), the
-token path (``build_tweak_batch``) and
+token path (``build_tweak_batch``), the tensor assembly from field tokens
+(``encode_static_segments`` + ``build_tweak_batch_tokens``) and
 the prefill prefix/suffix split (``tweak_prefix_text`` /
 ``build_tweak_suffix_batch``) are all derived from it, so the prefix
 split the KV prefix-cache reuses (DESIGN.md §9) cannot drift from the
@@ -31,6 +32,7 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.tokenizer import HashWordTokenizer
 
@@ -206,3 +208,49 @@ def build_tweak_suffix_batch(tokenizer: HashWordTokenizer,
     rows = [encode_tweak_row(tokenizer, n, c, r, max_len, drop_prefix=True)
             for n, c, r in zip(new_queries, cached_queries, cached_responses)]
     return _rows_to_batch(rows, max_len, tokenizer.pad)
+
+
+def encode_static_segments(tokenizer: HashWordTokenizer,
+                           device) -> Tuple[torch.Tensor, ...]:
+    """Ids of each static segment, in layout order (BOS on the first), as
+    int32 tensors on ``device``.
+
+    The companion of ``build_tweak_batch_tokens``: encode once, reuse for
+    every batch assembly.
+    """
+    out = []
+    for kind, text in TWEAK_SEGMENTS:
+        if kind == STATIC:
+            out.append(torch.tensor(tokenizer.encode(text, add_bos=not out),
+                                    dtype=torch.int32, device=device))
+    return tuple(out)
+
+
+def build_tweak_batch_tokens(static_ids, new_q, new_q_mask, cached_q,
+                             cached_q_mask, cached_r, cached_r_mask):
+    """Fixed-shape token-level assembly (no text round-trip), on the fields'
+    device.
+
+    ``static_ids``: the per-static-segment id vectors of
+    ``encode_static_segments`` (on the fields' device); the fields are
+    fixed-shape (B, L_*) int token and float mask tensors.  Output: the
+    concatenation of every segment in ``TWEAK_SEGMENTS`` order, each static
+    one broadcast over the batch — the layout the text oracle produces, by
+    construction.  Padding stays in place (attention masks handle it).
+    """
+    fields = {CACHED_QUERY: (cached_q, cached_q_mask),
+              CACHED_RESPONSE: (cached_r, cached_r_mask),
+              NEW_QUERY: (new_q, new_q_mask)}
+    b = new_q.shape[0]
+    toks, masks = [], []
+    static_iter = iter(static_ids)
+    for kind, _ in TWEAK_SEGMENTS:
+        if kind == STATIC:
+            ids = next(static_iter)
+            toks.append(ids.to(new_q.dtype)[None, :].expand(b, ids.shape[0]))
+            masks.append(new_q_mask.new_ones(b, ids.shape[0]))
+        else:
+            t, m = fields[kind]
+            toks.append(t)
+            masks.append(m)
+    return torch.cat(toks, dim=1), torch.cat(masks, dim=1)

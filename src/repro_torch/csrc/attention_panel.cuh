@@ -22,18 +22,27 @@
 //    chunks (ops.launch_plan: enough blocks to fill 132 SMs), each block
 //    writes a partial (m, l, acc) and panel_merge_kernel combines them.
 //    With one split the block writes the normalised output directly.
-//  * Inside a block each warp takes every kWarps-th slot.  A lane holds
-//    dh/32 consecutive elements of the slot's K and V row, loaded once and
-//    used by every panel row (the Pallas kernels' K x g panel that reads
-//    each KV tile once); scores are warp-shuffle sums; each warp keeps its
-//    own fp32 online softmax per panel row; the warps' states merge
-//    through shared memory.
-//  * Paged: each warp loads the slot's block-table entry itself (the TPU
-//    prefetched the table into SMEM) and never builds the dense cache.
+//  * Inside a block a slot's K and V row is spread over LANES lanes
+//    (common.cuh's row_lanes: 32 at dh >= 32, 16 at dh 16, 8 at dh 24),
+//    EPL = dh / LANES consecutive elements a lane, loaded once and used by
+//    every panel row (the Pallas kernels' K x g panel that reads each KV
+//    tile once).  A warp takes SUBS = 32 / LANES slots at once, one a
+//    sub-warp, and the block's WORKERS = kWarps * SUBS sub-warps take every
+//    WORKERS-th slot.  Scores are shuffle sums over a sub-warp's own lanes
+//    (offsets below LANES); each sub-warp keeps its own fp32 online softmax
+//    per panel row; the sub-warps' states merge through shared memory.
+//    dh 24 rows are 96 bytes, so a lane's 3 elements are only 4-byte
+//    aligned: every load is a scalar one.
+//  * Paged: each sub-warp loads its slot's block-table entry itself (the
+//    TPU prefetched the table into SMEM) and never builds the dense cache.
 //    Slots with slot_pos < 0 (empty, rewound, the tail of the last page,
-//    rows parked on the TRASH page) are skipped without loading.
-//  * Visibility is per query but uniform across a warp, so skipping a
-//    slot or a query never diverges a warp.
+//    rows parked on the TRASH page) are never loaded.
+//  * Visibility is per (slot, query), so with SUBS > 1 two slots of a warp
+//    can differ: one visible, the other masked, empty, or past the split.
+//    Every lane joins every shuffle; a sub-warp that does not see its slot
+//    skips only the update; a warp skips a slot group or a query only when
+//    none of its sub-warps sees it (a warp vote, uniform).  At dh >= 32
+//    (SUBS 1) this is the whole warp's skip.
 //  * Rule for a query with no visible slot (a row parked on TRASH before
 //    any write): the output is 0, finite.  The plain version averages V
 //    uniformly there (its finite -1e30 mask); such rows are discarded by
@@ -122,12 +131,16 @@ __global__ void __launch_bounds__(kWarps * 32)
 panel_split_kernel(const T* __restrict__ q, KV kv, Geometry geo, T* __restrict__ out,
                    float* __restrict__ part_m, float* __restrict__ part_l,
                    float* __restrict__ part_acc) {
-  constexpr int EPL = DH / 32;
+  constexpr int LANES = row_lanes(DH);   // lanes a slot's row is spread over
+  constexpr int EPL = DH / LANES;        // elements of dh per lane
+  constexpr int SUBS = 32 / LANES;       // slots a warp takes at once
+  constexpr int WORKERS = kWarps * SUBS; // online-softmax states per panel row
   constexpr int R = KQ * G;
   static_assert(R <= kMaxRows, "panel too tall for registers");
-  __shared__ float sm_m[kWarps][R];
-  __shared__ float sm_l[kWarps][R];
-  __shared__ float sm_acc[kWarps][R][DH];
+  static_assert(EPL * LANES == DH, "dh must be a multiple of its lanes");
+  __shared__ float sm_m[WORKERS][R];
+  __shared__ float sm_l[WORKERS][R];
+  __shared__ float sm_acc[WORKERS][R][DH];
 
   const int bk = blockIdx.x;
   const int b = bk / geo.hk;
@@ -137,6 +150,9 @@ panel_split_kernel(const T* __restrict__ q, KV kv, Geometry geo, T* __restrict__
   const int nq = min(KQ, geo.kq - qbase);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int sub = lane / LANES;          // this lane's slot of the warp's SUBS
+  const int sl = lane % LANES;           // its place in the slot's row
+  const int worker = warp * SUBS + sub;
   const int h = geo.hk * G;
 
   float qr[R][EPL];
@@ -146,7 +162,7 @@ panel_split_kernel(const T* __restrict__ q, KV kv, Geometry geo, T* __restrict__
     for (int gi = 0; gi < G; ++gi) {
       const int qq = min(qbase + qi, geo.kq - 1);   // rows past nq are never stored
       const T* qp = q + (((long long)b * geo.kq + qq) * h + (long long)kh * G + gi) * DH
-                    + lane * EPL;
+                    + sl * EPL;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) qr[qi * G + gi][e] = to_float(qp[e]);
     }
@@ -166,26 +182,34 @@ panel_split_kernel(const T* __restrict__ q, KV kv, Geometry geo, T* __restrict__
 
   const int t0 = split * geo.chunk;
   const int t1 = min(t0 + geo.chunk, kv.end(b, qbase + nq - 1, geo));
-  for (int t = t0 + warp; t < t1; t += kWarps) {
-    const int kp = kv.key_pos(b, t, geo);
-    if (kp < 0) continue;                      // empty slot: never loaded
-    const long long off = kv.row(b, t, kh, geo) * DH + lane * EPL;
+  for (int tw = t0 + warp * SUBS; tw < t1; tw += WORKERS) {
+    const int t = tw + sub;
+    const int kp = t < t1 ? kv.key_pos(b, t, geo) : -1;   // past the split: as empty
+    if (!__any_sync(0xffffffffu, kp >= 0)) continue;     // no slot of the warp to load
     float kr[EPL], vr[EPL];
+    if (kp >= 0) {
+      const long long off = kv.row(b, t, kh, geo) * DH + sl * EPL;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      kr[e] = to_float(kv.k[off + e]);
-      vr[e] = to_float(kv.v[off + e]);
+      for (int e = 0; e < EPL; ++e) {
+        kr[e] = to_float(kv.k[off + e]);
+        vr[e] = to_float(kv.v[off + e]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) kr[e] = vr[e] = 0.f;
     }
 #pragma unroll
     for (int qi = 0; qi < KQ; ++qi) {
-      if (qi >= nq || kp > lim[qi]) continue;  // uniform across the warp
+      const bool sees = kp >= 0 && qi < nq && kp <= lim[qi];
+      if (!__any_sync(0xffffffffu, sees)) continue;        // uniform across the warp
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         const int r = qi * G + gi;
         float s = 0.f;
 #pragma unroll
         for (int e = 0; e < EPL; ++e) s += qr[r][e] * kr[e];
-        s = warp_sum(s) * geo.scale;
+        s = lanes_sum<LANES>(s) * geo.scale;
+        if (!sees) continue;                                 // this sub-warp's update only
         const float m_new = fmaxf(m[r], s);
         const float p = __expf(s - m_new);
         const float corr = __expf(m[r] - m_new);
@@ -199,12 +223,12 @@ panel_split_kernel(const T* __restrict__ q, KV kv, Geometry geo, T* __restrict__
 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (lane == 0) {
-      sm_m[warp][r] = m[r];
-      sm_l[warp][r] = l[r];
+    if (sl == 0) {
+      sm_m[worker][r] = m[r];
+      sm_l[worker][r] = l[r];
     }
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[warp][r][lane * EPL + e] = acc[r][e];
+    for (int e = 0; e < EPL; ++e) sm_acc[worker][r][sl * EPL + e] = acc[r][e];
   }
   __syncthreads();
 
@@ -216,10 +240,10 @@ panel_split_kernel(const T* __restrict__ q, KV kv, Geometry geo, T* __restrict__
     if (qi >= nq) continue;
     float mx = kNeg;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][r]);
+    for (int w = 0; w < WORKERS; ++w) mx = fmaxf(mx, sm_m[w][r]);
     float lsum = 0.f, asum = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < WORKERS; ++w) {
       const float c = __expf(sm_m[w][r] - mx);
       lsum += sm_l[w][r] * c;
       asum += sm_acc[w][r][d] * c;
@@ -313,12 +337,16 @@ bool launch_g(int g, int kqp, const void* q, const KVT<T>& kv, const Geometry& g
   }
 }
 
-// kqp queries per panel: 1, 2, or 4 where G <= 4 (ops.launch_plan's values).
+// kqp queries per panel: 1, 2, or 4 where G <= 4 (ops.launch_plan's values);
+// dh 16, 24, 32, 64, 128 (ops.FP32_SHAPES).
 template <typename T, template <typename> class KVT>
 bool launch_dh(int dh, int g, int kqp, const void* q, const KVT<T>& kv, const Geometry& geo,
                int batch, void* out, void* part_m, void* part_l, void* part_acc,
                cudaStream_t stream) {
   switch (dh) {
+    case 16: return launch_g<T, 16, KVT>(g, kqp, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
+    case 24: return launch_g<T, 24, KVT>(g, kqp, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
+    case 32: return launch_g<T, 32, KVT>(g, kqp, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
     case 64: return launch_g<T, 64, KVT>(g, kqp, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
     case 128: return launch_g<T, 128, KVT>(g, kqp, q, kv, geo, batch, out, part_m, part_l, part_acc, stream);
     default: return false;

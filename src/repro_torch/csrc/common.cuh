@@ -28,6 +28,21 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Lanes over which the fp32 CUDA-core attention bodies spread one cache
+// slot's row of `dh` elements: the largest power of two that divides dh, at
+// most 32 (dh 16: 16 lanes of 1 element, dh 24: 8 of 3, dh >= 32: 32).  A
+// warp then takes 32 / row_lanes(dh) slots at once, one a sub-warp.
+__host__ __device__ constexpr int row_lanes(int dh) { return (dh & -dh) < 32 ? (dh & -dh) : 32; }
+
+// Sum over the LANES lanes of one sub-warp (offsets below LANES never leave
+// it); every lane of the warp must call it.  At LANES 32 it is warp_sum.
+template <int LANES>
+__device__ __forceinline__ float lanes_sum(float x) {
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
 // Devices a process may launch on: the entries of the per-device tables below.
 constexpr int kMaxDevices = 64;
 

@@ -41,6 +41,11 @@
 //    half-warp each, with its own shuffle reduction (offsets below 16 stay
 //    inside the half) and its own online softmax; every lane joins every
 //    shuffle, and a half past the split's last key skips only the update.
+//  * dh 24 (nemotron-4-340b's smoke config; the small LM of the
+//    reference's examples/serve_e2e.py, fp32 only): the same with 8 lanes
+//    of 3 elements a key (common.cuh's row_lanes), four keys a warp; a
+//    row is 96 bytes, so a lane's elements are only 4-byte aligned and
+//    every load is a scalar one.
 
 #include "common.cuh"
 #include "panel_mma.cuh"
@@ -57,8 +62,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int tlen, int hk, int chunk, int nsplit, float scale,
                     T* __restrict__ out, float* __restrict__ part_m,
                     float* __restrict__ part_l, float* __restrict__ part_acc) {
-  constexpr int EPL = DH >= 32 ? DH / 32 : 1;  // elements of dh per lane
-  constexpr int LANES = DH / EPL;               // lanes per key: 32, or 16 at dh 16
+  constexpr int LANES = row_lanes(DH);          // lanes per key: 32, 16 at dh 16, 8 at dh 24
+  constexpr int EPL = DH / LANES;               // elements of dh per lane
   constexpr int SUBS = 32 / LANES;              // keys a warp takes at once
   constexpr int WORKERS = kWarps * SUBS;        // online-softmax states per block
   __shared__ float sm_m[WORKERS][G];
@@ -233,6 +238,7 @@ bool dispatch_dh(int dh, int g, const void* q, const void* k, const void* v,
                  cudaStream_t stream) {
   switch (dh) {
     case 16: return dispatch_g<T, 16>(g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch, tlen, hk, chunk, nsplit, scale, stream);
+    case 24: return dispatch_g<T, 24>(g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch, tlen, hk, chunk, nsplit, scale, stream);
     case 32: return dispatch_g<T, 32>(g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch, tlen, hk, chunk, nsplit, scale, stream);
     case 64: return dispatch_g<T, 64>(g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch, tlen, hk, chunk, nsplit, scale, stream);
     case 128: return dispatch_g<T, 128>(g, q, k, v, cache_len, out, part_m, part_l, part_acc, batch, tlen, hk, chunk, nsplit, scale, stream);

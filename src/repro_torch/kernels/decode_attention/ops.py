@@ -47,13 +47,16 @@ WAVE_CLUSTERS_ONE_A_SM = (132, 66, 39, 30, 22, 17, 15, 15)
 # The shapes each body has instances for: bf16 the tensor-core panel body
 # (panel_mma.cuh; a panel of at most MAX_COLS rows takes any G, these are the
 # configs' G: G 16, qwen3-moe's and recurrentgemma's, fills a panel with one
-# query; G 6, internvl2's, takes two queries a panel of a K-4 verify block), dh 256 (recurrentgemma's) in the dense single-token kernel only;
-# fp32 the CUDA-core bodies, the single-token one (decode_attention.cu) also
-# at dh 16 and 32.
+# query; G 6, internvl2's, takes two queries a panel of a K-4 verify block),
+# dh 256 (recurrentgemma's) in the dense single-token kernel only; fp32 the
+# CUDA-core bodies, the single-token one (decode_attention.cu) and the verify
+# and paged panel (attention_panel.cuh) alike: below dh 32 a cache slot's row
+# is spread over 16 lanes (dh 16) or 8 lanes of 3 elements (dh 24), a warp
+# taking 2 or 4 slots at once (the smoke configs, the serve CLI's tiny stack,
+# the small LM of the reference's examples/serve_e2e.py).
 BF16_SHAPES = ((64, 80, 128, 192), (1, 2, 4, 6, 7, 8, 12, 16))
 BF16_DECODE_SHAPES = ((64, 80, 128, 192, 256), BF16_SHAPES[1])
-FP32_SHAPES = ((64, 128), (1, 2, 4, 8))
-FP32_DECODE_SHAPES = ((16, 32, 64, 128), (1, 2, 4, 8))
+FP32_SHAPES = ((16, 24, 32, 64, 128), (1, 2, 4, 8))
 
 
 def split_plan(batch: int, hk: int, tlen: int):
@@ -164,11 +167,11 @@ def check_aligned(name, q, *cache):
 
 def shapes_taken(dtype, single: bool):
     """(head dims, groups H/Hk) the kernels take for ``dtype``; ``single``:
-    the dense single-token kernel, whose fp32 body also takes dh 16 and 32
-    and whose bf16 body also takes dh 256."""
+    the dense single-token kernel, whose bf16 body also takes dh 256 (its
+    fp32 body takes what the verify and paged panel takes)."""
     if dtype == torch.bfloat16:
         return BF16_DECODE_SHAPES if single else BF16_SHAPES
-    return FP32_DECODE_SHAPES if single else FP32_SHAPES
+    return FP32_SHAPES
 
 
 def _check_qkv(name, q, k, v, kq_axis: bool):

@@ -346,6 +346,25 @@ def test_contract_clean_on_the_cpu(name):
         assert fn("cpu") == []
 
 
+def test_spec_contract_runs_the_reference_tiny_generator(monkeypatch):
+    """The speculative contract runs on the reference's tiny generator (2
+    layers, 2 heads over 1 KV head, head dim 16, fp32), as the plain one
+    does, and is clean there."""
+    built, inner = [], contracts._tiny_generator
+
+    def spy(*args, **kw):
+        built.append(inner(*args, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(contracts, "_tiny_generator", spy)
+    with torch.no_grad():
+        assert contracts.contract_spec_decode("cpu", buckets=(1,)) == []
+    cfg = built[0].model.cfg
+    assert built[0].cfg.spec_k == 2
+    assert (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+            cfg.dtype) == (2, 2, 1, 16, "float32")
+
+
 def test_contracts_cli_on_the_cpu(capsys):
     assert contracts.main(["--device", "cpu"]) == 0
     assert "clean on cpu" in capsys.readouterr().out

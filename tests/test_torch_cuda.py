@@ -979,7 +979,7 @@ def test_serve_cli_default_stack_on_the_card(capsys):
     assert launch_counts()["decode_attention"] > 0
 
 
-def _scrambled_case(dev, kq, g, page, dtype, seed):
+def _scrambled_case(dev, kq, g, page, dtype, seed, dh=128):
     """Rows whose valid slots hold a permutation of positions [0, n) (so a
     slot's position is not its index), with rewound holes, a 64-slot tile
     [64, 128) empty in the middle of the row, and row 0 with no valid slot.
@@ -987,7 +987,7 @@ def _scrambled_case(dev, kq, g, page, dtype, seed):
     them faults.  Returns the inputs and the table the plain version takes
     (those entries on the TRASH page)."""
     rng = np.random.default_rng(seed)
-    b, hk, dh, cap = 4, 2, 128, 300
+    b, hk, cap = 4, 2, 300
     npg = -(-cap // page)
     pages = b * npg
     sp = np.full((b, cap), -1, np.int32)
@@ -1569,3 +1569,114 @@ def test_smoke_ring_decode_at_position_524288_on_the_card_matches_the_cpu(arch):
         if device.type == "cuda":
             assert launch_counts()["decode_attention"] == 4 * attention_layers(cfg)
     torch.testing.assert_close(runs[1], runs[0], rtol=1e-4, atol=1e-4)
+
+
+# ------------------------- the fp32 panel below dh 32 (several slots a warp)
+
+SMALL_DH = [16, 24, 32]   # a warp takes 2, 4 and 1 slots at once
+
+
+@pytest.mark.parametrize("b,h,hk,t", [(4, 8, 2, 161), (4, 16, 4, 161), (3, 4, 2, 45),
+                                      (2, 8, 1, 700)])
+def test_fp32_decode_at_head_dim_24_matches_plain(b, h, hk, t):
+    """The dense single-token kernel at dh 24 (8 lanes of 3 elements a key,
+    four keys a warp): G 4 (nemotron-4-340b smoke), G 2 (the small LM of
+    the reference's serve_e2e), one split and merged splits, ragged lengths
+    ending inside a warp's group of keys, a full row and a row at cache_len
+    0 (the uniform rule)."""
+    dev = _cuda()
+    q, k, v = _dense_case(dev, t + 24, b, 0, h, hk, t, 24, torch.float32)
+    g = torch.Generator(device=dev).manual_seed(t)
+    lens = torch.randint(1, t + 1, (b,), device=dev, generator=g, dtype=torch.int32)
+    lens[0], lens[-1] = t, 0
+    before = dec_ops.launches
+    out, ref = _dense_both(q, k, v, lens, 0)
+    torch.cuda.synchronize()
+    assert dec_ops.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dh", SMALL_DH)
+@pytest.mark.parametrize("kq", [1, 4])
+@pytest.mark.parametrize("b,h,hk,t", [(4, 8, 4, 161), (4, 16, 4, 161), (8, 4, 2, 98),
+                                      (2, 8, 1, 700)])
+def test_fp32_verify_at_small_head_dims_matches_plain(dh, kq, b, h, hk, t):
+    """The dense verify block at dh 16, 24 and 32, G 2, 4 and 8, K 1 and 4:
+    each row's visible slots end at ``cache_len + i``, inside a warp's
+    group of slots, so one slot of a warp is visible to a query and the
+    next is not."""
+    dev = _cuda()
+    q, k, v = _dense_case(dev, t + kq + dh, b, kq, h, hk, t, dh, torch.float32)
+    g = torch.Generator(device=dev).manual_seed(t + kq)
+    lens = torch.randint(0, t - kq + 1, (b,), device=dev, generator=g, dtype=torch.int32)
+    lens[0], lens[-1] = t - kq, 1
+    before = dec_ops.block_launches
+    out, ref = _dense_both(q, k, v, lens, kq)
+    torch.cuda.synchronize()
+    assert dec_ops.block_launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dh", SMALL_DH)
+@pytest.mark.parametrize("kq", [1, 4])
+@pytest.mark.parametrize("page", [16, 32])
+@pytest.mark.parametrize("b,h,hk,cap", [(4, 8, 4, 161), (4, 16, 4, 161), (8, 4, 2, 98),
+                                        (3, 8, 1, 700)])
+def test_fp32_paged_at_small_head_dims_match_plain(dh, kq, page, b, h, hk, cap):
+    """Both paged kernels at dh 16, 24 and 32, G 2, 4 and 8: two pinned
+    pages shared by every row, a rewound hole at slot 5 beside visible slot
+    4 in the same warp, ragged q_pos (the causal limit inside a warp's
+    group), the last row parked on TRASH (exactly 0)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(cap + page + kq + dh)
+    q, kp, vp, tbl, sp, qpos = _paged_case(dev, g, b, kq, h, hk, dh, page, cap, torch.float32)
+    before = (paged_ops.launches, paged_ops.block_launches)
+    out = paged_ops.paged_decode_attention_block(q, kp, vp, tbl, sp, qpos)
+    one = paged_ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, tbl, sp)
+    torch.cuda.synchronize()
+    assert (paged_ops.launches, paged_ops.block_launches) == (before[0] + 1, before[1] + 1)
+    ref = paged_decode_attention_block_ref(q, kp, vp, tbl, sp, qpos)
+    ref1 = paged_decode_attention_ref(q[:, 0], kp, vp, tbl, sp)
+    torch.testing.assert_close(out[:-1], ref[:-1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(one[:-1], ref1[:-1], rtol=1e-5, atol=1e-5)
+    assert not out[-1].abs().max() and not one[-1].abs().max()
+
+
+@pytest.mark.parametrize("dh", SMALL_DH)
+@pytest.mark.parametrize("kq", [1, 4])
+@pytest.mark.parametrize("g", [2, 4])
+def test_fp32_paged_small_head_dims_follow_positions_not_slots(dh, kq, g):
+    """Scrambled positions at dh 16, 24 and 32: neighbouring slots of one
+    warp hold unrelated positions, so per query some are visible and some
+    not; holes, an empty 64-slot stretch, pages never read (out-of-range
+    table entries) and a row with no valid slot (exactly 0)."""
+    dev = _cuda()
+    q, kp, vp, tbl, sp, qpos, ref_tbl = _scrambled_case(dev, kq, g, 16, torch.float32,
+                                                        kq + 7 * g + dh, dh=dh)
+    out = paged_ops.paged_decode_attention_block(q, kp, vp, tbl, sp, qpos)
+    one = paged_ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, tbl, sp)
+    torch.cuda.synchronize()
+    ref = paged_decode_attention_block_ref(q, kp, vp, ref_tbl, sp, qpos)
+    ref1 = paged_decode_attention_ref(q[:, 0], kp, vp, ref_tbl, sp)
+    torch.testing.assert_close(out[1:], ref[1:], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(one[1:], ref1[1:], rtol=1e-5, atol=1e-5)
+    assert not out[0].abs().max() and not one[0].abs().max()
+
+
+@pytest.mark.parametrize("dh", SMALL_DH)
+def test_fp32_dense_and_paged_small_head_dims_agree(dh):
+    """The verify block over a dense cache and over the same rows paged
+    (identity positions): the same panel body through DenseKV and PagedKV,
+    so the same sums in the same order."""
+    dev = _cuda()
+    b, kq, h, hk, t, page = 4, 4, 8, 2, 96, 16
+    q, k, v = _dense_case(dev, dh, b, kq, h, hk, t, dh, torch.float32)
+    lens = torch.tensor([92, 40, 7, 61], device=dev, dtype=torch.int32)
+    tbl = torch.arange(b * (t // page), device=dev, dtype=torch.int32).view(b, -1)
+    kp, vp = (x.reshape(b * (t // page), page, hk, dh) for x in (k, v))
+    slots = torch.arange(t, device=dev, dtype=torch.int32)[None].expand(b, t)
+    sp = torch.where(slots < (lens + kq)[:, None], slots, -1).to(torch.int32).contiguous()
+    dense = dec_ops.decode_attention_block(q, k, v, lens)
+    paged = paged_ops.paged_decode_attention_block(q, kp, vp, tbl.contiguous(), sp, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, paged)

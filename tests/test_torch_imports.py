@@ -266,3 +266,28 @@ def test_contracts_cli_needs_a_card_by_default():
     from repro_torch.analysis import contracts
     with pytest.raises(RuntimeError, match="device='cpu'"):
         contracts.main([])
+
+
+SLICE_13 = ("examples/__init__.py", "examples/quickstart.py", "examples/serve_e2e.py",
+            "examples/cache_policy_study.py", "core/tweak.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_13)
+def test_slice_13_modules_stand_alone(rel):
+    """The reference's examples on the port, and the tensor assembly of
+    TWEAK prompts, import without JAX or the JAX package."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in _port_files()
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    name = rel[:-3].replace("/", ".").removesuffix(".__init__")
+    importlib.import_module("repro_torch." + name)
+
+
+@pytest.mark.parametrize("name", ["quickstart", "serve_e2e", "cache_policy_study"])
+def test_examples_need_a_card_by_default(name):
+    """Each example runs on the card unless ``--device cpu`` is asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main([])

@@ -408,6 +408,12 @@ def test_flash_plan_shared_memory():
     (4, 1, 161, 4, 16, 128, torch.bfloat16),   # qwen3-moe decode, g 16: all 16 columns
     (4, 4, 161, 4, 16, 128, torch.bfloat16),   # its verify block: 4 panels of 16
     (8, 4, 161, 4, 16, 128, torch.bfloat16),   # a spec session's 8 slots
+    (4, 4, 49, 2, 4, 16, torch.float32),       # dh-16 smoke configs' verify block, G 4
+    (8, 4, 118, 2, 2, 16, torch.float32),      # the tiny stack's small model, TWEAK
+    (4, 1, 49, 2, 4, 24, torch.float32),       # nemotron smoke's paged decode, dh 24
+    (4, 4, 49, 2, 4, 24, torch.float32),
+    (4, 4, 49, 2, 2, 32, torch.float32),       # qwen2.5-3b smoke, dh 32
+    (8, 2, 700, 1, 8, 24, torch.float32),      # G 8: panels of 2 queries, splits merged
 ])
 def test_paged_launch_plan_covers_every_slot_and_row_once(b, kq, cap, hk, g, dh, dtype):
     """Every slot of a row falls in exactly one (split, tile), every
@@ -643,14 +649,20 @@ def test_sass_opcodes_are_counted_per_kernel():
     (torch.bfloat16, 128, 16, True, True), (torch.bfloat16, 128, 16, False, True),
     (torch.bfloat16, 128, 32, True, False), (torch.float32, 128, 16, True, False),
     (torch.bfloat16, 128, 3, True, False), (torch.bfloat16, 16, 2, True, False),
-    (torch.float32, 16, 2, True, True), (torch.float32, 16, 2, False, False),
+    (torch.float32, 16, 2, True, True), (torch.float32, 16, 2, False, True),
     (torch.float32, 80, 4, True, False), (torch.float32, 128, 12, True, False),
+    (torch.float32, 24, 4, True, True), (torch.float32, 24, 2, False, True),
+    (torch.float32, 32, 2, False, True), (torch.float32, 16, 4, False, True),
+    (torch.float32, 48, 2, False, False), (torch.float32, 24, 6, False, False),
+    (torch.float32, 8, 2, True, False), (torch.bfloat16, 24, 4, False, False),
 ])
 def test_decode_wrappers_admit_exactly_the_instances(dtype, dh, g, single, taken):
     """The shape checks of the dense and paged wrappers admit the shapes the
-    kernels have instances for: bf16 dh 64/80/128/192 at G 1, 2, 4, 7, 8,
-    12, 16; fp32 dh 64/128, and dh 16 for the single-token kernel alone (the
-    serve CLI's tiny stack).  Anything else raises before a launch."""
+    kernels have instances for: bf16 dh 64/80/128/192 at G 1, 2, 4, 6, 7, 8,
+    12, 16; fp32 dh 16/24/32/64/128 at G 1, 2, 4, 8, in the single-token
+    kernel and the verify and paged panel alike (the smoke configs, the
+    serve CLI's tiny stack, the examples' LMs).  Anything else raises before
+    a launch."""
     hk, t, b = 2, 20, 2
     q = torch.zeros((b, hk * g, dh) if single else (b, 4, hk * g, dh), dtype=dtype)
     k = torch.zeros(b, t, hk, dh, dtype=dtype)
@@ -712,8 +724,8 @@ def test_dh256_instances_plans_and_shapes():
     block a SM each; 4 rows over the 2,048-slot ring cut into 8 splits of
     4 tiles (4 clusters of 8), and at 32 rows the one-a-SM wave table cuts
     the splits to 3 (32 clusters of 4 would pass the 30 it holds).  dh 256
-    is taken by the dense single-token kernel only, and fp32 dh 32 (its
-    smoke config's) by the single-token kernel too."""
+    is taken by the dense single-token kernel only; fp32 dh 16, 24 and 32
+    (the smoke configs') by the single-token and the panel kernels alike."""
     for impl, sk in (("naive", 128), ("xla_flash", 2112), ("xla_flash", 131_072)):
         plan = flash_ops.launch_plan(4, 128, sk, 16, 1, 256, torch.bfloat16, impl, 128)
         assert plan.route == "mma" and plan.grid == (32, 1, 4)
@@ -728,5 +740,28 @@ def test_dh256_instances_plans_and_shapes():
     assert dec_ops.launch_plan(32, 1, 2048, 1, 16, 192, torch.bfloat16).splits == 7
     assert 256 in dec_ops.shapes_taken(torch.bfloat16, single=True)[0]
     assert 256 not in dec_ops.shapes_taken(torch.bfloat16, single=False)[0]
-    assert 32 in dec_ops.shapes_taken(torch.float32, single=True)[0]
-    assert 32 not in dec_ops.shapes_taken(torch.float32, single=False)[0]
+    for dh in (16, 24, 32):   # fp32 below dh 32: the single-token and the panel kernels
+        assert dh in dec_ops.shapes_taken(torch.float32, single=False)[0]
+        assert dh in dec_ops.shapes_taken(torch.float32, single=True)[0]
+
+
+@pytest.mark.parametrize("dh", [16, 24, 32, 64, 128])
+def test_fp32_panel_instances_fit_static_shared_memory(dh):
+    """Every fp32 panel instance (``FP32_SHAPES``: G 1, 2, 4, 8; the panel
+    heights ``_pick_kq`` gives) holds its sub-warps' online-softmax states
+    in static shared memory (``attention_panel.cuh``'s sm_m / sm_l /
+    sm_acc: one state a sub-warp per panel row) within the 48 KiB a block
+    may declare statically.  A slot's row is spread over the largest power
+    of two <= 32 that divides dh (``common.cuh::row_lanes``): 16 lanes at
+    dh 16 and 8 of 3 elements at dh 24, so 8 and 16 sub-warps in 4 warps."""
+    assert dh in dec_ops.FP32_SHAPES[0]
+    assert dec_ops.shapes_taken(torch.float32, True) == dec_ops.FP32_SHAPES
+    lanes = min(32, dh & -dh)
+    assert dh % lanes == 0 and 32 % lanes == 0
+    workers = 4 * (32 // lanes)
+    for g in dec_ops.FP32_SHAPES[1]:
+        for kq in (1, 2, 3, 4, 8):
+            kqp = dec_ops._pick_kq(kq, g)
+            rows = kqp * g
+            assert kqp in (1, 2, 4) and rows <= dec_ops.PANEL_ROWS
+            assert 4 * workers * rows * (2 + dh) <= 48 * 1024
