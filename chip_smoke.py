@@ -65,7 +65,10 @@ Prints one JSON object per line:
           all-reduce a step of a flat fp32 bucket (the gradients and the loss);
           losses and every parameter bit for bit equal to 3 steps of
           ``make_train_step(microbatches=4)`` from the same start (kept on the
-          host meanwhile); step ms, peak memory, flash launches;
+          host meanwhile); the bytes NCCL is handed each step equal to the
+          dry-run's reckoning of the step (``launch.collectives``, on a data
+          mesh of two ranks each holding this batch); step ms, peak memory,
+          flash launches;
   judge   that trained model as referee: mean log-likelihood of 48 big,
           small and word-shuffled big responses before and after training
           (after: real above shuffled), ms per set, flash launches, two rows
@@ -78,11 +81,11 @@ Prints one JSON object per line:
           (squared ReLU, layernorm, 2 of 96 layers), arctic-480b (128
           experts top-2 and a dense residual, 2 of 35 layers),
           qwen3-moe-235b-a22b (128 experts top-8, G 16, 4 of 94 layers),
-          mamba2-130m (24 Mamba-2 SSD layers) and recurrentgemma-9b (12
+          mamba2-130m (24 Mamba-2 SSD layers) and recurrentgemma-9b (2
           periods of RG-LRU, RG-LRU, local attention at dh 256 and G 16,
-          then two RG-LRU layers: 38), whisper-tiny (4 encoder and 4
+          then two RG-LRU layers: 8 of 38), whisper-tiny (4 encoder and 4
           decoder layers over 1,500 random frames, cross attention decoded
-          through the dense decode kernel) and internvl2-26b (48 of 48
+          through the dense decode kernel) and internvl2-26b (12 of 48
           layers, G 6, behind 256 random prefix embeddings), random
           weights: 4 prompts of
           128 tokens, 32 greedy tokens through ``Generator``'s fused decode
@@ -134,7 +137,8 @@ Prints one JSON object per line:
           pos 524,288) of h2o-danube-1.8b, recurrentgemma-9b and mamba2-130m;
           a line each with the plan (batch, microbatches, layers), ms a step,
           ``max_memory_allocated`` against the reckoned peak (under 80 GB),
-          kernel launches; a decode takes 8 greedy steps twice from the same
+          kernel launches, the dry-run's collective bytes of the shape on
+          the 16 x 16 mesh; a decode takes 8 greedy steps twice from the same
           cache, bitwise equal and finite; then the kernel cases at these
           shapes (``shape_kernel_cases``: the 32k flash held on its first
           and last 128 query rows, whose plain version fits, the 4k flash,
@@ -174,8 +178,8 @@ Prints one JSON object per line:
           generators and restored bank, batch i to replica i % 2: routes as
           in serve, tokens against the dense re-run under the margin rule, a
           MISS of replica 0 an EXACT on replica 1; a ``ReplicaScheduler`` on
-          a ``SimClock`` replaying the 48 queries as a Poisson trace over a
-          shared bank and over private banks (completions, per-lane
+          a ``SimClock`` replaying the first 24 queries as a Poisson trace
+          over a shared bank and over private banks (completions, per-lane
           dispatches and steals, hit rates); zero leaked KV pages;
   sharded the serve phase's restored bank split into 4 shards of 65,536 rows,
           all on cuda:0: top-k within 1e-5 of the local bank's and the same
@@ -207,9 +211,10 @@ Prints one JSON object per line:
           second batch of the same make-up), its kernel launches;
   profile where the time goes, after the serve run: one small-model decode
           step timed alone (host enqueue, wall and device time), then one
-          more serve batch under ``torch.profiler`` (wall time, device-busy
-          share, device time by kernel name), then one paged big-model
-          decode of that batch (device-busy ms, the paged kernels' share);
+          more serve batch under ``torch.profiler`` with device activity
+          (wall time, device-busy share, device time by kernel name), then
+          one paged big-model decode of that batch (device-busy ms, the
+          paged kernels' share), and the seconds of each part;
   kernels the ported kernels with their launches on the path that runs
           them (serve for the dense kernels, paged, spec, ivf; flash also
           its launches in lm_train, zero_train and judge; flash, dense decode
@@ -250,8 +255,13 @@ CACHE_SHARDS = 4               # shards of the sharded-bank phase, all on cuda:0
 # GB).
 ARCHS = (("qwen2.5-3b", None), ("h2o-danube-1.8b", None), ("deepseek-coder-33b", 8),
          ("nemotron-4-340b", 2), ("arctic-480b", 2), ("qwen3-moe-235b-a22b", 4),
-         ("mamba2-130m", None), ("recurrentgemma-9b", None), ("whisper-tiny", None),
-         ("internvl2-26b", None))
+         ("mamba2-130m", None), ("recurrentgemma-9b", 8), ("whisper-tiny", None),
+         ("internvl2-26b", 12))
+# recurrentgemma-9b keeps 8 of 38 layers (2 periods of RG-LRU, RG-LRU, local
+# attention and the 2 remainder RG-LRU layers: every kind of layer and its
+# ring) and internvl2-26b 12 of 48 behind its 256 prefix positions: the
+# phase's checks hold at any depth, and the cut keeps the script's time
+# (at full depth they took 17 and 28 s of the phase's 80 s on a busy host).
 # The MoE stacks: arctic-480b keeps 2 of 35 layers (~55.4 GB: 27.2 GB a layer,
 # 26.8 GB of it experts; 35 layers need ~954 GB); qwen3-moe-235b-a22b 4 of 94
 # (~22.4 GB: 4.98 GB a layer; 94 layers need ~470 GB).  qwen3-moe also runs
@@ -266,15 +276,16 @@ ARCH_KERNEL_CASES_OF = {"arctic-480b": "deepseek-coder-33b-prefill, deepseek-cod
                         "internvl2-26b": "internvl2-prefill, internvl2, internvl2-K4 (verify "
                                          "and paged), train-cli-internvl2-fp32"}
 # The frontend stacks, whisper-tiny (4 + 4 layers, 1,500 frames; 73 MB) and
-# internvl2-26b (48 of 48 layers, 256 prefix positions; 39.8 GB), both at full
-# depth, take the train CLI's random frontend inputs (``launch.train.
-# frontend_inputs``).
+# internvl2-26b (12 of 48 layers, 256 prefix positions), take the train CLI's
+# random frontend inputs (``launch.train.frontend_inputs``).
 ARCH_BATCH, ARCH_PROMPT, ARCH_NEW = 4, 128, 32
 # a windowed stack's ring run: rows, tokens of the prompt past the window
 # (danube 4,096 + 64, recurrentgemma 2,048 + 64), decode steps
 RING = (2, 64, 64)
 TRAIN_CLI_ARCH = "qwen2.5-3b"  # the train CLI's default --arch, as the reference's
 SERVE_CLI_QUERIES = 200        # the serve CLI's default --queries
+REPLICA_TRACE = 24             # queries of the replica scheduler's SimClock replay: the
+#                                first 3 serve batches' (all 48 took 17-30 s a bank)
 # ``smoke_paths``: every smoke config (``configs.get_config(id, smoke=True)``,
 # fp32, uncut) and the serve CLI's tiny stack's small model, random weights:
 # prompts x tokens, greedy tokens
@@ -1677,6 +1688,8 @@ def zero_train_phase(device, seed: int):
     from repro_torch.data import token_stream_batches
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch import zero_trainer
+    from repro_torch.launch.collectives import collective_bytes
+    from repro_torch.launch.mesh import NamedMesh
     from repro_torch.models import build_model
     from repro_torch.tokenizer import HashWordTokenizer
     from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
@@ -1694,11 +1707,12 @@ def zero_train_phase(device, seed: int):
     opt_cfg = AdamWConfig(lr=LM_LR)
     backend = "nccl" if device.type == "cuda" else "gloo"
     dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
-    calls = []
+    calls, handed = [], []
     inner = dist.all_reduce
 
     def counted(*a, **k):
         calls.append(a[0].numel())
+        handed.append(a[0].numel() * a[0].element_size())
         return inner(*a, **k)
     dist.all_reduce = counted
     try:
@@ -1752,13 +1766,27 @@ def zero_train_phase(device, seed: int):
     if launches != ZERO_STEPS * ZERO_MICRO * 2 * ZERO_LAYERS:
         raise AssertionError(f"zero_train: {launches} flash launches, not 2 a layer a "
                              f"microbatch (forward and the remat recompute)")
+    # the dry-run's reckoning of this step (launch/collectives.py) on a data
+    # mesh of two ranks, each holding this batch: the bucket a rank hands the
+    # all-reduce does not depend on the group's size, and a one-device group
+    # reckons nothing (XLA drops a collective over one device)
+    mesh = NamedMesh.of((2,), ("data",))
+    reckoned, reckoned_once, trips = collective_bytes(
+        cfg, "train", LM_SEQ, 2 * LM_BATCH, mesh, microbatches=ZERO_MICRO,
+        grad_sync_once=True)
+    if any(b != {"all-reduce": h} for h in handed for b in (reckoned, reckoned_once)):
+        raise AssertionError(f"zero_train: NCCL was handed {handed} bytes a step, the "
+                             f"reckoning says {reckoned} (body once {reckoned_once})")
     return {"phase": "zero_train", "seconds": time.perf_counter() - t0, "config": cfg.name,
             "layers": ZERO_LAYERS, "depth_cut_from": llama31_8b.CONFIG.num_layers,
             "params": n_params,
             "batch": LM_BATCH, "seq": LM_SEQ, "microbatches": ZERO_MICRO,
             "steps": ZERO_STEPS, "backend": backend, "world_size": 1,
             "all_reduces": len(calls), "bucket_floats": calls[0],
-            "bucket_gb": calls[0] * 4 / 1e9, "step_ms": step_ms, "plain_step_ms": plain_ms,
+            "bucket_gb": calls[0] * 4 / 1e9, "all_reduce_bytes_handed": handed,
+            "reckoned_collectives": reckoned, "reckoned_body_once": reckoned_once,
+            "reckoned_loop_trip_count": trips, "reckoned_mesh": mesh.name + " (data)",
+            "step_ms": step_ms, "plain_step_ms": plain_ms,
             "losses": losses, "plain_losses": plain_losses, "bitwise_equal": bitwise,
             "max_param_diff": max(diffs), "max_memory_allocated_gb": None if peak is None
             else peak / 1e9, "flash_launches": launches}
@@ -2529,6 +2557,10 @@ def shapes_phase(seed: int):
                 "tflops_per_s": plan["flops"] / card["ms_per_step"] / 1e9,
                 "flops_full_depth": rec["flops"], "peak_full_depth_gb": rec["peak_bytes"] / 1e9,
                 "launches": {k: v for k, v in counts.items() if v},
+                "collectives_16x16": rec["collectives"],
+                "collectives_body_once_16x16": rec["collectives_body_once"],
+                "loop_trip_count": rec["loop_trip_count"],
+                "collectives_gb_16x16": sum(rec["collectives"].values()) / 1e9,
                 "reckon_s": rec["reckon_s"], "seconds": time.perf_counter() - t0}
         for key in ("ms_steps", "bitwise_repeat", "pos", "losses"):
             if key in card:
@@ -3437,8 +3469,8 @@ def replicas_phase(eng, plan, serve_out, dense_calls, spare, max_new_tokens: int
     call's tokens equal the dense reference's (``paged_phase``'s re-run of
     the serve batches, margins recorded) under the margin rule; a MISS
     committed by one replica is an EXACT on the other.  Then a
-    ``ReplicaScheduler`` on a ``SimClock`` replays the 48 queries as a
-    Poisson trace (each dispatch modelled at ``batch_s``, the serve phase's
+    ``ReplicaScheduler`` on a ``SimClock`` replays the first ``REPLICA_TRACE``
+    queries as a Poisson trace (each dispatch modelled at ``batch_s``, the serve phase's
     steady batch), once over a fresh shared bank and once over private
     banks: completions, per-lane dispatches and steals, hit rates (reported
     only).  Every replica leaks 0 KV pages."""
@@ -3501,7 +3533,7 @@ def replicas_phase(eng, plan, serve_out, dense_calls, spare, max_new_tokens: int
     leaked = grp.leaked_kv_pages()
     del grp
 
-    texts = [q for b in batches for q in b]
+    texts = [q for b in batches for q in b][:REPLICA_TRACE]
     trace = poisson_trace(texts, rate=12.0 / batch_s, seed=seed)
     sched_rows = {}
     for shared in (True, False):
@@ -4043,17 +4075,26 @@ def profile_phase(eng, batch, max_new_tokens: int, seed: int):
     step alone, then one more serve batch under ``torch.profiler``, then one
     paged decode of the same batch (``paged_decode``)."""
     import torch
+    seconds = {}
+    t = time.perf_counter()
     with torch.no_grad():
         step = decode_step_timing(eng, seed)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        seconds["decode_step"] = time.perf_counter() - t
+        # the device's activity alone: the rows read only kernels, and host-op
+        # records of ~121,000 launches took most of the phase
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             _, meta = eng.handle_batch(batch, max_new_tokens=max_new_tokens,
                                        collect_meta=True)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        seconds["serve_batch"] = time.perf_counter() - t0
+        t = time.perf_counter()
+        rows = kernel_rows(prof)
+        seconds["serve_batch_rows"] = time.perf_counter() - t
+        t = time.perf_counter()
         paged = paged_decode_profile(eng, batch, max_new_tokens, seed)
-    rows = kernel_rows(prof)
+        seconds["paged_decode"] = time.perf_counter() - t
     busy_ms = sum(r[1] for r in rows) / 1e3
     if busy_ms <= 0:
         raise AssertionError("the profiled serve batch recorded no device time")
@@ -4063,7 +4104,8 @@ def profile_phase(eng, batch, max_new_tokens: int, seed: int):
             "routes_miss_tweak_exact": [routes[0], routes[1], routes[2]],
             "kernel_launches": sum(r[2] for r in rows),
             "top": [{"name": k[:90], "device_ms": us / 1e3, "count": c}
-                    for k, us, c in rows[:15]], "paged_decode": paged}
+                    for k, us, c in rows[:15]], "paged_decode": paged,
+            "seconds_by_part": seconds}
 
 
 SOURCES = {

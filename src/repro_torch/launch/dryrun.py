@@ -25,8 +25,9 @@ The reference lowers and compiles every combination for its 16 x 16 and
    steps twice from the same cache, and requires the two runs' logits
    bitwise equal and finite.
 
-``collectives`` is recorded as absent: the port lowers no HLO and one
-process drives one card.  Records go to
+``collectives``, ``collectives_body_once`` and ``loop_trip_count`` are
+the reference's three keys, reckoned by ``launch.collectives`` from the
+placement (arithmetic on shapes: no step is traced for them).  Records go to
 ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama-3.1-8b --shape prefill_32k
@@ -53,6 +54,7 @@ from repro_torch.configs import ASSIGNED_ARCHS, get_config, skip_reason
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels import meta as kernel_meta
 from repro_torch.launch import sharding as shd
+from repro_torch.launch.collectives import collective_bytes
 from repro_torch.launch.mesh import batch_axes, make_production_mesh
 from repro_torch.launch.shapes import (INPUT_SHAPES, META, abstract_params, decode_capacity,
                                        decode_inputs, frontend_shapes, make_step_fn,
@@ -68,8 +70,6 @@ CARD_BYTES = 80 * 10 ** 9       # an H100's 80 GB
 HEADROOM = 0.10                 # kept free of the reckoned peak: allocator rounding,
 #                                 fragmentation, cuBLAS workspaces
 DECODE_STEPS = 8
-COLLECTIVES_ABSENT = ("the port lowers no HLO and issues no collective: one process "
-                      "drives one card")
 
 
 class LiveBytes(TorchDispatchMode):
@@ -439,7 +439,10 @@ def run_one(arch: str, shape_name: str, mesh=None, *, device="cuda", microbatche
     rec["memory"] = argument_bytes(cfg, kind, seq, batch, mesh, zero1=zero1,
                                    grad_sync_once=grad_sync_once)
     rec["microbatches"] = microbatches
-    rec["collectives"] = {"absent": COLLECTIVES_ABSENT}
+    (rec["collectives"], rec["collectives_body_once"],
+     rec["loop_trip_count"]) = collective_bytes(cfg, kind, seq, batch, mesh,
+                                                microbatches=microbatches, zero1=zero1,
+                                                grad_sync_once=grad_sync_once)
     if not reckon_step:
         rec["status"] = "ok"
         return rec
@@ -523,7 +526,9 @@ def main(argv=None):
                 if st == "ok":
                     plan = rec["one_card"]
                     extra = (f"args/dev={rec['memory']['argument_size_in_bytes'] / 2**30:.2f}GiB "
-                             f"flops={rec['flops']:.3e} peak={rec['peak_bytes'] / 1e9:.2f}GB "
+                             f"flops={rec['flops']:.3e} "
+                             f"coll/dev={sum(rec['collectives'].values()):.3e}B "
+                             f"peak={rec['peak_bytes'] / 1e9:.2f}GB "
                              f"one-card: batch {plan['batch']} x{plan['microbatches']} "
                              f"layers {plan['layers']}/{plan['full_layers']} "
                              f"peak {plan['peak_bytes'] / 1e9:.2f}GB")

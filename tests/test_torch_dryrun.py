@@ -36,6 +36,8 @@ from test_torch_shapes import ARCHS, MESHES, _bytes, _flat, _jax_mesh, _jax_para
 from _torch_threads import torch_threads  # noqa: F401 (autouse: a share of the cores)
 
 TOL = dict(rtol=1e-5, atol=1e-5)        # test_torch_archs' and test_torch_hybrid's
+REFERENCE_KINDS = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                   "collective-permute"}    # the reference's _COLL_RE
 CARD_PAIRS = [("llama-3.1-8b", "prefill_32k"), ("llama-3.1-8b", "decode_32k"),
               ("qwen2.5-3b", "train_4k"), ("h2o-danube-1.8b", "long_500k"),
               ("recurrentgemma-9b", "long_500k"), ("mamba2-130m", "long_500k")]
@@ -72,7 +74,9 @@ def _reference_bytes(arch, shape, mesh_name):
 def test_run_one_without_the_step_covers_every_shape_and_mesh(arch):
     """Skip status and reason, exact and active parameter counts, and each
     part of one device's argument bytes equal the reference's, for every
-    assigned shape on both production meshes."""
+    assigned shape on both production meshes; every ok record carries the
+    reference's three collective keys, byte counts by the reference's kinds
+    (``test_torch_collectives.py`` holds their values to the reference's)."""
     jcfg = jax_get_config(arch)
     for shape in shapes.INPUT_SHAPES:
         for mesh_name in MESHES:
@@ -85,7 +89,11 @@ def test_run_one_without_the_step_covers_every_shape_and_mesh(arch):
             if reason:
                 assert rec["status"] == "skipped" and rec["reason"] == reason
                 continue
-            assert rec["status"] == "ok" and "absent" in rec["collectives"]
+            assert rec["status"] == "ok"
+            for key in ("collectives", "collectives_body_once"):
+                assert set(rec[key]) <= REFERENCE_KINDS
+                assert all(isinstance(v, int) and v >= 0 for v in rec[key].values())
+            assert isinstance(rec["loop_trip_count"], int) and rec["loop_trip_count"] >= 1
             want = _reference_bytes(arch, shape, mesh_name)
             got = dict(rec["memory"])
             assert got.pop("argument_size_in_bytes") == sum(want.values())
