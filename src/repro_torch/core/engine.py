@@ -303,6 +303,20 @@ class TweakLLMEngine:
         # device->host copies of routing results in the last batch: 1, or 2
         # when stage 2 ran
         self.last_route_syncs = 0
+        self._recorder = None
+
+    @property
+    def recorder(self):
+        """The ``serving/spans.SpanRecorder`` of a batch's stages, or None.
+        Setting it also sets the small and the big generator's, each to a
+        view that tags its spans with the model."""
+        return self._recorder
+
+    @recorder.setter
+    def recorder(self, rec):
+        self._recorder = rec
+        self.small.recorder = None if rec is None else rec.tagged("small")
+        self.big.recorder = None if rec is None else rec.tagged("big")
 
     @property
     def state(self):
@@ -357,7 +371,13 @@ class TweakLLMEngine:
         # fail fast on an unservable budget before any state changes
         self._tweak_encode_len(max_new_tokens)
         cost_l = self._resolve_costs(n, cost_thresholds)
+        rec = self.recorder
+        if rec is not None:
+            rec.open("embed")
         embs, qlens, qtoks, qmask = self._embed_with_lengths(queries)
+        if rec is not None:
+            rec.close("embed")
+            rec.open("route")
         self.stats.baseline_prompt_tokens += sum(qlens)
         cost_dev = (None if cost_thresholds is None
                     else to_device(np.asarray(cost_l, np.float32), self.device))
@@ -365,17 +385,23 @@ class TweakLLMEngine:
                                                                                   cost_dev)
         # THE per-serve-batch device->host sync
         scores, idxs, decisions, admit = _fetch_route(d_scores, d_idx, d_dec, d_admit)
+        if rec is not None:
+            rec.close("route")
         self.last_route_syncs = 1
         top1 = scores[:, 0]
         slot_arr = idxs[:, 0]
         stage2_rows = decisions == router_lib.UNCERTAIN
         n_unc = int(stage2_rows.sum())  # hostsync: ok host numpy routes
         if n_unc:
+            if rec is not None:
+                rec.open("stage2")
             final, slot, _ = self.bank.second_stage(
                 to_device(qtoks, self.device).long(), to_device(qmask, self.device),
                 d_scores, d_idx, d_dec, d_tau, d_cluster)
             # hostsync: ok the stage-2 fetch, only on batches that hold uncertain rows
             decisions, slot_arr = torch.stack([final, slot.to(torch.int32)]).cpu().numpy()
+            if rec is not None:
+                rec.close("stage2")
             self.last_route_syncs = 2
             self.stats.uncertain += n_unc
             # hostsync: ok host numpy routes
@@ -386,10 +412,14 @@ class TweakLLMEngine:
         responses: List[Optional[str]] = [None] * n
         gen_tokens = [0] * n
         prompt_tokens = [0] * n
+        if rec is not None:
+            rec.open("exact")
         for i in np.nonzero(decisions == router_lib.EXACT)[0]:
             cached = self._text_store.get(slot_l[i])
             responses[i] = cached[1] if cached else self._decode_cached(slot_l[i])
             self.stats.exact += 1
+        if rec is not None:
+            rec.close("exact")
         tweak_ids = np.nonzero(decisions == router_lib.TWEAK)[0]
         if len(tweak_ids):
             self._run_tweak(queries, tweak_ids, slot_l, responses, max_new_tokens,
@@ -497,7 +527,12 @@ class TweakLLMEngine:
             self._prefix_sig = sig
         pc = self._prefix_caches.get(batch)
         if pc is None:
+            rec = self.recorder
+            if rec is not None:
+                rec.open("prefix_build")
             pc = self.small.build_prefix_cache(ids, batch)
+            if rec is not None:
+                rec.close("prefix_build")
             self._prefix_caches[batch] = pc
         return pc
 
@@ -518,6 +553,10 @@ class TweakLLMEngine:
 
     def _run_tweak(self, queries, ids, slot_l, responses, max_new_tokens,
                    gen_tokens, prompt_tokens):
+        # the tweak_prompt span closes where the prompt is built, before the
+        # small LM's first generate call
+        if self.recorder is not None:
+            self.recorder.open("tweak_prompt")
         slots = [slot_l[i] for i in ids]
         cached = []
         for s in slots:
@@ -607,8 +646,11 @@ class TweakLLMEngine:
         real_lens = mask.sum(axis=1).astype(np.int64).tolist()
         toks, mask, _ = pad_to_buckets(toks, mask)
         kw = {} if drafts is None else {"drafts": self._pad_drafts(drafts, toks.shape[0])}
+        if self.recorder is not None:
+            self.recorder.close("tweak_prompt", calls=1)
         out, lengths, ended = self.small.generate_with_lengths(
-            {"tokens": toks}, max_new_tokens=max_new_tokens, seed=self._next_seed(), **kw)
+            {"tokens": toks}, max_new_tokens=max_new_tokens, seed=self._next_seed(),
+            real_lens=real_lens, **kw)
         if drafts is not None:
             self._bill_spec_stats()
         self._emit_tweak_rows(range(len(ids)), ids, out, lengths, ended, responses,
@@ -628,6 +670,9 @@ class TweakLLMEngine:
         groups: Dict[int, List[int]] = {}
         for row, rl in enumerate(real_lens):
             groups.setdefault(bucket_len(max(rl, 1)), []).append(row)
+        rec = self.recorder
+        if rec is not None:
+            rec.close("tweak_prompt", calls=len(groups))
         for bucket in sorted(groups):
             rows = groups[bucket]
             sub_t = pad_to_buckets(toks[rows][:, :bucket], mask[rows][:, :bucket])[0]
@@ -638,7 +683,7 @@ class TweakLLMEngine:
                                                 sub_t.shape[0])
             out, lengths, ended = self.small.generate_with_lengths(
                 {"tokens": sub_t}, max_new_tokens=max_new_tokens, seed=self._next_seed(),
-                prefix_cache=pc, **kw)
+                prefix_cache=pc, real_lens=[real_lens[row] for row in rows], **kw)
             if drafts is not None:
                 self._bill_spec_stats()
             self._emit_tweak_rows(rows, ids, out, lengths, ended, responses, gen_tokens)
@@ -650,6 +695,9 @@ class TweakLLMEngine:
     def _insert_entries(self, texts, resp_tokens, resp_texts, embs):
         """Commit entries to the bank in one call (one host copy of slots),
         then the bank's IVF maintenance."""
+        rec = self.recorder
+        if rec is not None:
+            rec.open("insert")
         n = len(texts)
         ccfg = self.cache_cfg
         qt, qm = self.tok.encode_batch(texts, ccfg.max_query_tokens)
@@ -673,15 +721,23 @@ class TweakLLMEngine:
             self._text_store[slots[j]] = (texts[j], resp_texts[j])
             self.bank.draft_store[slots[j]] = list(resp_tokens[j])
         self.bank.maybe_reindex()
+        if rec is not None:
+            rec.close("insert")
 
     def _run_miss(self, queries, ids, embs, responses, max_new_tokens,
                   gen_tokens, prompt_tokens, admit=None):
+        rec = self.recorder
+        if rec is not None:
+            rec.open("miss_prompt")
         texts = [queries[i] for i in ids]
         toks, mask = self.tok.encode_batch(texts, self.max_query_len)
         real_lens = mask.sum(axis=1).astype(np.int64).tolist()
         toks, mask, _ = pad_to_buckets(toks, mask)
+        if rec is not None:
+            rec.close("miss_prompt")
         out, lengths, ended = self.big.generate_with_lengths(
-            {"tokens": toks}, max_new_tokens=max_new_tokens, seed=self._next_seed())
+            {"tokens": toks}, max_new_tokens=max_new_tokens, seed=self._next_seed(),
+            real_lens=real_lens)
         lengths = lengths.tolist()  # hostsync: ok host numpy lengths
         ended = ended.tolist()  # hostsync: ok host numpy flags
         resp_tokens, resp_texts = [], []

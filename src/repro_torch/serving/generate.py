@@ -74,6 +74,12 @@ class PrefixCache:
     token_ids: Tuple[int, ...]
 
 
+def _real_tokens(lengths, real_lens):
+    """Generated tokens of the real rows, from the host lengths: the rows
+    past ``real_lens`` are batch padding."""
+    return (lengths if real_lens is None else lengths[:len(real_lens)]).sum()
+
+
 def _pack(toks, lengths, done):
     """One int32 block [tokens | length | ended] for a single host copy."""
     return torch.cat([toks, lengths[:, None], done[:, None].to(torch.int32)], dim=1)
@@ -99,6 +105,8 @@ class Generator:
         self.spec_stats = {"proposed": 0, "accepted": 0, "spec_steps": 0}
         self.last_spec_stats = {"proposed": 0, "accepted": 0, "spec_steps": 0}
         self.last_spec_syncs = 0          # host syncs of the last speculative call
+        # serving/spans.SpanRecorder: prefill, decode and fetch as spans
+        self.recorder = None
 
     # ------------------------------------------------------ paged decode
     @property
@@ -190,6 +198,7 @@ class Generator:
             self, batch: Dict[str, Any], *, max_new_tokens: Optional[int] = None,
             seed: Optional[int] = None, fused: Optional[bool] = None,
             prefix_cache: Optional[PrefixCache] = None, drafts=None,
+            real_lens: Optional[Sequence[int]] = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Returns (tokens (B,T_new) int32, lengths (B,), ended (B,)) on the host.
 
@@ -204,6 +213,10 @@ class Generator:
         decode runs the speculative verify loop at ``cfg.spec_k`` tokens per
         forward; the tokens equal the plain call's.  Rows with an empty
         draft decode plainly inside the same call.
+
+        ``real_lens`` (host ints), the real prompt length of each real row,
+        rows past them being batch padding, is read only for the counts of
+        ``recorder``'s spans (``serving/spans.py``).
         """
         mnt = self.cfg.max_new_tokens if max_new_tokens is None else max_new_tokens
         if mnt < 0:
@@ -220,6 +233,9 @@ class Generator:
         draft_pack = None if drafts is None else self._draft_pack(drafts, b, mnt, use_fused)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))  # hostsync: ok host int seed
+        rec = self.recorder
+        if rec is not None:
+            rec.open("prefill")
         if prefix_cache is not None:
             if b != prefix_cache.batch:
                 raise ValueError(
@@ -244,15 +260,26 @@ class Generator:
                     f"{self.model.cfg.name}: paged KV decode unsupported for this "
                     f"architecture — use dense decode")
             caches, lease = self._page_in(caches, b, capacity, prefix_cache)
+        if rec is not None:
+            rec.close("prefill", computed=b * s,
+                      needed=b * s if real_lens is None else sum(real_lens))
         try:
             if draft_pack is not None:
                 return self._decode_fused_spec(logits, caches, draft_pack, mnt,
-                                               self.cfg.spec_k)
+                                               self.cfg.spec_k, real_lens)
             if use_fused:
+                if rec is not None:
+                    rec.open("decode")
+                block = _pack(*self._decode_fused(logits, caches, gen, mnt))
+                if rec is not None:
+                    rec.close("decode", rows=b, steps=mnt - 1, budget=mnt)
+                    rec.open("fetch")
                 # hostsync: ok THE one per-call copy of the decode block
-                packed = _pack(*self._decode_fused(logits, caches, gen, mnt)).cpu().numpy()
+                packed = block.cpu().numpy()
+                if rec is not None:
+                    rec.close("fetch", tokens=_real_tokens(packed[:, mnt], real_lens))
                 return packed[:, :mnt], packed[:, mnt], packed[:, mnt + 1].astype(bool)
-            return self._host_loop(logits, caches, gen, mnt)
+            return self._host_loop(logits, caches, gen, mnt, real_lens)
         finally:
             if lease is not None:
                 self._pool.free_block_table(*lease)
@@ -275,7 +302,8 @@ class Generator:
             tok, done = t, new_done
         return toks, lengths, done
 
-    def _decode_fused_spec(self, logits0, caches, draft_pack, mnt: int, k: int):
+    def _decode_fused_spec(self, logits0, caches, draft_pack, mnt: int, k: int,
+                           real_lens=None):
         """Draft-verify speculative decode, greedy (the JAX package's
         ``_decode_fused_spec``, two ``while_loop``s with data-dependent
         exits).
@@ -295,8 +323,13 @@ class Generator:
         of them bounds phase 2, which then runs with done-masking, past the
         point where JAX's loop would stop if rows end early; the final copy
         brings back tokens, lengths, flags and counters.  Phase 1 runs
-        exactly JAX's iterations, so ``spec_steps`` equals JAX's.
+        exactly JAX's iterations, so ``spec_steps`` equals JAX's.  The
+        recorder's ``decode`` span holds both phases, ``fetch`` the final
+        copy.
         """
+        rec = self.recorder
+        if rec is not None:
+            rec.open("decode")
         eos, scfg = self.cfg.eos_id, self.cfg.sampler
         b = logits0.shape[0]
         dev = logits0.device
@@ -354,7 +387,8 @@ class Generator:
             spec_on = active & (a == k) & (ne < draft_len)
             eos_done = eos_done | ended_now
             steps += 1
-        for _ in range(int(flag[1])):  # hostsync: ok host copy of that flag
+        tail = int(flag[1])  # hostsync: ok host copy of that flag
+        for _ in range(tail):
             logits, caches = self.model.decode_block(self.params, tok[:, None], caches)
             g1 = greedy_ids(mask_vocab(logits, scfg))[:, 0]
             active = ~eos_done & (ne < mnt)
@@ -366,8 +400,14 @@ class Generator:
             eos_done = eos_done | end_now
             tok = t
         counters = torch.stack([prop, acc]).expand(b, 2)
+        block = torch.cat([_pack(toks, lengths, eos_done), counters], dim=1)
+        if rec is not None:
+            rec.close("decode", rows=b, steps=steps + tail, budget=mnt)
+            rec.open("fetch")
         # hostsync: ok the speculative call's final copy
-        packed = torch.cat([_pack(toks, lengths, eos_done), counters], dim=1).cpu().numpy()
+        packed = block.cpu().numpy()
+        if rec is not None:
+            rec.close("fetch", tokens=_real_tokens(packed[:, mnt], real_lens))
         syncs += 1
         prop, acc = (int(x) for x in packed[0, mnt + 2:mnt + 4])  # hostsync: ok host numpy
         self.last_spec_stats = {"proposed": prop, "accepted": acc, "spec_steps": steps}
@@ -377,8 +417,13 @@ class Generator:
         return packed[:, :mnt], packed[:, mnt], packed[:, mnt + 1].astype(bool)
 
     # hostsync: ok the differential oracle syncs per step by design
-    def _host_loop(self, logits, caches, gen, mnt: int):
-        """Host-driven per-step decode, one sync per token: the oracle."""
+    def _host_loop(self, logits, caches, gen, mnt: int, real_lens=None):
+        """Host-driven per-step decode, one sync per token: the oracle.
+        The recorder's ``decode`` span holds the whole loop and its copies;
+        its ``fetch`` span, empty, carries the real tokens."""
+        rec = self.recorder
+        if rec is not None:
+            rec.open("decode")
         eos = self.cfg.eos_id
         tok = sample(logits, self.cfg.sampler, gen)
         t = tok.cpu().numpy()
@@ -387,6 +432,7 @@ class Generator:
         out[:, 0] = t
         done = t == eos
         lengths = np.where(done, 1, mnt).astype(np.int32)
+        steps = 0
         for i in range(1, mnt):
             if done.all():
                 break
@@ -396,4 +442,9 @@ class Generator:
             out[:, i] = t
             lengths[~done & (t == eos)] = i + 1
             done |= t == eos
+            steps = i
+        if rec is not None:
+            rec.close("decode", rows=b, steps=steps, budget=mnt)
+            rec.open("fetch")
+            rec.close("fetch", tokens=_real_tokens(lengths, real_lens))
         return out, lengths, done

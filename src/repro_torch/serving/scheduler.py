@@ -227,6 +227,9 @@ class ReplicaScheduler:
         self._completed: List[Request] = []
         self._n_pending = 0
         self._rid = itertools.count()
+        # serving/spans.SpanRecorder: a ``dispatch`` span around each engine
+        # call (give it this scheduler's clock, so that its spans nest)
+        self.recorder = None
 
     @property
     def engines(self) -> List[object]:
@@ -377,8 +380,15 @@ class ReplicaScheduler:
         # cost-oblivious engines (baselines, test doubles) keep working
         kw = ({"cost_thresholds": costs}
               if any(c is not None for c in costs) else {})
-        result = lane.engine.handle_batch_result(
-            texts, max_new_tokens=self.cfg.max_new_tokens, **kw)
+        rec = self.recorder
+        if rec is not None:
+            rec.open("dispatch")
+        try:
+            result = lane.engine.handle_batch_result(
+                texts, max_new_tokens=self.cfg.max_new_tokens, **kw)
+        finally:
+            if rec is not None:
+                rec.close("dispatch", rows=len(texts))
         del lane.groups[:len(groups)]
         if self.cfg.dedup:
             for g in groups:
